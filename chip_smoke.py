@@ -1,0 +1,633 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's serving path on one CUDA card.
+
+Phases; each prints its results on lines of its own and raises on failure:
+
+1. device  - the card's name and power limit; build the CUDA kernels from
+             photo_search_engine_tpu_torch/csrc with nvcc.
+2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
+             their plain PyTorch versions on the card: ip, l2, masked with
+             a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
+             block of duplicate rows whose ties must go to the smallest row.
+3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app)
+             as a subprocess on a PIL photo library; then the same app in
+             this process, with STORE_QUANTIZED=0 and =1, answering a text,
+             a season-filtered, an image and an upload search.
+4. scale   - a 1M x 1536 bfloat16 corpus with an int8 shadow, made on the
+             card from a seed, installed in a VectorIndex and served by the
+             app's own wiring (initialize_services, create_app); the
+             image-search results against a search built from plain pieces,
+             and the kernels' times against the plain versions (CUDA
+             events, after warm-up).
+
+The launch counters of both kernels are set to 0 before the route runs of
+phases 3 and 4 and read after them; a kernel that the routes never
+launched fails the run.  The second-to-last line of output is a JSON
+object with each kernel's route, launches, error and times; the last is
+{"ok": true, "device": {...}}.  Without a CUDA card the script exits
+non-zero and prints no result.
+
+Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
+                                        or under $CUDA_HOME or /usr/local/cuda)
+      python3 chip_smoke.py --phases device,kernels
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+TOL = 1e-5  # unit vectors at 1536-d: the kernel and the plain product differ in summation order only
+SEED = 20261016
+
+_ERRORS = {"block_topk": 0.0, "int8_block_topk": 0.0}
+_LAUNCHES = {"block_topk": 0, "int8_block_topk": 0}
+_TIMES = {}
+
+
+def log(line: str) -> None:
+    print(line, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# comparison helpers
+# ---------------------------------------------------------------------------
+
+
+def check_topk(name, got_v, got_i, ref_v, ref_i, *, exact=False):
+    """A top-k (``[..., k]``, descending) against the plain version's
+    top-(k+1), whose extra slot is the cut, by the comparison rule the
+    CPU tests use (``tests/torch_parity.py``): values within ``TOL``,
+    indices equal wherever the plain score of the slot differs from its
+    neighbours by more than ``TOL``, empty slots equal; ``exact`` asks for
+    identical values and indices.  Returns the largest value error."""
+    from tests.torch_parity import assert_topk_match
+
+    k = got_v.shape[-1]
+    try:
+        return assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=TOL,
+                                 cut=ref_v[..., k], exact=exact)
+    except AssertionError as exc:
+        raise AssertionError(f"{name}: {exc}") from exc
+
+
+def check_scores(name, got_v, got_i, scores, *, tol=TOL):
+    """Every row id a kernel returned has the plain score it reports."""
+    import torch
+
+    live = got_i != torch.iinfo(torch.int32).max
+    q = torch.arange(got_i.shape[0], device=got_i.device).view(-1, *([1] * (got_i.ndim - 1)))
+    rows = torch.where(live, got_i, 0).long()
+    true = scores[q.expand_as(rows), rows]
+    err = torch.where(live, (true - got_v).abs(), torch.zeros_like(got_v))
+    if not float(err.max()) <= tol:
+        raise AssertionError(f"{name}: a returned row's score differs by {float(err.max()):.3g}")
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    from photo_search_engine_tpu_torch.ops.quantized import int8_block_topk
+    from photo_search_engine_tpu_torch.ops.topk import block_topk
+
+    block_topk.launches = 0
+    int8_block_topk.launches = 0
+
+
+def read_launches() -> dict:
+    from photo_search_engine_tpu_torch.ops.quantized import int8_block_topk
+    from photo_search_engine_tpu_torch.ops.topk import block_topk
+
+    return {"block_topk": block_topk.launches, "int8_block_topk": int8_block_topk.launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 1: device and build
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> None:
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import _cuda
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    log(smi.stdout.strip().splitlines()[0])  # the card's name and power limit, as nvidia-smi gives them
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    info = _cuda.build_info()
+    log(f"[device] kernels built in {info['seconds']:.1f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            log(f"[device] ptxas: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _unit_rows(n, d, gen, dtype):
+    import torch
+
+    x = torch.randn((n, d), generator=gen, device=DEVICE, dtype=torch.float32)
+    return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dtype)
+
+
+def _plain_scores(corpus, queries, metric, count, mask):
+    """Every row's plain score, from the scoring helpers of the plain kernel 1."""
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    qf = queries.float()
+    scores = to.score_chunk(corpus, qf, (qf * qf).sum(1), metric)
+    return to.mask_scores(scores, 0, corpus.shape[0], count, mask)
+
+
+def phase_kernels() -> None:
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n, d = 5000, 1536  # ragged last block, main-path width
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        cnorms = to.row_sq_norms(corpus)
+        for variant in ("ip", "l2", "masked"):
+            metric = "l2" if variant == "l2" else "ip"
+            count, mask = n, None
+            if variant == "masked":
+                count = n - 777
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.3).to(torch.int8)
+            for k, q in ((1, 3), (10, 40), (50, 3), (64, 40)):
+                queries = _unit_rows(q, d, gen, dtype)
+                kw = dict(count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=1024)
+                got = to.block_topk(corpus, queries, k, **kw)
+                ref = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
+                torch.cuda.synchronize()
+                name = f"block_topk {str(dtype)[6:]} {variant} k={k} q={q}"
+                err = check_topk(name, *got, *ref)
+                check_scores(name, *got, _plain_scores(corpus, queries, metric, count, mask))
+                _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
+                cases += 1
+        # the whole exact search through kernel 1 against the plain search
+        queries = _unit_rows(40, d, gen, dtype)
+        for metric in ("ip", "l2"):
+            got = to.exact_search(corpus, queries, 50, metric=metric)
+            ref = to.exact_search_plain(corpus, queries, 51, metric=metric)
+            sign = -1.0 if metric == "l2" else 1.0
+            err = check_topk(f"exact_search {str(dtype)[6:]} {metric}", sign * got[0], got[1], sign * ref[0], ref[1])
+            _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
+            cases += 1
+    # a width that is not a multiple of the kernels' 32-element D-chunk
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus, queries = _unit_rows(3000, 1000, gen, dtype), _unit_rows(40, 1000, gen, dtype)
+        kw = dict(count=2950, metric="l2", mask=None, cnorms=to.row_sq_norms(corpus), block_n=1024)
+        name = f"block_topk {str(dtype)[6:]} D=1000"
+        got = to.block_topk(corpus, queries, 10, **kw)
+        err = check_topk(name, *got, *to.exact_block_topk_plain(corpus, queries, 11, **kw))
+        check_scores(name, *got, _plain_scores(corpus, queries, "l2", 2950, None))
+        _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
+        cases += 1
+    log(f"[kernels] block_topk: {cases} cases agree with the plain version "
+        f"(max |err| {_ERRORS['block_topk']:.3g}, tol {TOL})")
+
+    # duplicate rows: every tie must come out at the smallest row, exactly
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        dups = list(range(1000, 1062)) + [3000, 4990]  # across a block edge and in the ragged block
+        corpus[dups] = corpus[7].clone()
+        queries = corpus[7:8].clone()
+        for k in (1, 10, 50, 64):
+            _, idx = to.exact_search(corpus, queries, k, metric="ip")
+            want = ([7] + dups)[:k]
+            got = idx[0].tolist()
+            if got != want:
+                raise AssertionError(f"duplicate-row ties {str(dtype)[6:]} k={k}: {got[:8]}... != {want[:8]}...")
+    log("[kernels] block_topk: duplicate-row ties come out at the smallest row (f32, bf16; k 1/10/50/64)")
+
+    cases = 0
+    for variant in ("ip", "l2", "masked"):
+        metric = "l2" if variant == "l2" else "ip"
+        ref_rows = _unit_rows(n, d, gen, torch.bfloat16)
+        corpus_i8, scales = qo.quantize_rows(ref_rows)
+        cnorms = to.row_sq_norms(ref_rows) if metric == "l2" else None
+        count, mask = n, None
+        if variant == "masked":
+            count = n - 777
+            mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.3).to(torch.int8)
+        for k, q in ((10, 3), (50, 40)):
+            q_i8, qs = qo.quantize_rows(_unit_rows(q, d, gen, torch.float32))
+            kw = dict(count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=2048)
+            got = qo.int8_block_topk(corpus_i8, scales, q_i8, qs, k, **kw)
+            ref = qo.int8_block_topk_plain(corpus_i8, scales, q_i8, qs, k + 1, **kw)
+            torch.cuda.synchronize()
+            err = check_topk(f"int8_block_topk {variant} k={k} q={q}", *got, *ref, exact=True)
+            _ERRORS["int8_block_topk"] = max(_ERRORS["int8_block_topk"], err)
+            cases += 1
+    c8, cs = qo.quantize_rows(_unit_rows(3000, 1000, gen, torch.float32))
+    q8, qs = qo.quantize_rows(_unit_rows(40, 1000, gen, torch.float32))
+    kw = dict(count=3000, metric="ip", block_n=2048)
+    check_topk("int8_block_topk D=1000", *qo.int8_block_topk(c8, cs, q8, qs, 10, **kw),
+               *qo.int8_block_topk_plain(c8, cs, q8, qs, 11, **kw), exact=True)
+    cases += 1
+    log(f"[kernels] int8_block_topk: {cases} cases identical to the plain version "
+        f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the app on a photo library
+# ---------------------------------------------------------------------------
+
+
+def _demo():
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import demo_e2e
+
+    return demo_e2e
+
+
+def _upload_jpeg() -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.new("RGB", (320, 240), (235, 165, 85)).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def _wait_ready(demo, base, what):
+    for _ in range(2400):
+        status = demo._get(base, "/index_status")
+        if status["status"] in {"success", "ready", "failed"}:
+            break
+        time.sleep(0.25)
+    if status["status"] not in {"success", "ready"} or not status.get("indexed_count"):
+        raise AssertionError(f"{what}: index build ended as {status}")
+    return status
+
+
+def _results(what, payload, *, allow_empty=False):
+    if payload.get("status") != "success" or not (allow_empty or payload.get("results")):
+        raise AssertionError(f"{what}: empty or failed response: {str(payload)[:300]}")
+    return len(payload["results"])
+
+
+def _app_env(tmp: str, quantized: str) -> dict:
+    photo_dir = os.path.join(tmp, "photos")
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(photo_dir, exist_ok=True)
+    os.makedirs(data_dir, exist_ok=True)
+    _demo().make_library(photo_dir)
+    return {
+        "PHOTO_DIR": photo_dir, "DATA_DIR": data_dir, "RUNTIME_DATA_DIR": data_dir,
+        "PSE_PLATFORM": "gpu", "SEARCH_MICROBATCH_ENABLED": "0",
+        "STORE_QUANTIZED": quantized, "STORE_DTYPE": "auto",
+    }
+
+
+def phase_app_subprocess() -> None:
+    import socket
+
+    demo = _demo()
+    with tempfile.TemporaryDirectory(prefix="pse_smoke_") as tmp:
+        env = dict(os.environ)
+        env.update(_app_env(tmp, "auto"))
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        env.update(SERVER_PORT=str(port), PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+        log_path = os.path.join(tmp, "server.log")
+        with open(log_path, "w") as log_file:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "photo_search_engine_tpu_torch.api.app"],
+                env=env, cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT,
+            )
+            try:
+                base = f"http://127.0.0.1:{port}"
+                started = time.perf_counter()
+                for _ in range(240):
+                    if server.poll() is not None:
+                        break
+                    try:
+                        demo._get(base, "/index_status")
+                        break
+                    except OSError:
+                        time.sleep(0.5)
+                if server.poll() is not None:
+                    raise AssertionError(f"server exited rc {server.returncode}:\n{open(log_path).read()[-3000:]}")
+                up = time.perf_counter() - started
+                demo._post(base, "/init_index", {"mode": "full"})
+                status = _wait_ready(demo, base, "entry point")
+                hits = _results("entry point /search_photos",
+                                demo._post(base, "/search_photos", {"query": "beach sunset sea", "top_k": 3}))
+                log(f"[app] entry point: up in {up:.1f} s, indexed {status['indexed_count']} photos, "
+                    f"/search_photos -> {hits} results")
+            finally:
+                server.terminate()
+                try:
+                    server.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    server.kill()
+                    server.wait()
+        log_text = open(log_path).read() if os.path.exists(log_path) else ""
+        if "[INFO] serving on" not in log_text:
+            raise AssertionError(f"entry point did not serve:\n{log_text[-3000:]}")
+
+
+def _serve(app):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from load_test import serve
+
+    return serve(app)
+
+
+def phase_app_in_process(quantized: str) -> dict:
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+
+    demo = _demo()
+    with tempfile.TemporaryDirectory(prefix="pse_smoke_") as tmp:
+        services = initialize_services(load_config(_app_env(tmp, quantized)))
+        server, port = _serve(create_app(services))
+        try:
+            base = f"http://127.0.0.1:{port}"
+            demo._post(base, "/init_index", {"mode": "full"})
+            _wait_ready(demo, base, f"in process, STORE_QUANTIZED={quantized}")
+            photo = os.path.join(services["config"]["PHOTO_DIR"], "beach_sunset_sea.jpg")
+            reset_launches()
+            counts = {
+                "text": _results("text", demo._post(base, "/search_photos", {"query": "beach sunset sea", "top_k": 3})),
+                "season": _results("season", demo._post(base, "/search_photos", {"query": "夏天的照片", "top_k": 6})),
+                "image": _results("image", demo._post(base, "/search_by_image", {"image_path": photo, "top_k": 3})),
+                "upload": _results("upload", demo._post_multipart(
+                    base, "/search_by_uploaded_image", {"top_k": "3"}, "image", "upload.jpg", _upload_jpeg())),
+            }
+            launches = read_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+    route = services["vector_index"].last_route
+    log(f"[app] in process, STORE_QUANTIZED={quantized}: results {counts}, "
+        f"launches {launches}, last route {route['impl']}")
+    return launches
+
+
+def phase_app() -> None:
+    phase_app_subprocess()
+    exact = phase_app_in_process("0")
+    if exact["block_topk"] <= 0:
+        raise AssertionError("STORE_QUANTIZED=0: the routes never launched block_topk")
+    int8 = phase_app_in_process("1")
+    if int8["int8_block_topk"] <= 0:
+        raise AssertionError("STORE_QUANTIZED=1: the routes never launched int8_block_topk")
+    for name in _LAUNCHES:
+        _LAUNCHES[name] += exact[name] + int8[name]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: 1M x 1536
+# ---------------------------------------------------------------------------
+
+
+def _int8_search_reference(store, queries, k, *, kloc, cand):
+    """The int8 tier's search (inner product) from plain pieces: every
+    row's quantized score (the int32 dot, exact in float64, scaled in
+    float32 as kernel 2 scales it), the ``cand`` best rows of the whole
+    corpus by that score, then the plain exact search over those rows.
+
+    The port nominates per block instead (each block's top ``kloc``, then
+    the top ``cand`` of those).  Both pools are the same set unless one
+    block holds more than ``kloc`` of the corpus-wide pool, which is
+    checked here."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    n = store.count
+    q_i8, qs = qo.quantize_rows(queries)
+    qd = q_i8.double()
+    scores = torch.empty((queries.shape[0], n), dtype=torch.float32, device=queries.device)
+    for start in range(0, n, 65536):
+        stop = min(n, start + 65536)
+        acc = (qd @ store._device_i8[start:stop].double().T).float()
+        scores[:, start:stop] = acc * qs[:, None] * store._scales[None, start:stop]
+    pool = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :cand]
+    nb = -(-n // store._i8_block)
+    blocks = pool // store._i8_block + nb * torch.arange(pool.shape[0], device=pool.device)[:, None]
+    per_block = int(torch.bincount(blocks.flatten()).max())
+    if per_block > kloc:
+        raise AssertionError(f"int8 reference: one block holds {per_block} > kloc={kloc} rows of a query's pool")
+    vals, idx = [], []
+    for qi in range(queries.shape[0]):
+        v, pos = to.exact_search_plain(store._device[pool[qi]], queries[qi:qi + 1], k, metric="ip")
+        vals.append(v)
+        idx.append(pool[qi][pos.long()])
+    return torch.cat(vals), torch.cat(idx).to(torch.int32)
+
+
+def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    demo = _demo()
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    corpus = torch.empty((rows, dim), dtype=torch.bfloat16, device=device)
+    for start in range(0, rows, 131072):
+        stop = min(rows, start + 131072)
+        corpus[start:stop] = _unit_rows(stop - start, dim, gen, torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="pse_scale_") as tmp:
+        index = VectorIndex(
+            dimension=dim, index_path=os.path.join(tmp, "scale.index"),
+            metadata_path=os.path.join(tmp, "scale-meta.json"), metric="cosine",
+            store_dtype="bfloat16", quantized=True, device=device,
+        )
+        # metadata as scripts/load_test.py builds it for its synthetic corpus
+        index.load_device_rows(corpus, [
+            {"photo_path": f"/photos/{i}.jpg", "file_name": f"IMG_{i:07d}.jpg",
+             "description": f"synthetic row {i}"}
+            for i in range(rows)
+        ])
+        del corpus
+        store = index._store
+        torch.cuda.synchronize()
+        log(f"[scale] {rows} x {dim} bf16 rows + int8 shadow on the card in "
+            f"{time.perf_counter() - t0:.1f} s (capacity {store.capacity}, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+
+        # the app's own wiring over the installed index; query expansion and
+        # the caches off, so that each request runs its searches afresh
+        config = load_config({
+            "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu",
+            "SEARCH_MICROBATCH_ENABLED": "0", "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10",
+            "QUERY_EXPANSION_ENABLED": "0", "QUERY_CACHE_ENABLED": "0", "EMBEDDING_CACHE_ENABLED": "0",
+        })
+        server, port = _serve(create_app(initialize_services(config, device=device, vector_index=index)))
+        base = f"http://127.0.0.1:{port}"
+        picks = [int(x) for x in np.random.default_rng(SEED).integers(0, rows, size=4)]
+        try:
+            reset_launches()
+            for quantized in (True, False):
+                index.quantized = quantized  # int8 shadow scan (kernel 2) or exact scan (kernel 1)
+                for i in picks:
+                    t = time.perf_counter()
+                    hits = _results("scale /search_by_image", demo._post(
+                        base, "/search_by_image", {"image_path": f"/photos/{i}.jpg", "top_k": 10}))
+                    log(f"[scale] /search_by_image ({'int8' if quantized else 'exact'}, candidate_k 50): "
+                        f"{hits} results in {1e3 * (time.perf_counter() - t):.1f} ms")
+            for query in ("海边 日落", "雪山 合影", "城市 夜景"):
+                t = time.perf_counter()
+                # random rows score below the searcher's relevance floors, so
+                # the fused result may rightly be empty here
+                hits = _results("scale /search_photos", demo._post(
+                    base, "/search_photos", {"query": query, "top_k": 10}), allow_empty=True)
+                log(f"[scale] /search_photos (candidate_k 500, exact large-k): {hits} results "
+                    f"in {1e3 * (time.perf_counter() - t):.1f} ms")
+            launches = read_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+        log(f"[scale] route launches {launches}")
+        for name, value in launches.items():
+            if value <= 0:
+                raise AssertionError(f"scale routes never launched {name}")
+            _LAUNCHES[name] += value
+
+        # the image searches' vector results against the plain version
+        queries = torch.from_numpy(np.stack([store.reconstruct(i) for i in picks])).to(device)
+        live = store._device[: store.count]
+        for quantized in (True, False):
+            index.quantized = quantized
+            dists, idx = index.raw_search_batch(queries.cpu().numpy(), 50)
+            got_v = torch.from_numpy(dists).to(device)
+            got_i = torch.from_numpy(idx).to(device)
+            if quantized:
+                ref_v, ref_i = _int8_search_reference(store, queries, 51, kloc=50, cand=100)
+                err = check_topk("scale int8 image search", got_v, got_i, ref_v, ref_i)
+                _ERRORS["int8_block_topk"] = max(_ERRORS["int8_block_topk"], err)
+            else:
+                ref_v, ref_i = to.exact_search_plain(live, queries.to(torch.bfloat16), 51, metric="ip")
+                err = check_topk("scale exact image search", got_v, got_i, ref_v, ref_i)
+                _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
+            if not bool((got_i[:, 0] == torch.tensor(picks, device=device, dtype=got_i.dtype)).all()):
+                raise AssertionError("scale image search: a query row is not its own nearest neighbour")
+        log("[scale] image-search results agree with the plain version (exact and int8)")
+
+        # both kernels against their plain versions at the main-path shapes,
+        # then their times (CUDA events; plain, kernel, kernel, plain)
+        k1 = dict(count=store.count, metric="ip", block_n=store.block_rows)
+        k2 = dict(count=store.count, metric="ip", block_n=store._i8_block)
+        for batch in (1, 256):
+            qb = _unit_rows(batch, dim, gen, torch.float32)
+            qb16 = qb.to(torch.bfloat16)
+            q_i8, qs = qo.quantize_rows(qb)
+            for k in (10, 50):
+                runs = {
+                    "block_topk": (
+                        lambda kk: to.block_topk(store._device, qb16, kk, **k1),
+                        lambda kk: to.exact_block_topk_plain(store._device, qb16, kk, **k1),
+                    ),
+                    "int8_block_topk": (
+                        lambda kk: qo.int8_block_topk(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                        lambda kk: qo.int8_block_topk_plain(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                    ),
+                }
+                for name, (kernel, plain) in runs.items():
+                    err = check_topk(f"scale {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1),
+                                     exact=name == "int8_block_topk")
+                    _ERRORS[name] = max(_ERRORS[name], err)
+                    plain_ms = cuda_ms(lambda: plain(k), reps=2)
+                    kernel_ms = cuda_ms(lambda: kernel(k), reps=3)
+                    kernel_ms2 = cuda_ms(lambda: kernel(k), reps=3)
+                    plain_ms2 = cuda_ms(lambda: plain(k), reps=2)
+                    ms, pms = (kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2
+                    _TIMES[(name, batch, k)] = (ms, pms)
+                    log(f"[scale] {name} batch {batch} top-{k} at {rows}x{dim}: agrees with the plain "
+                        f"version (max |err| {err:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                        f"(kernel {kernel_ms:.3f}/{kernel_ms2:.3f}, plain {plain_ms:.3f}/{plain_ms2:.3f})")
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="device,kernels,app,scale",
+                        help="comma-separated subset of device,kernels,app,scale")
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "photo_search_engine_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    phases = [p.strip() for p in args.phases.split(",") if p.strip()]
+    started = time.perf_counter()
+    phase_device()
+    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale}
+    for name in phases:
+        if name in runners:
+            t = time.perf_counter()
+            runners[name]()
+            log(f"[{name}] phase passed in {time.perf_counter() - t:.1f} s")
+    if "app" in phases or "scale" in phases:
+        for name, value in _LAUNCHES.items():
+            if value <= 0:
+                raise AssertionError(f"the main path never launched {name}")
+    sources = {
+        "block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
+                       "photo_search_engine_tpu/ops/topk.py:345"),
+        "int8_block_topk": ("photo_search_engine_tpu_torch/csrc/int8_block_topk.cu",
+                            "photo_search_engine_tpu/ops/quantized.py:192"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        ms, plain_ms = _TIMES.get((name, 1, 50), (None, None))
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": _LAUNCHES[name], "max_abs_err": _ERRORS[name],
+                        "ms": ms, "plain_ms": plain_ms})
+    log(f"[done] phases {phases} passed in {time.perf_counter() - started:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,90 @@
+// Shared pieces of the two scan kernels (block_topk.cu, int8_block_topk.cu):
+// the tile geometry and the block-local top-k selection.
+//
+// Selection replaces the TPU's k rounds of "max -> first occurrence ->
+// eliminate" over a [BQ, BN] tile (_extract_block_topk,
+// photo_search_engine_tpu/ops/topk.py:272-295).  Here one warp owns one
+// query row of the score tile in shared memory.  Each lane keeps the best
+// (value, column) of the columns it owns (lane, lane+32, ...); a round is a
+// five-step butterfly reduction to the best value with the smallest column
+// among equal values, after which only the winning lane rescans its
+// columns.  Ties therefore go to the smallest row, as lax.top_k does, and
+// the comparison is on exact float32 values (no packed keys).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <climits>
+#include <cstdint>
+
+namespace pse {
+
+constexpr int kThreads = 256;       // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileRows = 256;      // corpus rows scored per pass (TN)
+constexpr int kRowsPerThread = 8;   // TR: rows of the pass one thread scores
+constexpr int kDepth = 32;          // D-chunk staged per step (elements, or int8x4 words)
+constexpr int kPitch = kTileRows + 1;  // odd pitch: transposed staging is conflict-free
+
+__device__ __forceinline__ bool better(float v, int c, float bv, int bc) {
+  return v > bv || (v == bv && c < bc);
+}
+
+// Best (value, column) among columns lane, lane+32, ... of `row`; -inf
+// entries are never chosen (column stays INT_MAX).
+__device__ __forceinline__ void lane_best(const float* row, int bn, int lane,
+                                          float& bv, int& bc) {
+  bv = -CUDART_INF_F;
+  bc = INT_MAX;
+  for (int c = lane; c < bn; c += 32) {
+    const float v = row[c];
+    if (v > bv) {  // strict: the first (smallest) column wins a tie
+      bv = v;
+      bc = c;
+    }
+  }
+}
+
+// Top-k of every query row of the [BQ, bn] score tile `scores`, written to
+// out_v/out_i[(q * nb + blk) * k + slot]; row ids are global (row0 + col).
+// Slots with no valid column hold -inf and INT_MAX.  `scores` is consumed.
+template <int BQ>
+__device__ void select_block_topk(float* scores, int bn, int q0, int q,
+                                  int blk, int nb, int row0, int k,
+                                  float* __restrict__ out_v,
+                                  int* __restrict__ out_i) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  for (int ql = warp; ql < BQ; ql += kWarps) {
+    const int gq = q0 + ql;
+    if (gq >= q) break;  // warp-uniform
+    float* row = scores + ql * bn;
+    float bv;
+    int bc;
+    lane_best(row, bn, lane, bv, bc);
+    const size_t base = (static_cast<size_t>(gq) * nb + blk) * k;
+    for (int slot = 0; slot < k; ++slot) {
+      float wv = bv;
+      int wc = bc;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, wc, off);
+        if (better(ov, oc, wv, wc)) {
+          wv = ov;
+          wc = oc;
+        }
+      }
+      if (lane == 0) {
+        out_v[base + slot] = wv;
+        out_i[base + slot] = wc == INT_MAX ? INT_MAX : row0 + wc;
+      }
+      if (wc != INT_MAX && lane == (wc & 31)) {
+        row[wc] = -CUDART_INF_F;  // eliminate, then rescan this lane only
+        lane_best(row, bn, lane, bv, bc);
+      }
+    }
+  }
+}
+
+}  // namespace pse

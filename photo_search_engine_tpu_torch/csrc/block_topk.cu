@@ -1,0 +1,182 @@
+// Kernel 1: exact block top-k scan (float32 or bfloat16 corpus).
+//
+// Replaces: _block_topk_kernel with fast=False and _extract_block_topk
+// (photo_search_engine_tpu/ops/topk.py:345-389, 272-295), launched there by
+// _pallas_twophase_impl (:391-480).
+//
+// What bounds it on the H100: at 1M x 1536 bf16 every batch reads the
+// 3.1 GB corpus.  At batch 1 that read is the cost (about 1 ms at
+// 3.35 TB/s).  At batch 256 the product is 2 * 256 * 1M * 1536 = 0.8 TFLOP,
+// which plain FP32 FMAs (67 TFLOP/s peak) cannot do in less than ~12 ms, so
+// this kernel is bound by compute there.
+//
+// What the design does about it: each CTA owns one block of `bn` corpus
+// rows for BQ queries, so every corpus element it stages in shared memory
+// feeds BQ queries (32 at large batch) and the corpus is read from device
+// memory once per query block; query blocks run on blockIdx.x, so CTAs that
+// share a corpus block run together and the re-reads hit L2.  Each thread
+// keeps a TQ x 8 register tile of f32 accumulators (fmaf, IEEE, no TF32,
+// no tensor cores yet; bf16 is widened with __bfloat162float), and D is
+// staged 32 at a time, transposed with an odd pitch so both the staging
+// writes and the FMA reads are free of bank conflicts.  Scores never leave
+// the SM: the epilogue (count, mask, l2) writes them to a [BQ, bn] tile in
+// shared memory, and the selection (block_select.cuh) writes only k
+// partials per query and block.  wgmma, TMA and a pipelined ring of tiles
+// are later work.
+//
+// Outputs: [Q, NB, k] float32 scores (higher is better; l2 as
+// -(|q|^2 + |c|^2 - 2 q.c)) and int32 global row ids, padded with -inf and
+// INT_MAX.  The merge over blocks (phase B) is a stable sort in PyTorch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "block_select.cuh"
+
+namespace {
+
+using namespace pse;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T, int BQ>
+__global__ void __launch_bounds__(kThreads)
+block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
+                  const float* __restrict__ qnorms,
+                  const float* __restrict__ cnorms,
+                  const int8_t* __restrict__ mask, float* __restrict__ out_v,
+                  int* __restrict__ out_i, int n, int d, int q, int count,
+                  int k, int bn, int l2) {
+  constexpr int TQ = BQ / kWarps;  // queries per thread
+  extern __shared__ float smem[];
+  float* scores = smem;              // [BQ][bn]
+  float* q_s = scores + BQ * bn;     // [kDepth][BQ + 1]
+  float* c_s = q_s + kDepth * (BQ + 1);  // [kDepth][kPitch]
+
+  const int tid = threadIdx.x;
+  const int rg = tid % 32;  // row group: rows rg + 32 * j of the pass
+  const int qg = tid / 32;  // query group: queries qg * TQ + i
+  const int q0 = blockIdx.x * BQ;
+  const int blk = blockIdx.y;
+  const int row0 = blk * bn;
+
+  for (int sub = 0; sub < bn; sub += kTileRows) {
+    float acc[TQ][kRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kRowsPerThread; ++j) acc[i][j] = 0.f;
+
+    for (int d0 = 0; d0 < d; d0 += kDepth) {
+      for (int e = tid; e < BQ * kDepth; e += kThreads) {
+        const int ql = e / kDepth, dd = e % kDepth;
+        const int gq = q0 + ql, gd = d0 + dd;
+        q_s[dd * (BQ + 1) + ql] =
+            (gq < q && gd < d) ? widen(queries[static_cast<size_t>(gq) * d + gd]) : 0.f;
+      }
+      // a warp reads 32 consecutive elements of one row (coalesced) and
+      // writes them down one column of the transposed tile
+      const int dd = tid % 32;
+      const int gd = d0 + dd;
+#pragma unroll 4
+      for (int i = 0; i < kTileRows / kWarps; ++i) {
+        const int r = i * kWarps + tid / 32;
+        const int grow = row0 + sub + r;
+        c_s[dd * kPitch + r] = (sub + r < bn && grow < n && gd < d)
+                                   ? widen(corpus[static_cast<size_t>(grow) * d + gd])
+                                   : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int e = 0; e < kDepth; ++e) {
+        float qv[TQ], cv[kRowsPerThread];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) qv[i] = q_s[e * (BQ + 1) + qg * TQ + i];
+#pragma unroll
+        for (int j = 0; j < kRowsPerThread; ++j) cv[j] = c_s[e * kPitch + rg + 32 * j];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i)
+#pragma unroll
+          for (int j = 0; j < kRowsPerThread; ++j) acc[i][j] = fmaf(qv[i], cv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+    // epilogue: -inf past count / where mask <= 0; l2 as in the TPU kernel
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int lc = sub + rg + 32 * j;
+      if (lc >= bn) continue;
+      const int col = row0 + lc;
+      const bool valid = col < n && col < count && (mask == nullptr || mask[col] > 0);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const int ql = qg * TQ + i;
+        float s = acc[i][j];
+        if (l2 && valid) {
+          const float qn = (q0 + ql < q) ? qnorms[q0 + ql] : 0.f;
+          s = -__fsub_rn(__fadd_rn(qn, cnorms[col]), __fmul_rn(2.f, s));
+        }
+        scores[ql * bn + lc] = valid ? s : -CUDART_INF_F;
+      }
+    }
+  }
+  __syncthreads();
+  select_block_topk<BQ>(scores, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
+}
+
+template <typename T, int BQ>
+cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
+                const void* cnorms, const void* mask, void* out_v, void* out_i,
+                int n, int d, int q, int count, int k, int bn, int l2,
+                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(BQ) * bn + kDepth * (BQ + 1) + kDepth * kPitch);
+  auto kernel = block_topk_kernel<T, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch does not report it
+    return err;
+  }
+  const dim3 grid((q + BQ - 1) / BQ, (n + bn - 1) / bn);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(corpus), static_cast<const T*>(queries),
+      static_cast<const float*>(qnorms), static_cast<const float*>(cnorms),
+      static_cast<const int8_t*>(mask), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), n, d, q, count, k, bn, l2);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* corpus, const void* queries, const void* qnorms,
+             const void* cnorms, const void* mask, void* out_v, void* out_i,
+             int n, int d, int q, int count, int k, int bn, int l2,
+             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (q <= 8)
+    return run<T, 8>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d, q,
+                     count, k, bn, l2, s);
+  return run<T, 32>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d, q,
+                    count, k, bn, l2, s);
+}
+
+}  // namespace
+
+extern "C" int pse_block_topk_f32(const void* corpus, const void* queries,
+                                  const void* qnorms, const void* cnorms,
+                                  const void* mask, void* out_v, void* out_i,
+                                  int n, int d, int q, int count, int k, int bn,
+                                  int l2, void* stream) {
+  return dispatch<float>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d,
+                         q, count, k, bn, l2, stream);
+}
+
+extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries,
+                                   const void* qnorms, const void* cnorms,
+                                   const void* mask, void* out_v, void* out_i,
+                                   int n, int d, int q, int count, int k, int bn,
+                                   int l2, void* stream) {
+  return dispatch<__nv_bfloat16>(corpus, queries, qnorms, cnorms, mask, out_v, out_i,
+                                 n, d, q, count, k, bn, l2, stream);
+}

@@ -1,0 +1,87 @@
+"""The two CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests need a card and skip
+without one; the plain versions they are held to run on the CPU in
+``test_torch_topk.py`` and ``test_torch_quantized.py``.  On a machine
+with a card and without jax (this file imports none), run:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance: kernel 1 values within 1e-5 of the plain float32 product
+(summation order only, unit rows); kernel 2 identical (exact int32 dot,
+the same float32 scaling)."""
+
+import pytest
+import torch
+
+from photo_search_engine_tpu_torch.ops import quantized as qo
+from photo_search_engine_tpu_torch.ops import topk as to
+from tests.torch_parity import assert_topk_match
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _unit(n, d, gen, dtype=torch.float32):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("k,q", [(1, 3), (10, 40), (64, 9)])
+def test_block_topk_matches_plain(gen, dtype, metric, k, q):
+    corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
+    mask = (torch.rand(3000, generator=gen, device="cuda") < 0.5).to(torch.int8)
+    kw = dict(count=2900, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+    before = to.block_topk.launches
+    got_v, got_i = to.block_topk(corpus, queries, k, **kw)
+    torch.cuda.synchronize()
+    assert to.block_topk.launches == before + 1
+    ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
+    assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("k,q", [(10, 3), (50, 20)])
+def test_int8_block_topk_identical_to_plain(gen, metric, k, q):
+    ref_rows = _unit(5000, 256, gen, torch.bfloat16)
+    c8, cs = qo.quantize_rows(ref_rows)
+    q8, qs = qo.quantize_rows(_unit(q, 256, gen))
+    mask = (torch.rand(5000, generator=gen, device="cuda") < 0.7).to(torch.int8)
+    kw = dict(count=4800, metric=metric, mask=mask, cnorms=to.row_sq_norms(ref_rows), block_n=2048)
+    got = qo.int8_block_topk(c8, cs, q8, qs, k, **kw)
+    ref = qo.int8_block_topk_plain(c8, cs, q8, qs, k, **kw)
+    assert_topk_match(*got, *ref, tol=0.0, exact=True)
+
+
+def test_wrappers_check_their_inputs(gen):
+    corpus = _unit(100, 64, gen)
+    with pytest.raises(ValueError):
+        to.block_topk(corpus, corpus.to(torch.bfloat16), 5, count=100)
+    with pytest.raises(ValueError):
+        to.block_topk(corpus, corpus[:, :32].contiguous(), 5, count=100)
+    with pytest.raises(ValueError):
+        to.block_topk(corpus, corpus, 65, count=100)
+    with pytest.raises(ValueError):
+        to.block_topk(corpus, corpus, 5, count=100, metric="l2")  # no cnorms
+    with pytest.raises(ValueError):
+        to.block_topk(corpus, corpus, 5, count=100, mask=torch.ones(100, dtype=torch.int8))  # mask on the host
+    c8, cs = qo.quantize_rows(_unit(100, 66, gen))
+    with pytest.raises(ValueError):
+        qo.int8_block_topk(c8, cs, c8, cs, 5, count=100)  # D % 4 != 0
+    # a score tile past the shared memory of one SM: the C entry returns the error
+    with pytest.raises(RuntimeError, match="cudaError"):
+        to.block_topk(corpus, corpus, 5, count=100, block_n=65536)
+    c8, cs = qo.quantize_rows(corpus)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        qo.int8_block_topk(c8, cs, c8, cs, 5, count=100, block_n=65536)
+    # the error is not left behind for the next launch to report
+    to.block_topk(corpus, corpus, 5, count=100)
+    qo.int8_block_topk(c8, cs, c8, cs, 5, count=100)

@@ -8,21 +8,30 @@ Phases; each prints its results on lines of its own and raises on failure:
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
              their plain PyTorch versions on the card: ip, l2, masked with
              a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
-             block of duplicate rows whose ties must go to the smallest row.
-3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app)
-             as a subprocess on a PIL photo library; then the same app in
-             this process, with STORE_QUANTIZED=0 and =1, answering a text,
-             a season-filtered, an image and an upload search.
-4. scale   - a 1M x 1536 bfloat16 corpus with an int8 shadow, made on the
-             card from a seed, installed in a VectorIndex and served by the
-             app's own wiring (initialize_services, create_app); the
-             image-search results against a search built from plain pieces,
-             and the kernels' times against the plain versions (CUDA
-             events, after warm-up).
+             block of duplicate rows whose ties must go to the smallest row;
+             then kernel 5 (grouped_block_topk) and kernel 6
+             (int8_grouped_block_topk), a predicate per query, for M in
+             {1, 3, 8} and Q in {1, 9, 33, 128}, with an empty predicate,
+             ids outside [0, M) and duplicate rows.
+3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app,
+             micro-batcher on, its default) as a subprocess on a PIL photo
+             library; then the same app in this process without a keyword
+             index, with STORE_QUANTIZED=0 and =1, answering a text, a
+             season, a season-with-text (the grouped scan), an image and an
+             upload search.
+4. scale   - a 1M x 1536 bfloat16 corpus with an int8 shadow and seeded
+             season metadata, made on the card from a seed, installed in a
+             VectorIndex and served by the app's own wiring
+             (initialize_services, create_app) with the micro-batcher on:
+             concurrent image searches (kernels 1 and 2), concurrent
+             filtered searches over five predicates (kernels 5 and 6)
+             checked against plain per-query searches, a season-filtered
+             /search_photos, the batcher's counters, and the kernels'
+             times against the plain versions (CUDA events, after warm-up).
 
-The launch counters of both kernels are set to 0 before the route runs of
-phases 3 and 4 and read after them; a kernel that the routes never
-launched fails the run.  The second-to-last line of output is a JSON
+The launch counters of the four kernels are set to 0 before the route runs
+of phases 3 and 4 and read after every client thread has joined; a kernel
+that the routes never launched fails the run.  The second-to-last line of output is a JSON
 object with each kernel's route, launches, error and times; the last is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
@@ -48,8 +57,9 @@ DEVICE = "cuda"
 TOL = 1e-5  # unit vectors at 1536-d: the kernel and the plain product differ in summation order only
 SEED = 20261016
 
-_ERRORS = {"block_topk": 0.0, "int8_block_topk": 0.0}
-_LAUNCHES = {"block_topk": 0, "int8_block_topk": 0}
+_NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk")
+_ERRORS = {name: 0.0 for name in _NAMES}
+_LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}
 
 
@@ -107,19 +117,54 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def reset_launches() -> None:
-    from photo_search_engine_tpu_torch.ops.quantized import int8_block_topk
-    from photo_search_engine_tpu_torch.ops.topk import block_topk
+def _wrappers() -> dict:
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
 
-    block_topk.launches = 0
-    int8_block_topk.launches = 0
+    return {"block_topk": to.block_topk, "int8_block_topk": qo.int8_block_topk,
+            "grouped_block_topk": go.grouped_block_topk, "int8_grouped_block_topk": qo.int8_grouped_block_topk}
+
+
+def reset_launches() -> None:
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    from photo_search_engine_tpu_torch.ops.quantized import int8_block_topk
-    from photo_search_engine_tpu_torch.ops.topk import block_topk
+    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
-    return {"block_topk": block_topk.launches, "int8_block_topk": int8_block_topk.launches}
+
+def close_batchers(services) -> None:
+    """Stop the micro-batcher and the batched embedder that
+    ``initialize_services`` started (their worker threads)."""
+    index = services["vector_index"]
+    if hasattr(index, "_microbatcher"):
+        index._microbatcher.close()
+        services["searcher"].embedding_service._batcher.close()
+
+
+def run_threads(target, args_list, timeout=600):
+    """Run ``target`` once per argument tuple, all at once; join them all."""
+    import threading
+
+    errors = []
+
+    def guarded(*args):
+        try:
+            target(*args)
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below, after every join
+            errors.append(exc)
+
+    threads = [threading.Thread(target=guarded, args=args) for args in args_list]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"client threads still running after {timeout} s")
+    if errors:
+        raise errors[0]
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +187,7 @@ def phase_device() -> None:
     info = _cuda.build_info()
     log(f"[device] kernels built in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(word in line for word in ("entry function", "registers", "spill", "error")):
             log(f"[device] ptxas: {line.strip()}")
 
 
@@ -259,6 +304,106 @@ def phase_kernels() -> None:
     cases += 1
     log(f"[kernels] int8_block_topk: {cases} cases identical to the plain version "
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
+    check_grouped_kernels(gen, n, d)
+
+
+def _predicates(gen, m, n, q):
+    """A random [m, n] predicate table with an empty row 1 (m > 1), and ids
+    that include one past the table (q > 1) and one below it (q >= 9)."""
+    import torch
+
+    table = (torch.rand((m, n), generator=gen, device=DEVICE) < 0.5).to(torch.int8)
+    if m > 1:
+        table[1] = 0
+    ids = torch.randint(0, m, (q,), generator=gen, device=DEVICE, dtype=torch.int32)
+    if q > 1:
+        ids[-1] = m
+    if q >= 9:
+        ids[q // 2] = -1
+    return table, ids
+
+
+def _grouped_plain_scores(corpus, queries, count, table, ids):
+    """Every row's plain score under each query's own predicate."""
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    scores = to.score_chunk(corpus, queries.float(), None, "ip")
+    return go.grouped_mask_scores(scores, 0, corpus.shape[0], count, table, ids)
+
+
+def check_grouped_kernels(gen, n, d) -> None:
+    """Kernels 5 and 6 against their plain versions: k in {1, 10, 50, 64},
+    M in {1, 3, 8}, Q in {1, 9, 33, 128}, a live count below n; then
+    duplicate rows under different predicates."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+
+    count = n - 777
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        for m in (1, 3, 8):
+            for q in (1, 9, 33, 128):
+                queries = _unit_rows(q, d, gen, dtype)
+                table, ids = _predicates(gen, m, n, q)
+                scores = _grouped_plain_scores(corpus, queries, count, table, ids)
+                for k in (1, 10, 50, 64):
+                    kw = dict(count=count, block_n=1024)
+                    got = go.grouped_block_topk(corpus, queries, table, ids, k, **kw)
+                    ref = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
+                    torch.cuda.synchronize()
+                    name = f"grouped_block_topk {str(dtype)[6:]} M={m} q={q} k={k}"
+                    err = check_topk(name, *got, *ref)
+                    check_scores(name, *got, scores)
+                    _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"], err)
+                    cases += 1
+    log(f"[kernels] grouped_block_topk: {cases} cases agree with the plain version "
+        f"(max |err| {_ERRORS['grouped_block_topk']:.3g}, tol {TOL})")
+
+    cases = 0
+    corpus_i8, scales = qo.quantize_rows(_unit_rows(n, d, gen, torch.bfloat16))
+    for m in (1, 3, 8):
+        for q in (1, 9, 33, 128):
+            q_i8, qs = qo.quantize_rows(_unit_rows(q, d, gen, torch.float32))
+            table, ids = _predicates(gen, m, n, q)
+            for k in (1, 10, 50, 64):
+                kw = dict(count=count, block_n=2048)
+                got = qo.int8_grouped_block_topk(corpus_i8, scales, q_i8, qs, table, ids, k, **kw)
+                ref = qo.int8_grouped_block_topk_plain(corpus_i8, scales, q_i8, qs, table, ids, k + 1, **kw)
+                torch.cuda.synchronize()
+                err = check_topk(f"int8_grouped_block_topk M={m} q={q} k={k}", *got, *ref, exact=True)
+                _ERRORS["int8_grouped_block_topk"] = max(_ERRORS["int8_grouped_block_topk"], err)
+                cases += 1
+    log(f"[kernels] int8_grouped_block_topk: {cases} cases identical to the plain version "
+        f"(max |err| {_ERRORS['int8_grouped_block_topk']:.3g})")
+
+    # duplicate rows: ties at the smallest rows, each query under its own
+    # predicate (all rows / none / even rows / ids outside the table)
+    dups = list(range(1000, 1062)) + [3000, 4990]
+    table = torch.zeros((3, n), dtype=torch.int8, device=DEVICE)
+    table[0] = 1
+    table[2, ::2] = 1
+    ids = torch.tensor([0, 1, 2, 3, -1, 2, 0, 1, 0], dtype=torch.int32, device=DEVICE)
+    every, even = [7] + dups, [r for r in [7] + dups if r % 2 == 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        corpus[dups] = corpus[7].clone()
+        queries = corpus[7:8].repeat(9, 1)
+        for k in (1, 10, 50, 64):
+            _, idx = go.grouped_mask_search(corpus, queries, table, ids, k)
+            got = idx.tolist()
+            if got[0] != every[:k] or got[2][: len(even)] != even[:k] or any(r != [-1] * k for r in (got[1], got[3], got[4])):
+                raise AssertionError(f"grouped duplicate-row ties {str(dtype)[6:]} k={k}: {[r[:6] for r in got]}")
+        c8, cs = qo.quantize_rows(corpus)
+        q8, qs = qo.quantize_rows(queries)
+        kw = dict(count=n, block_n=2048)
+        check_topk("int8_grouped_block_topk duplicates", *qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, 64, **kw),
+                   *qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, 65, **kw), exact=True)
+    log("[kernels] grouped: duplicate-row ties at the smallest row under each query's predicate; "
+        "empty predicate and ids outside [0, M) give empty slots (f32, bf16; k 1/10/50/64)")
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +443,10 @@ def _results(what, payload, *, allow_empty=False):
     return len(payload["results"])
 
 
-def _app_env(tmp: str, quantized: str) -> dict:
+def _app_env(tmp: str, quantized: str, keyword_backend: str = "builtin") -> dict:
+    """The app's environment; the micro-batcher stays at its default (on).
+    Without a keyword index the searcher sends a filtered text query to
+    ``search_masked``, which the micro-batcher runs as a grouped scan."""
     photo_dir = os.path.join(tmp, "photos")
     data_dir = os.path.join(tmp, "data")
     os.makedirs(photo_dir, exist_ok=True)
@@ -306,8 +454,8 @@ def _app_env(tmp: str, quantized: str) -> dict:
     _demo().make_library(photo_dir)
     return {
         "PHOTO_DIR": photo_dir, "DATA_DIR": data_dir, "RUNTIME_DATA_DIR": data_dir,
-        "PSE_PLATFORM": "gpu", "SEARCH_MICROBATCH_ENABLED": "0",
-        "STORE_QUANTIZED": quantized, "STORE_DTYPE": "auto",
+        "PSE_PLATFORM": "gpu", "STORE_QUANTIZED": quantized, "STORE_DTYPE": "auto",
+        "KEYWORD_BACKEND": keyword_backend,
     }
 
 
@@ -372,7 +520,7 @@ def phase_app_in_process(quantized: str) -> dict:
 
     demo = _demo()
     with tempfile.TemporaryDirectory(prefix="pse_smoke_") as tmp:
-        services = initialize_services(load_config(_app_env(tmp, quantized)))
+        services = initialize_services(load_config(_app_env(tmp, quantized, keyword_backend="none")))
         server, port = _serve(create_app(services))
         try:
             base = f"http://127.0.0.1:{port}"
@@ -380,31 +528,37 @@ def phase_app_in_process(quantized: str) -> dict:
             _wait_ready(demo, base, f"in process, STORE_QUANTIZED={quantized}")
             photo = os.path.join(services["config"]["PHOTO_DIR"], "beach_sunset_sea.jpg")
             reset_launches()
-            counts = {
-                "text": _results("text", demo._post(base, "/search_photos", {"query": "beach sunset sea", "top_k": 3})),
-                "season": _results("season", demo._post(base, "/search_photos", {"query": "夏天的照片", "top_k": 6})),
-                "image": _results("image", demo._post(base, "/search_by_image", {"image_path": photo, "top_k": 3})),
-                "upload": _results("upload", demo._post_multipart(
-                    base, "/search_by_uploaded_image", {"top_k": "3"}, "image", "upload.jpg", _upload_jpeg())),
-            }
+            search = {"text": "beach sunset sea", "season": "夏天的照片", "season_text": "夏天 海边"}
+            counts = {name: _results(name, demo._post(base, "/search_photos", {"query": query, "top_k": 6}))
+                      for name, query in search.items()}
+            # "夏天的照片" is a pure filter (no scan); "夏天 海边" is a filtered
+            # vector search: the grouped scan, through the micro-batcher
+            route = dict(services["vector_index"].last_route)
+            counts["image"] = _results("image", demo._post(base, "/search_by_image", {"image_path": photo, "top_k": 3}))
+            counts["upload"] = _results("upload", demo._post_multipart(
+                base, "/search_by_uploaded_image", {"top_k": "3"}, "image", "upload.jpg", _upload_jpeg()))
             launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
-    route = services["vector_index"].last_route
-    log(f"[app] in process, STORE_QUANTIZED={quantized}: results {counts}, "
-        f"launches {launches}, last route {route['impl']}")
+            close_batchers(services)
+    batcher = services["vector_index"]._microbatcher
+    log(f"[app] in process, STORE_QUANTIZED={quantized}, micro-batcher on, no keyword index: "
+        f"results {counts}, launches {launches}, season_text route {route['impl']}, "
+        f"batches {batcher.batches_run} (grouped {batcher.grouped_batches_run}) for "
+        f"{batcher.requests_served} searches")
     return launches
 
 
 def phase_app() -> None:
     phase_app_subprocess()
     exact = phase_app_in_process("0")
-    if exact["block_topk"] <= 0:
-        raise AssertionError("STORE_QUANTIZED=0: the routes never launched block_topk")
     int8 = phase_app_in_process("1")
-    if int8["int8_block_topk"] <= 0:
-        raise AssertionError("STORE_QUANTIZED=1: the routes never launched int8_block_topk")
+    for tier, launches, names in (("0", exact, ("block_topk", "grouped_block_topk")),
+                                  ("1", int8, ("int8_block_topk", "int8_grouped_block_topk"))):
+        for name in names:
+            if launches[name] <= 0:
+                raise AssertionError(f"STORE_QUANTIZED={tier}: the routes never launched {name}")
     for name in _LAUNCHES:
         _LAUNCHES[name] += exact[name] + int8[name]
 
@@ -414,10 +568,11 @@ def phase_app() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _int8_search_reference(store, queries, k, *, kloc, cand):
+def _int8_search_reference(store, queries, k, *, kloc, cand, keep=None):
     """The int8 tier's search (inner product) from plain pieces: every
     row's quantized score (the int32 dot, exact in float64, scaled in
-    float32 as kernel 2 scales it), the ``cand`` best rows of the whole
+    float32 as kernels 2 and 6 scale it), ``-inf`` where ``keep`` ([Q, N]
+    bool, optional) drops the row, the ``cand`` best rows of the whole
     corpus by that score, then the plain exact search over those rows.
 
     The port nominates per block instead (each block's top ``kloc``, then
@@ -437,18 +592,60 @@ def _int8_search_reference(store, queries, k, *, kloc, cand):
         stop = min(n, start + 65536)
         acc = (qd @ store._device_i8[start:stop].double().T).float()
         scores[:, start:stop] = acc * qs[:, None] * store._scales[None, start:stop]
-    pool = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :cand]
+    if keep is not None:
+        scores = torch.where(keep, scores, float("-inf"))
+    ordered, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    pool, live = order[:, :cand], torch.isfinite(ordered[:, :cand])
     nb = -(-n // store._i8_block)
     blocks = pool // store._i8_block + nb * torch.arange(pool.shape[0], device=pool.device)[:, None]
-    per_block = int(torch.bincount(blocks.flatten()).max())
-    if per_block > kloc:
-        raise AssertionError(f"int8 reference: one block holds {per_block} > kloc={kloc} rows of a query's pool")
-    vals, idx = [], []
+    if live.any() and int(torch.bincount(blocks[live]).max()) > kloc:
+        raise AssertionError(f"int8 reference: one block holds more than kloc={kloc} rows of a query's pool")
+    vals = torch.full((queries.shape[0], k), float("-inf"), device=queries.device)
+    idx = torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=queries.device)
     for qi in range(queries.shape[0]):
-        v, pos = to.exact_search_plain(store._device[pool[qi]], queries[qi:qi + 1], k, metric="ip")
-        vals.append(v)
-        idx.append(pool[qi][pos.long()])
-    return torch.cat(vals), torch.cat(idx).to(torch.int32)
+        rows = pool[qi][live[qi]]
+        if rows.numel():
+            v, pos = to.exact_search_plain(store._device[rows], queries[qi:qi + 1], k, metric="ip")
+            vals[qi, : v.shape[1]] = v[0]
+            idx[qi, : v.shape[1]] = rows[pos[0].long()].to(torch.int32)
+    return vals, idx
+
+
+_SEASONS = {12: "冬天", 1: "冬天", 2: "冬天", 3: "春天", 4: "春天", 5: "春天",
+            6: "夏天", 7: "夏天", 8: "夏天", 9: "秋天", 10: "秋天", 11: "秋天"}
+
+
+def _scale_metadata(rows: int):
+    """Metadata as scripts/load_test.py builds it for its synthetic corpus,
+    plus a seeded EXIF date and the time fields the searcher's predicates
+    read (season, year, month): a season keeps about a quarter of the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    years, months, days = (rng.integers(lo, hi, rows).tolist() for lo, hi in ((2015, 2025), (1, 13), (1, 29)))
+    return [
+        {"photo_path": f"/photos/{i}.jpg", "file_name": f"IMG_{i:07d}.jpg",
+         "description": f"synthetic row {i}", "exif_data": {"datetime": f"{y}-{m:02d}-{d:02d}"},
+         "time_info": {"season": _SEASONS[m], "year": y, "month": m}}
+        for i, (y, m, d) in enumerate(zip(years, months, days))
+    ]
+
+
+def _hits_to_topk(hits, k):
+    """A search's ``[{metadata, distance}]`` as padded ``(values, row ids)``."""
+    import numpy as np
+
+    vals = np.full(k, -np.inf, np.float32)
+    idx = np.full(k, -1, np.int32)
+    for slot, hit in enumerate(hits):
+        vals[slot] = hit["distance"]
+        idx[slot] = int(hit["metadata"]["photo_path"][len("/photos/"):-len(".jpg")])
+    return vals, idx
+
+
+def _batch_delta(batcher, before):
+    now = (batcher.batches_run, batcher.grouped_batches_run, batcher.requests_served)
+    return tuple(a - b for a, b in zip(now, before)), now
 
 
 def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
@@ -457,6 +654,7 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
 
     from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
     from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
 
@@ -474,60 +672,132 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
             metadata_path=os.path.join(tmp, "scale-meta.json"), metric="cosine",
             store_dtype="bfloat16", quantized=True, device=device,
         )
-        # metadata as scripts/load_test.py builds it for its synthetic corpus
-        index.load_device_rows(corpus, [
-            {"photo_path": f"/photos/{i}.jpg", "file_name": f"IMG_{i:07d}.jpg",
-             "description": f"synthetic row {i}"}
-            for i in range(rows)
-        ])
+        index.load_device_rows(corpus, _scale_metadata(rows))
         del corpus
         store = index._store
         torch.cuda.synchronize()
-        log(f"[scale] {rows} x {dim} bf16 rows + int8 shadow on the card in "
+        log(f"[scale] {rows} x {dim} bf16 rows + int8 shadow on the card, season metadata on the host, in "
             f"{time.perf_counter() - t0:.1f} s (capacity {store.capacity}, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
-        # the app's own wiring over the installed index; query expansion and
-        # the caches off, so that each request runs its searches afresh
+        # the app's own wiring over the installed index, micro-batcher on and
+        # no keyword index (filtered text queries take search_masked); query
+        # expansion and the caches off, so each request runs its searches afresh
         config = load_config({
             "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu",
-            "SEARCH_MICROBATCH_ENABLED": "0", "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10",
+            "SEARCH_MICROBATCH_ENABLED": "1", "KEYWORD_BACKEND": "none",
+            "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10",
             "QUERY_EXPANSION_ENABLED": "0", "QUERY_CACHE_ENABLED": "0", "EMBEDDING_CACHE_ENABLED": "0",
         })
-        server, port = _serve(create_app(initialize_services(config, device=device, vector_index=index)))
+        services = initialize_services(config, device=device, vector_index=index)
+        batcher = index._microbatcher
+        server, port = _serve(create_app(services))
         base = f"http://127.0.0.1:{port}"
-        picks = [int(x) for x in np.random.default_rng(SEED).integers(0, rows, size=4)]
+        rng = np.random.default_rng(SEED)
+        picks = [int(x) for x in rng.integers(0, rows, size=32)]
+        # five predicates keeping about 50 %, 25 %, 5 %, 0.1 % and 0 % of the rows
+        masks = [rng.random(rows) < frac for frac in (0.5, 0.25, 0.05, 0.001, 0.0)]
+        filtered_q = _unit_rows(64, dim, gen, torch.float32).cpu().numpy()
+        filtered = {}
+        counters = (0, 0, 0)
         try:
             reset_launches()
             for quantized in (True, False):
-                index.quantized = quantized  # int8 shadow scan (kernel 2) or exact scan (kernel 1)
-                for i in picks:
+                tier = "int8" if quantized else "exact"
+                index.quantized = quantized  # int8 shadow scan (kernels 2, 6) or exact scan (1, 5)
+                latency = {}
+
+                def image_search(i):
                     t = time.perf_counter()
-                    hits = _results("scale /search_by_image", demo._post(
-                        base, "/search_by_image", {"image_path": f"/photos/{i}.jpg", "top_k": 10}))
-                    log(f"[scale] /search_by_image ({'int8' if quantized else 'exact'}, candidate_k 50): "
-                        f"{hits} results in {1e3 * (time.perf_counter() - t):.1f} ms")
-            for query in ("海边 日落", "雪山 合影", "城市 夜景"):
+                    hits = demo._post(base, "/search_by_image", {"image_path": f"/photos/{i}.jpg", "top_k": 10})
+                    _results("scale /search_by_image", hits)
+                    latency[i] = 1e3 * (time.perf_counter() - t)
+
+                t = time.perf_counter()
+                run_threads(image_search, [(i,) for i in picks])
+                wall = time.perf_counter() - t
+                (b, g, r), counters = _batch_delta(batcher, counters)
+                ms = sorted(latency.values())
+                log(f"[scale] {len(picks)} concurrent /search_by_image ({tier}, candidate_k 50): "
+                    f"{wall:.2f} s wall, request ms p50 {ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}; "
+                    f"{r} searches in {b} batches (mean batch {r / max(b, 1):.2f})")
+
+                def filtered_search(i):
+                    filtered[(tier, i)] = index.search_masked(filtered_q[i], 50, masks[i % len(masks)])
+
+                t = time.perf_counter()
+                run_threads(filtered_search, [(i,) for i in range(len(filtered_q))])
+                wall = time.perf_counter() - t
+                (b, g, r), counters = _batch_delta(batcher, counters)
+                log(f"[scale] {len(filtered_q)} concurrent search_masked(k=50) over {len(masks)} predicates "
+                    f"({tier}): {wall:.2f} s wall; {r} searches in {b} batches, {g} grouped "
+                    f"(mean batch {r / max(b, 1):.2f})")
+
+            for query in ("海边 日落", "夏天 海边", "夏天 海边"):
                 t = time.perf_counter()
                 # random rows score below the searcher's relevance floors, so
                 # the fused result may rightly be empty here
                 hits = _results("scale /search_photos", demo._post(
                     base, "/search_photos", {"query": query, "top_k": 10}), allow_empty=True)
-                log(f"[scale] /search_photos (candidate_k 500, exact large-k): {hits} results "
-                    f"in {1e3 * (time.perf_counter() - t):.1f} ms")
+                log(f"[scale] /search_photos {query!r} (candidate_k 500, plain large-k path, "
+                    f"{index.last_route['impl']}): {hits} results in {1e3 * (time.perf_counter() - t):.1f} ms")
             launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
+            close_batchers(services)
         log(f"[scale] route launches {launches}")
         for name, value in launches.items():
             if value <= 0:
                 raise AssertionError(f"scale routes never launched {name}")
             _LAUNCHES[name] += value
+        mean = batcher.requests_served / max(batcher.batches_run, 1)
+        log(f"[scale] micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run "
+            f"{batcher.grouped_batches_run}, requests_served {batcher.requests_served} (mean batch {mean:.2f})")
+        if not mean > 1:
+            raise AssertionError("the micro-batcher never coalesced: mean batch size is not above 1")
+
+        # the filtered results against plain per-query searches, each under
+        # its own predicate row; the queries normalized on the host as the
+        # store normalizes cosine queries (EmbeddingStore._prepare)
+        keep = torch.from_numpy(np.stack([masks[i % len(masks)] for i in range(len(filtered_q))])).to(device)
+        norms = np.linalg.norm(filtered_q, axis=1, keepdims=True)
+        queries = torch.from_numpy(filtered_q / np.maximum(norms, 1e-30)).to(device)
+        live = store._device[: store.count]
+        for quantized in (True, False):
+            tier = "int8" if quantized else "exact"
+            got = [_hits_to_topk(filtered[(tier, i)], 50) for i in range(len(filtered_q))]
+            got_v = torch.from_numpy(np.stack([g[0] for g in got])).to(device)
+            got_i = torch.from_numpy(np.stack([g[1] for g in got])).to(device)
+            if quantized:
+                ref_v, ref_i = _int8_search_reference(store, queries, 51, kloc=50, cand=100, keep=keep)
+                name = "int8_grouped_block_topk"
+            else:
+                ref = [to.exact_search_plain(live, queries[i:i + 1].to(torch.bfloat16), 51, metric="ip",
+                                             mask=keep[i].to(torch.int8)) for i in range(len(filtered_q))]
+                ref_v, ref_i = torch.cat([r[0] for r in ref]), torch.cat([r[1] for r in ref])
+                name = "grouped_block_topk"
+            err = check_topk(f"scale filtered search ({tier})", got_v, got_i, ref_v, ref_i)
+            _ERRORS[name] = max(_ERRORS[name], err)
+            if not bool((got_i[4::5] == -1).all()):
+                raise AssertionError("scale filtered search: the empty predicate returned rows")
+        log("[scale] filtered-search results agree with plain per-query searches under their own "
+            "predicates (exact and int8; empty predicate empty)")
+
+        # the host predicate table each grouped batch builds and uploads
+        # (EmbeddingStore.grouped_search): M = 8, the batcher's cap
+        stacked = np.stack([masks[i % len(masks)] for i in range(8)])
+        t = time.perf_counter()
+        for _ in range(5):
+            host = np.zeros((8, store.capacity), np.int8)
+            host[:, :rows] = stacked > 0
+            torch.from_numpy(host).to(device)
+            torch.cuda.synchronize()
+        log(f"[scale] host predicate table [8, {store.capacity}] int8 ({host.nbytes / 1e6:.1f} MB): build and "
+            f"upload {1e3 * (time.perf_counter() - t) / 5:.2f} ms per grouped batch")
 
         # the image searches' vector results against the plain version
-        queries = torch.from_numpy(np.stack([store.reconstruct(i) for i in picks])).to(device)
-        live = store._device[: store.count]
+        queries = torch.from_numpy(np.stack([store.reconstruct(i) for i in picks[:4]])).to(device)
         for quantized in (True, False):
             index.quantized = quantized
             dists, idx = index.raw_search_batch(queries.cpu().numpy(), 50)
@@ -541,32 +811,48 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
                 ref_v, ref_i = to.exact_search_plain(live, queries.to(torch.bfloat16), 51, metric="ip")
                 err = check_topk("scale exact image search", got_v, got_i, ref_v, ref_i)
                 _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
-            if not bool((got_i[:, 0] == torch.tensor(picks, device=device, dtype=got_i.dtype)).all()):
+            if not bool((got_i[:, 0] == torch.tensor(picks[:4], device=device, dtype=got_i.dtype)).all()):
                 raise AssertionError("scale image search: a query row is not its own nearest neighbour")
         log("[scale] image-search results agree with the plain version (exact and int8)")
 
-        # both kernels against their plain versions at the main-path shapes,
+        # the kernels against their plain versions at the main-path shapes,
         # then their times (CUDA events; plain, kernel, kernel, plain)
+        table = torch.zeros((len(masks), store.capacity), dtype=torch.int8, device=device)
+        table[:, :rows] = torch.from_numpy(np.stack(masks)).to(device)
         k1 = dict(count=store.count, metric="ip", block_n=store.block_rows)
         k2 = dict(count=store.count, metric="ip", block_n=store._i8_block)
-        for batch in (1, 256):
+        k5 = dict(count=store.count, block_n=store.block_rows)
+        k6 = dict(count=store.count, block_n=store._i8_block)
+        for batch, tops, names in ((1, (10, 50), ("block_topk", "int8_block_topk")),
+                                   (256, (10, 50), ("block_topk", "int8_block_topk")),
+                                   (128, (50,), _NAMES)):  # the grouped kernels beside 1 and 2
             qb = _unit_rows(batch, dim, gen, torch.float32)
             qb16 = qb.to(torch.bfloat16)
             q_i8, qs = qo.quantize_rows(qb)
-            for k in (10, 50):
-                runs = {
-                    "block_topk": (
-                        lambda kk: to.block_topk(store._device, qb16, kk, **k1),
-                        lambda kk: to.exact_block_topk_plain(store._device, qb16, kk, **k1),
-                    ),
-                    "int8_block_topk": (
-                        lambda kk: qo.int8_block_topk(store._device_i8, store._scales, q_i8, qs, kk, **k2),
-                        lambda kk: qo.int8_block_topk_plain(store._device_i8, store._scales, q_i8, qs, kk, **k2),
-                    ),
-                }
-                for name, (kernel, plain) in runs.items():
+            ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
+            runs = {
+                "block_topk": (
+                    lambda kk: to.block_topk(store._device, qb16, kk, **k1),
+                    lambda kk: to.exact_block_topk_plain(store._device, qb16, kk, **k1),
+                ),
+                "int8_block_topk": (
+                    lambda kk: qo.int8_block_topk(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                    lambda kk: qo.int8_block_topk_plain(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                ),
+                "grouped_block_topk": (
+                    lambda kk: go.grouped_block_topk(store._device, qb16, table, ids, kk, **k5),
+                    lambda kk: go.grouped_block_topk_plain(store._device, qb16, table, ids, kk, **k5),
+                ),
+                "int8_grouped_block_topk": (
+                    lambda kk: qo.int8_grouped_block_topk(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
+                    lambda kk: qo.int8_grouped_block_topk_plain(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
+                ),
+            }
+            for k in tops:
+                for name in names:
+                    kernel, plain = runs[name]
                     err = check_topk(f"scale {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1),
-                                     exact=name == "int8_block_topk")
+                                     exact=name.startswith("int8"))
                     _ERRORS[name] = max(_ERRORS[name], err)
                     plain_ms = cuda_ms(lambda: plain(k), reps=2)
                     kernel_ms = cuda_ms(lambda: kernel(k), reps=3)
@@ -574,7 +860,8 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
                     plain_ms2 = cuda_ms(lambda: plain(k), reps=2)
                     ms, pms = (kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2
                     _TIMES[(name, batch, k)] = (ms, pms)
-                    log(f"[scale] {name} batch {batch} top-{k} at {rows}x{dim}: agrees with the plain "
+                    extra = f", M={len(masks)}" if name.startswith(("grouped", "int8_grouped")) else ""
+                    log(f"[scale] {name} batch {batch} top-{k}{extra} at {rows}x{dim}: agrees with the plain "
                         f"version (max |err| {err:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms "
                         f"(kernel {kernel_ms:.3f}/{kernel_ms2:.3f}, plain {plain_ms:.3f}/{plain_ms2:.3f})")
 
@@ -610,15 +897,19 @@ def main(argv=None) -> int:
         for name, value in _LAUNCHES.items():
             if value <= 0:
                 raise AssertionError(f"the main path never launched {name}")
-    sources = {
+    sources = {  # name: (source, TPU kernel it replaces, batch of the reported time)
         "block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
-                       "photo_search_engine_tpu/ops/topk.py:345"),
+                       "photo_search_engine_tpu/ops/topk.py:345", 1),
         "int8_block_topk": ("photo_search_engine_tpu_torch/csrc/int8_block_topk.cu",
-                            "photo_search_engine_tpu/ops/quantized.py:192"),
+                            "photo_search_engine_tpu/ops/quantized.py:192", 1),
+        "grouped_block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
+                               "photo_search_engine_tpu/ops/grouped_mask.py:167", 128),
+        "int8_grouped_block_topk": ("photo_search_engine_tpu_torch/csrc/int8_block_topk.cu",
+                                    "photo_search_engine_tpu/ops/quantized.py:339", 128),
     }
     kernels = []
-    for name, (source, replaces) in sources.items():
-        ms, plain_ms = _TIMES.get((name, 1, 50), (None, None))
+    for name, (source, replaces, batch) in sources.items():
+        ms, plain_ms = _TIMES.get((name, batch, 50), (None, None))
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": _LAUNCHES[name], "max_abs_err": _ERRORS[name],
                         "ms": ms, "plain_ms": plain_ms})

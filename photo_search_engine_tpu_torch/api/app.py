@@ -7,15 +7,14 @@ depend on JAX are reused as they are (config, routes, WSGI, searcher,
 indexer, keyword index, time parser, query formatter, vision); the
 device-side ones are this package's.
 
-The offline profile is what is ported.  These configurations raise
-``NotImplementedError`` at startup, naming what they wait for in
-ROADMAP.md: an OpenAI-compatible embedding backend, an API-backed text or
-visual rerank, ``VECTOR_INDEX_TYPE=ivf``, ``MESH_DEVICES != 0``,
-``DIST_*`` and ``SEARCH_MICROBATCH_ENABLED`` set to true.  With
-``SEARCH_MICROBATCH_ENABLED`` unset the port serves without the
-micro-batcher.
+The offline profile is what is ported, with the micro-batcher
+(``SEARCH_MICROBATCH_ENABLED``, on by default) wired as in the JAX app.
+These configurations raise ``NotImplementedError`` at startup, naming what
+they wait for in ROADMAP.md: an OpenAI-compatible embedding backend, an
+API-backed text or visual rerank, ``VECTOR_INDEX_TYPE=ivf``,
+``MESH_DEVICES != 0`` and ``DIST_*``.
 
-Run:  PSE_PLATFORM=gpu SEARCH_MICROBATCH_ENABLED=0 python -m photo_search_engine_tpu_torch.api.app
+Run:  PSE_PLATFORM=gpu python -m photo_search_engine_tpu_torch.api.app
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from photo_search_engine_tpu.core.searcher import Searcher
 from photo_search_engine_tpu.services.query_formatter import QueryFormatter
 from photo_search_engine_tpu.services.time_parser import TimeParser
 from photo_search_engine_tpu.services.vision import LocalVisionService, OpenAIVisionService
+from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, attach_microbatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.models.hash_embedder import HashingEmbeddingService
@@ -44,17 +44,10 @@ from photo_search_engine_tpu_torch.services.embedding import DeviceTextRerankSer
 from photo_search_engine_tpu_torch.services.rerank import LocalVisualRerankService
 
 _ONLINE = "ROADMAP.md, queue 3: online embedding and rerank services"
-_TRUTHY = {"1", "true", "yes", "on"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to the PyTorch port yet ({item})")
-
-
-def _microbatch_requested() -> bool:
-    """``SEARCH_MICROBATCH_ENABLED`` set to true, not just defaulted to it
-    (the config cannot tell the two apart)."""
-    return os.environ.get("SEARCH_MICROBATCH_ENABLED", "").strip().lower() in _TRUTHY
 
 
 def _check_ported(config: Dict[str, Any]) -> None:
@@ -77,25 +70,18 @@ def _check_ported(config: Dict[str, Any]) -> None:
         raise _not_ported("MESH_DEVICES != 0", "ROADMAP.md, queue 3: mesh and multi-host")
     if config.get("DIST_COORDINATOR"):
         raise _not_ported("DIST_* multi-host serving", "ROADMAP.md, queue 3: mesh and multi-host")
-    if config.get("SEARCH_MICROBATCH_REQUESTED", _microbatch_requested()):
-        raise _not_ported(
-            "SEARCH_MICROBATCH_ENABLED=1 (the micro-batcher)",
-            "ROADMAP.md, queue 2: K5/K6 and raw_grouped_search_batch",
-        )
 
 
 def load_config(overrides: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """The runtime configuration (environment + ``.env``), with
     ``overrides`` laid over the environment for this call only.  It also
-    keeps what ``initialize_services`` would otherwise read from the
-    environment: ``PSE_PLATFORM`` and whether the micro-batcher was asked
-    for."""
+    keeps ``PSE_PLATFORM``, which ``initialize_services`` would otherwise
+    read from the environment."""
     saved = dict(os.environ)
     os.environ.update(overrides or {})
     try:
         reset_config_cache()
         config = _load_env_config()
-        config["SEARCH_MICROBATCH_REQUESTED"] = _microbatch_requested()
         config["PSE_PLATFORM"] = os.environ.get("PSE_PLATFORM")
         return config
     finally:
@@ -144,11 +130,12 @@ def initialize_services(
     _check_ported(config)
     device = resolve_device(config.get("PSE_PLATFORM")) if device is None else device
     dimension = config.get("EMBEDDING_DIMENSION") or 1536
-    if config.get("SEARCH_MICROBATCH_ENABLED"):
-        print(
-            "[INFO] search micro-batching is not ported yet; serving each "
-            "search on its own (SEARCH_MICROBATCH_ENABLED unset)"
-        )
+    microbatch = config.get("SEARCH_MICROBATCH_ENABLED")
+    batch_options = {
+        "max_batch": config.get("SEARCH_MICROBATCH_MAX_BATCH", 128),
+        "window_s": config.get("SEARCH_MICROBATCH_WINDOW_MS", 3.0) / 1000.0,
+        "pipeline": config.get("SEARCH_MICROBATCH_PIPELINE", 2),
+    }
 
     embedding_service = HashingEmbeddingService(dimension=dimension, device=device)
     installed = vector_index is not None
@@ -231,8 +218,13 @@ def initialize_services(
         worker_python_executable=sys.executable,
         worker_entrypoint=["-m", "photo_search_engine_tpu_torch.api.app"],
     )
+    # concurrent query embeds coalesce into one batch call, as the scans
+    # coalesce into one device scan (attach_microbatcher below)
+    search_embedding = (
+        BatchedEmbeddingService(embedding_service, **batch_options) if microbatch else embedding_service
+    )
     searcher = Searcher(
-        embedding=embedding_service,
+        embedding=search_embedding,
         time_parser=time_parser,
         vector_index=vector_index,
         keyword_index=keyword_index,
@@ -260,6 +252,8 @@ def initialize_services(
     if installed:  # an installed index has no files to load
         searcher.index_loaded = True
         searcher._refresh_metadata_cache()
+    if microbatch:
+        attach_microbatcher(vector_index, **batch_options)
     return {
         "config": config,
         "device": device,

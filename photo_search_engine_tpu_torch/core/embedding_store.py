@@ -14,6 +14,9 @@ Counterpart of ``photo_search_engine_tpu/core/embedding_store.py``:
   whatever the device dtype.
 * An optional int8 shadow corpus (``quantized=True``) feeds the int8 scan
   (kernel 2) and is rescored against the primary corpus.
+* ``grouped_search`` scans a batch whose queries carry different
+  predicates in one pass (kernel 5, or kernel 6 on the int8 tier): the
+  micro-batcher's filtered path.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
+from photo_search_engine_tpu_torch.ops import grouped_mask as grouped_ops
 from photo_search_engine_tpu_torch.ops import quantized as quant_ops
 from photo_search_engine_tpu_torch.ops import topk as topk_ops
 
@@ -256,12 +260,54 @@ class EmbeddingStore:
             )
         return dists.cpu().numpy(), idx.cpu().numpy()
 
-    def grouped_search(self, *args, **kwargs):
-        raise NotImplementedError(
-            "grouped (per-query predicate) search needs the grouped scan "
-            "kernels, which are not ported yet (ROADMAP.md, queue 2: K5/K6 "
-            "and the micro-batcher)"
-        )
+    def grouped_search(
+        self,
+        queries,
+        k: int,
+        mask_table,
+        mask_ids,
+        *,
+        impl: str = "auto",
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched per-query filtered top-k: one scan for a batch whose
+        queries carry different predicates (``mask_table`` ``[M, count]``
+        rows, ``mask_ids`` ``[Q]``; see ``ops/grouped_mask.py``).
+
+        The host table is widened to the capacity, so the kernels see the
+        corpus's row stride.  ``impl="int8"`` with k ≤ 64 runs kernel 6;
+        every other call kernel 5 (k ≤ 64) or the plain grouped search.
+        Inner product and cosine only: an l2 store runs one masked
+        :meth:`search` per query."""
+        if self._count == 0:
+            q = np.atleast_2d(np.asarray(queries)).shape[0]
+            return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
+        queries = self._prepare(queries)
+        if self.metric == "l2":
+            outs = [
+                self.search(queries[i], k, mask=np.asarray(mask_table)[mask_ids[i]],
+                            impl=impl if impl != "int8" else "auto")
+                for i in range(queries.shape[0])
+            ]
+            return np.concatenate([o[0] for o in outs]), np.concatenate([o[1] for o in outs])
+        if impl == "int8" and not self.quantized:
+            raise ValueError("impl='int8' requires EmbeddingStore(quantized=True)")
+        k = min(k, self._count)
+        table = np.zeros((len(mask_table), self.capacity), np.int8)
+        table[:, : self._count] = np.asarray(mask_table)[:, : self._count] > 0
+        table_dev = torch.from_numpy(table).to(self.device)
+        ids = torch.from_numpy(np.asarray(mask_ids, np.int32)).to(self.device)
+        queries = torch.from_numpy(queries).to(self.device)
+        if impl == "int8" and k <= quant_ops.INT8_MAX_K:
+            dists, idx = quant_ops.grouped_int8_search(
+                self._device_i8, self._scales, self._device, queries, table_dev, ids, k,
+                count=self._count, block_n=self._i8_block,
+            )
+        else:
+            dists, idx = grouped_ops.grouped_mask_search(
+                self._device, queries.to(self.store_dtype), table_dev, ids, k,
+                count=self._count, block_n=self.block_rows,
+            )
+        return dists.cpu().numpy(), idx.cpu().numpy()
 
     # ------------------------------------------------------------------
     def reconstruct(self, index: int) -> np.ndarray:

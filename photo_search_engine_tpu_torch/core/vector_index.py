@@ -7,9 +7,11 @@ Counterpart of ``photo_search_engine_tpu/core/vector_index.py``, flat
 (``<index>.segments/``, see :meth:`VectorIndex.save_incremental`).  Each
 package loads the other's checkpoints.
 
-Not ported yet (they raise ``NotImplementedError``): ``index_type=ivf``,
-a device mesh (``mesh_devices != 0``) and the grouped per-query-predicate
-scan that the micro-batcher uses.
+``raw_grouped_search_batch`` is the micro-batcher's filtered path: one
+scan for queries with different predicates (``core/batcher.py``).
+
+Not ported yet (they raise ``NotImplementedError``): ``index_type=ivf``
+and a device mesh (``mesh_devices != 0``).
 """
 
 from __future__ import annotations
@@ -157,23 +159,25 @@ class VectorIndex:
             "device": str(self.device),
         }
 
-    def _route_search(self, queries: np.ndarray, k: int, mask):
-        """The one routing point of every search entry.  The returned row
-        ids are checked against the live count: an id out of range raises
-        instead of serving a row that does not exist."""
-        self.last_route = {
-            "impl": ("int8" if self.quantized else "exact")
-            + ("_masked" if mask is not None else ""),
-            "nprobe": None,
-            "mesh_devices": self.mesh_devices,
-        }
-        dists, idx = self._store.search(queries, k, mask=mask, impl=self._search_impl)
+    def _checked(self, search, impl: str):
+        """Run ``search`` under the route name ``impl`` (``last_route``) and
+        check the row ids it returns against the live count: an id out of
+        range raises instead of serving a row that does not exist."""
+        self.last_route = {"impl": impl, "nprobe": None, "mesh_devices": self.mesh_devices}
+        dists, idx = search()
         if idx.size and (int(idx.max()) >= self._store.count or int(idx.min()) < -1):
             raise RuntimeError(
                 f"search returned out-of-range row ids (max {int(idx.max())}, "
                 f"min {int(idx.min())}, count {self._store.count})"
             )
         return dists, idx
+
+    def _route_search(self, queries: np.ndarray, k: int, mask):
+        """The one routing point of every single-predicate search entry."""
+        impl = ("int8" if self.quantized else "exact") + ("_masked" if mask is not None else "")
+        return self._checked(
+            lambda: self._store.search(queries, k, mask=mask, impl=self._search_impl), impl
+        )
 
     def search(self, query_embedding, top_k: int) -> List[Dict[str, Any]]:
         """Single-query search → ``[{metadata, distance}]``."""
@@ -206,10 +210,18 @@ class VectorIndex:
             return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
         return self._route_search(queries, min(int(top_k), self._store.count), mask)
 
-    def raw_grouped_search_batch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "raw_grouped_search_batch needs the grouped scan kernels, which "
-            "are not ported yet (ROADMAP.md, queue 2: K5/K6 and the micro-batcher)"
+    def raw_grouped_search_batch(self, query_embeddings, top_k: int, mask_table, mask_ids):
+        """Batched per-query filtered search (distinct predicates per query,
+        one device scan), returning ``(distances, row indices)``: the
+        micro-batcher's filtered path."""
+        queries = np.atleast_2d(np.asarray(query_embeddings, np.float32))
+        if self._store is None or self._store.count == 0:
+            q = queries.shape[0]
+            return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
+        k = min(int(top_k), self._store.count)
+        return self._checked(
+            lambda: self._store.grouped_search(queries, k, mask_table, mask_ids, impl=self._search_impl),
+            "int8_grouped" if self.quantized else "exact_grouped",
         )
 
     def search_masked(self, query_embedding, top_k: int, mask) -> List[Dict[str, Any]]:

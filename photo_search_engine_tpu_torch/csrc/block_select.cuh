@@ -1,5 +1,6 @@
-// Shared pieces of the two scan kernels (block_topk.cu, int8_block_topk.cu):
-// the tile geometry and the block-local top-k selection.
+// Shared pieces of the scan kernels (block_topk.cu, int8_block_topk.cu and
+// their grouped variants): the tile geometry, the per-query predicates of
+// the grouped scans and the block-local top-k selection.
 //
 // Selection replaces the TPU's k rounds of "max -> first occurrence ->
 // eliminate" over a [BQ, BN] tile (_extract_block_topk,
@@ -25,6 +26,34 @@ constexpr int kTileRows = 256;      // corpus rows scored per pass (TN)
 constexpr int kRowsPerThread = 8;   // TR: rows of the pass one thread scores
 constexpr int kDepth = 32;          // D-chunk staged per step (elements, or int8x4 words)
 constexpr int kPitch = kTileRows + 1;  // odd pitch: transposed staging is conflict-free
+
+// Per-query predicates of the grouped scans (kernels 5 and 6): query gq
+// keeps row col only when 0 <= ids[gq] < m and table[ids[gq] * n + col] > 0
+// (table is [m][n] int8, ids is [q] int32).  A null table means no
+// predicates (kernels 1 and 2).
+struct Predicates {
+  const int8_t* table;
+  const int* ids;
+  int m;
+};
+
+inline Predicates make_predicates(const void* table, const void* ids, int m) {
+  return Predicates{static_cast<const int8_t*>(table), static_cast<const int*>(ids), m};
+}
+
+// The predicate row of each of a thread's TQ queries (first_q, first_q + 1,
+// ...), or null where the query is padding (gq >= q, whose id is never
+// read) or its id lies outside [0, m) (it keeps no row).
+template <int TQ>
+__device__ __forceinline__ void predicate_rows(const Predicates& p, int first_q, int q,
+                                               int n, const int8_t* (&rows)[TQ]) {
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int gq = first_q + i;
+    const int id = gq < q ? p.ids[gq] : -1;
+    rows[i] = (id >= 0 && id < p.m) ? p.table + static_cast<size_t>(id) * n : nullptr;
+  }
+}
 
 __device__ __forceinline__ bool better(float v, int c, float bv, int bc) {
   return v > bv || (v == bv && c < bc);

@@ -1,8 +1,18 @@
-// Kernel 1: exact block top-k scan (float32 or bfloat16 corpus).
+// Kernel 1: exact block top-k scan (float32 or bfloat16 corpus), and
+// kernel 5, the same scan with a predicate per query.
 //
-// Replaces: _block_topk_kernel with fast=False and _extract_block_topk
-// (photo_search_engine_tpu/ops/topk.py:345-389, 272-295), launched there by
-// _pallas_twophase_impl (:391-480).
+// Kernel 1 replaces: _block_topk_kernel with fast=False and
+// _extract_block_topk (photo_search_engine_tpu/ops/topk.py:345-389,
+// 272-295), launched there by _pallas_twophase_impl (:391-480).
+//
+// Kernel 5 replaces: _grouped_kernel (photo_search_engine_tpu/ops/
+// grouped_mask.py:167-211), launched there by _grouped_impl (:214-286).
+// The TPU kernel selects each query's predicate row with a one-hot
+// [BQ, M] x [M, BN] product on the MXU; here the epilogue reads the row
+// directly (Predicates in block_select.cuh): one int8 per row and query,
+// beside 2 or 4 bytes per element of D, so kernel 5 costs what kernel 1
+// costs.  Inner product only, as on the TPU.  It is the same template
+// with kGrouped = true, so kernel 1's code is unchanged.
 //
 // What bounds it on the H100: at 1M x 1536 bf16 every batch reads the
 // 3.1 GB corpus.  At batch 1 that read is the cost (about 1 ms at
@@ -40,14 +50,14 @@ using namespace pse;
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T, int BQ>
+template <typename T, int BQ, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
                   const float* __restrict__ qnorms,
                   const float* __restrict__ cnorms,
-                  const int8_t* __restrict__ mask, float* __restrict__ out_v,
-                  int* __restrict__ out_i, int n, int d, int q, int count,
-                  int k, int bn, int l2) {
+                  const int8_t* __restrict__ mask, Predicates pred,
+                  float* __restrict__ out_v, int* __restrict__ out_i, int n,
+                  int d, int q, int count, int k, int bn, int l2) {
   constexpr int TQ = BQ / kWarps;  // queries per thread
   extern __shared__ float smem[];
   float* scores = smem;              // [BQ][bn]
@@ -103,7 +113,12 @@ block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
       __syncthreads();
     }
 
-    // epilogue: -inf past count / where mask <= 0; l2 as in the TPU kernel
+    // epilogue: -inf past count / where mask <= 0 / where the query's
+    // predicate drops the row; l2 as in the TPU kernel.  The predicate rows
+    // are looked up here: looked up before the D loop, their pointers stayed
+    // live across it and kernel 5 ran 46% slower than kernel 1 (H100).
+    const int8_t* pred_row[TQ] = {};
+    if constexpr (kGrouped) predicate_rows<TQ>(pred, q0 + qg * TQ, q, n, pred_row);
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const int lc = sub + rg + 32 * j;
@@ -113,12 +128,14 @@ block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         const int ql = qg * TQ + i;
+        bool keep = valid;
+        if constexpr (kGrouped) keep = keep && pred_row[i] != nullptr && pred_row[i][col] > 0;
         float s = acc[i][j];
-        if (l2 && valid) {
+        if (l2 && keep) {
           const float qn = (q0 + ql < q) ? qnorms[q0 + ql] : 0.f;
           s = -__fsub_rn(__fadd_rn(qn, cnorms[col]), __fmul_rn(2.f, s));
         }
-        scores[ql * bn + lc] = valid ? s : -CUDART_INF_F;
+        scores[ql * bn + lc] = keep ? s : -CUDART_INF_F;
       }
     }
   }
@@ -126,13 +143,13 @@ block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
   select_block_topk<BQ>(scores, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
 }
 
-template <typename T, int BQ>
+template <typename T, int BQ, bool kGrouped>
 cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
-                const void* cnorms, const void* mask, void* out_v, void* out_i,
-                int n, int d, int q, int count, int k, int bn, int l2,
+                const void* cnorms, const void* mask, Predicates pred, void* out_v,
+                void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(BQ) * bn + kDepth * (BQ + 1) + kDepth * kPitch);
-  auto kernel = block_topk_kernel<T, BQ>;
+  auto kernel = block_topk_kernel<T, BQ, kGrouped>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -143,22 +160,22 @@ cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(corpus), static_cast<const T*>(queries),
       static_cast<const float*>(qnorms), static_cast<const float*>(cnorms),
-      static_cast<const int8_t*>(mask), static_cast<float*>(out_v),
+      static_cast<const int8_t*>(mask), pred, static_cast<float*>(out_v),
       static_cast<int*>(out_i), n, d, q, count, k, bn, l2);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kGrouped>
 int dispatch(const void* corpus, const void* queries, const void* qnorms,
-             const void* cnorms, const void* mask, void* out_v, void* out_i,
-             int n, int d, int q, int count, int k, int bn, int l2,
+             const void* cnorms, const void* mask, Predicates pred, void* out_v,
+             void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (q <= 8)
-    return run<T, 8>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d, q,
-                     count, k, bn, l2, s);
-  return run<T, 32>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d, q,
-                    count, k, bn, l2, s);
+    return run<T, 8, kGrouped>(corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i,
+                               n, d, q, count, k, bn, l2, s);
+  return run<T, 32, kGrouped>(corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i,
+                              n, d, q, count, k, bn, l2, s);
 }
 
 }  // namespace
@@ -168,8 +185,8 @@ extern "C" int pse_block_topk_f32(const void* corpus, const void* queries,
                                   const void* mask, void* out_v, void* out_i,
                                   int n, int d, int q, int count, int k, int bn,
                                   int l2, void* stream) {
-  return dispatch<float>(corpus, queries, qnorms, cnorms, mask, out_v, out_i, n, d,
-                         q, count, k, bn, l2, stream);
+  return dispatch<float, false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{},
+                                out_v, out_i, n, d, q, count, k, bn, l2, stream);
 }
 
 extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries,
@@ -177,6 +194,27 @@ extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries,
                                    const void* mask, void* out_v, void* out_i,
                                    int n, int d, int q, int count, int k, int bn,
                                    int l2, void* stream) {
-  return dispatch<__nv_bfloat16>(corpus, queries, qnorms, cnorms, mask, out_v, out_i,
-                                 n, d, q, count, k, bn, l2, stream);
+  return dispatch<__nv_bfloat16, false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{},
+                                        out_v, out_i, n, d, q, count, k, bn, l2, stream);
+}
+
+// Kernel 5: table is [m][n] int8, ids [q] int32 (see Predicates).
+extern "C" int pse_grouped_block_topk_f32(const void* corpus, const void* queries,
+                                          const void* table, const void* ids,
+                                          void* out_v, void* out_i, int n, int d,
+                                          int q, int count, int k, int bn, int m,
+                                          void* stream) {
+  return dispatch<float, true>(corpus, queries, nullptr, nullptr, nullptr,
+                               pse::make_predicates(table, ids, m), out_v, out_i, n, d, q,
+                               count, k, bn, 0, stream);
+}
+
+extern "C" int pse_grouped_block_topk_bf16(const void* corpus, const void* queries,
+                                           const void* table, const void* ids,
+                                           void* out_v, void* out_i, int n, int d,
+                                           int q, int count, int k, int bn, int m,
+                                           void* stream) {
+  return dispatch<__nv_bfloat16, true>(corpus, queries, nullptr, nullptr, nullptr,
+                                       pse::make_predicates(table, ids, m), out_v, out_i, n,
+                                       d, q, count, k, bn, 0, stream);
 }

@@ -1,8 +1,16 @@
-// Kernel 2: int8 block top-k scan (the nomination pass of the int8 tier).
+// Kernel 2: int8 block top-k scan (the nomination pass of the int8 tier),
+// and kernel 6, the same scan with a predicate per query.
 //
-// Replaces: _int8_block_kernel (photo_search_engine_tpu/ops/quantized.py:
-// 192-229) with _quant_block_dot feed "int8" (:166-189), launched there by
-// _int8_rescore_impl (:239-336).
+// Kernel 2 replaces: _int8_block_kernel (photo_search_engine_tpu/ops/
+// quantized.py:192-229) with _quant_block_dot feed "int8" (:166-189),
+// launched there by _int8_rescore_impl (:239-336).
+//
+// Kernel 6 replaces: _int8_grouped_kernel (photo_search_engine_tpu/ops/
+// quantized.py:339-376), launched there by _int8_grouped_impl (:379-457).
+// As in kernel 5 (block_topk.cu), the epilogue reads each query's predicate
+// row directly instead of the TPU's one-hot MXU product; it is the same
+// template with kGrouped = true, so kernel 2's code is unchanged.  The pool
+// and the exact rescore stay in the wrapper (ops/quantized.py).
 //
 // What bounds it on the H100: the int8 shadow of a 1M x 1536 corpus is
 // 1.5 GB, half the bf16 bytes, so at batch 1 the read costs about 0.5 ms.
@@ -37,16 +45,16 @@ namespace {
 
 using namespace pse;
 
-template <int BQ>
+template <int BQ, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 int8_block_topk_kernel(const int* __restrict__ corpus,   // [n][d/4] int8x4
                        const int* __restrict__ queries,  // [q][d/4] int8x4
                        const float* __restrict__ qscales,
                        const float* __restrict__ cscales,
                        const float* __restrict__ cnorms,
-                       const int8_t* __restrict__ mask, float* __restrict__ out_v,
-                       int* __restrict__ out_i, int n, int d, int q, int count,
-                       int k, int bn, int l2) {
+                       const int8_t* __restrict__ mask, Predicates pred,
+                       float* __restrict__ out_v, int* __restrict__ out_i, int n,
+                       int d, int q, int count, int k, int bn, int l2) {
   constexpr int TQ = BQ / kWarps;
   extern __shared__ float smem[];
   float* scores = smem;                                         // [BQ][bn]
@@ -101,6 +109,9 @@ int8_block_topk_kernel(const int* __restrict__ corpus,   // [n][d/4] int8x4
       __syncthreads();
     }
 
+    // the predicate rows are looked up here, after the D loop (block_topk.cu)
+    const int8_t* pred_row[TQ] = {};
+    if constexpr (kGrouped) predicate_rows<TQ>(pred, q0 + qg * TQ, q, n, pred_row);
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const int lc = sub + rg + 32 * j;
@@ -110,8 +121,10 @@ int8_block_topk_kernel(const int* __restrict__ corpus,   // [n][d/4] int8x4
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         const int ql = qg * TQ + i;
+        bool keep = valid;
+        if constexpr (kGrouped) keep = keep && pred_row[i] != nullptr && pred_row[i][col] > 0;
         float s = -CUDART_INF_F;
-        if (valid) {
+        if (keep) {
           const float qs = (q0 + ql < q) ? qscales[q0 + ql] : 0.f;
           s = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qs), cscales[col]);
           if (l2) s = __fsub_rn(__fmul_rn(2.f, s), cnorms[col]);
@@ -124,13 +137,13 @@ int8_block_topk_kernel(const int* __restrict__ corpus,   // [n][d/4] int8x4
   select_block_topk<BQ>(scores, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
 }
 
-template <int BQ>
+template <int BQ, bool kGrouped>
 cudaError_t run(const void* corpus, const void* queries, const void* qscales,
                 const void* cscales, const void* cnorms, const void* mask,
-                void* out_v, void* out_i, int n, int d, int q, int count, int k,
-                int bn, int l2, cudaStream_t stream) {
+                Predicates pred, void* out_v, void* out_i, int n, int d, int q,
+                int count, int k, int bn, int l2, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(BQ) * bn + kDepth * (BQ + 1) + kDepth * kPitch);
-  auto kernel = int8_block_topk_kernel<BQ>;
+  auto kernel = int8_block_topk_kernel<BQ, kGrouped>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -141,9 +154,22 @@ cudaError_t run(const void* corpus, const void* queries, const void* qscales,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const int*>(corpus), static_cast<const int*>(queries),
       static_cast<const float*>(qscales), static_cast<const float*>(cscales),
-      static_cast<const float*>(cnorms), static_cast<const int8_t*>(mask),
+      static_cast<const float*>(cnorms), static_cast<const int8_t*>(mask), pred,
       static_cast<float*>(out_v), static_cast<int*>(out_i), n, d, q, count, k, bn, l2);
   return cudaGetLastError();
+}
+
+template <bool kGrouped>
+int dispatch(const void* corpus, const void* queries, const void* qscales,
+             const void* cscales, const void* cnorms, const void* mask,
+             Predicates pred, void* out_v, void* out_i, int n, int d, int q,
+             int count, int k, int bn, int l2, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (q <= 8)
+    return run<8, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred, out_v,
+                            out_i, n, d, q, count, k, bn, l2, s);
+  return run<16, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred, out_v,
+                           out_i, n, d, q, count, k, bn, l2, s);
 }
 
 }  // namespace
@@ -153,10 +179,18 @@ extern "C" int pse_int8_block_topk(const void* corpus, const void* queries,
                                    const void* cnorms, const void* mask,
                                    void* out_v, void* out_i, int n, int d, int q,
                                    int count, int k, int bn, int l2, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (q <= 8)
-    return run<8>(corpus, queries, qscales, cscales, cnorms, mask, out_v, out_i, n, d,
-                  q, count, k, bn, l2, s);
-  return run<16>(corpus, queries, qscales, cscales, cnorms, mask, out_v, out_i, n, d,
-                 q, count, k, bn, l2, s);
+  return dispatch<false>(corpus, queries, qscales, cscales, cnorms, mask, pse::Predicates{},
+                         out_v, out_i, n, d, q, count, k, bn, l2, stream);
+}
+
+// Kernel 6: table is [m][n] int8, ids [q] int32 (see Predicates).
+extern "C" int pse_int8_grouped_block_topk(const void* corpus, const void* queries,
+                                           const void* qscales, const void* cscales,
+                                           const void* table, const void* ids,
+                                           void* out_v, void* out_i, int n, int d,
+                                           int q, int count, int k, int bn, int m,
+                                           void* stream) {
+  return dispatch<true>(corpus, queries, qscales, cscales, nullptr, nullptr,
+                        pse::make_predicates(table, ids, m), out_v, out_i, n, d, q, count,
+                        k, bn, 0, stream);
 }

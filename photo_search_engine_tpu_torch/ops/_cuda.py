@@ -1,7 +1,8 @@
 """Build-on-first-use loader for the CUDA kernels (``csrc/*.cu``).
 
 The same compile-on-demand idea as ``photo_search_engine_tpu/native/
-loader.py``: ``nvcc`` compiles every source under ``csrc/`` into one
+loader.py``: ``nvcc`` compiles every source under ``csrc/`` (one process
+per source, all started together), then links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads.  No
 PyTorch headers are included, so a build takes seconds, not minutes.
 
@@ -29,7 +30,7 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,9 @@ _SIGNATURES = {
     "pse_block_topk_f32": (7, 7),
     "pse_block_topk_bf16": (7, 7),
     "pse_int8_block_topk": (8, 7),
+    "pse_grouped_block_topk_f32": (6, 7),
+    "pse_grouped_block_topk_bf16": (6, 7),
+    "pse_int8_grouped_block_topk": (8, 7),
 }
 
 _lock = threading.Lock()
@@ -80,16 +84,35 @@ def _build() -> str:
         return out_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp_path = f"{out_path}.{os.getpid()}.tmp"
-    command = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path,
-               *[s for s in sources if s.endswith(".cu")]]
+    nvcc = _nvcc()
     started = time.perf_counter()
-    done = subprocess.run(command, capture_output=True, text=True, timeout=600)
+    compiles = []
+    for source in (s for s in sources if s.endswith(".cu")):
+        obj = f"{tmp_path}.{os.path.basename(source)}.o"
+        command = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source]
+        compiles.append((obj, subprocess.Popen(command, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for obj, proc in compiles:  # every process is waited for, failed or not
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        logs.append(out)
+        failed = failed or proc.returncode != 0
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp_path, *(obj for obj, _ in compiles)],
+                              capture_output=True, text=True, timeout=600)
+        logs.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for obj, _ in compiles:
+        if os.path.exists(obj):
+            os.remove(obj)
     _state["build_seconds"] = time.perf_counter() - started
-    _state["build_log"] = done.stdout + done.stderr
-    if done.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {done.returncode}):\n{done.stdout}{done.stderr}"
-        )
+    _state["build_log"] = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{_state['build_log']}")
     with open(log_path, "w") as f:
         f.write(str(_state["build_log"]))
     os.replace(tmp_path, out_path)  # atomic: two processes building at once never tear it

@@ -244,6 +244,22 @@ def merge_partials(part_v, part_i, k):
 # ---------------------------------------------------------------------------
 
 
+def plain_topk(score_rows, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over rows ``[0, n)`` of the scores ``score_rows(start, stop)``
+    gives (invalid rows already ``-inf``), in row chunks that bound the
+    float32 temporary: chunk-local stable top-k, then a stable merge, so
+    ties go to the smallest row as in one full stable sort.  Kernel-space
+    values and int32 row ids."""
+    vals_parts, idx_parts = [], []
+    for start in range(0, n, _PLAIN_ROWS):
+        stop = min(n, start + _PLAIN_ROWS)
+        vals, pos = stable_topk(score_rows(start, stop), min(k, stop - start))
+        vals_parts.append(vals)
+        idx_parts.append(pos + start)
+    vals, pos = stable_topk(torch.cat(vals_parts, dim=1), k)
+    return vals, torch.gather(torch.cat(idx_parts, dim=1), 1, pos).to(torch.int32)
+
+
 def exact_search_plain(
     corpus: torch.Tensor,
     queries: torch.Tensor,
@@ -267,16 +283,11 @@ def exact_search_plain(
     q32 = queries.float()
     qn = (q32 * q32).sum(dim=1)
     metric = "l2" if metric == "l2" else "ip"
-    vals_parts, idx_parts = [], []
-    for start in range(0, n, _PLAIN_ROWS):
-        stop = min(n, start + _PLAIN_ROWS)
-        scores = mask_scores(score_chunk(corpus[start:stop], qf, qn, metric), start, stop, count, mask)
-        vals, pos = stable_topk(scores, min(k, stop - start))
-        vals_parts.append(vals)
-        idx_parts.append(pos + start)
-    vals, pos = stable_topk(torch.cat(vals_parts, dim=1), k)
-    idx = torch.gather(torch.cat(idx_parts, dim=1), 1, pos).to(torch.int32)
-    return _finalize(vals, idx, metric)
+
+    def score_rows(start, stop):
+        return mask_scores(score_chunk(corpus[start:stop], qf, qn, metric), start, stop, count, mask)
+
+    return _finalize(*plain_topk(score_rows, n, k), metric)
 
 
 def exact_search(

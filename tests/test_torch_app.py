@@ -1,5 +1,6 @@
 """The slice as a whole: the same PIL photo library served by the JAX app
-and by the port's app, both without the micro-batcher.  Index build, a
+and by the port's app, without the micro-batcher and with it (the default:
+the season-filtered search then takes the grouped scan).  Index build, a
 text search, a season-filtered search, an image search and an upload
 search return the same route JSON, timing fields dropped and float fields
 within 1e-5.  Then the port's app runs the same flow in a process where
@@ -21,6 +22,7 @@ from photo_search_engine_tpu.api.app import initialize_services as jax_initializ
 from photo_search_engine_tpu.config import load_config, reset_config_cache
 from photo_search_engine_tpu_torch.api.app import create_app, initialize_services
 from photo_search_engine_tpu_torch.api.app import load_config as port_load_config
+from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, MicroBatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
 from tests.torch_parity import run_flow, unit_rows
@@ -87,24 +89,62 @@ def library(tmp_path):
     return tmp_path, str(photo_dir)
 
 
-def test_route_json_matches_jax_app(library, monkeypatch):
+def _close_batchers(services):
+    index = services["vector_index"]
+    if hasattr(index, "_microbatcher"):
+        index._microbatcher.close()
+        services["searcher"].embedding_service._batcher.close()
+
+
+def _compare_apps(library, monkeypatch, grouped_route=None, **extra):
+    """Run the flow through the JAX app and the port's app on the same
+    library and config; the route JSON must agree.  Returns both services.
+
+    ``grouped_route``: the route name the port reports for the season
+    search with text, which the micro-batcher runs as a grouped scan.  It
+    is taken out of both debugs first: the JAX grouped path leaves
+    ``last_route`` as the previous search set it."""
     tmp, photo_dir = library
     # the upload route analyses its temporary copy, whose name feeds the
     # local analysis: give both apps the same name
     import tempfile
 
     monkeypatch.setattr(tempfile, "_get_candidate_names", lambda: iter(["pse_upload"]))
-    jax_cfg = _config(monkeypatch, photo_dir, str(tmp / "jax_data"))
-    jax_out = run_flow(jax_create_app(jax_initialize(jax_cfg)).test_client(), photo_dir)
-    port_cfg = _config(monkeypatch, photo_dir, str(tmp / "port_data"))
-    services = initialize_services(port_cfg)
+    jax_services = jax_initialize(_config(monkeypatch, photo_dir, str(tmp / "jax_data"), **extra))
+    jax_out = run_flow(jax_create_app(jax_services).test_client(), photo_dir)
+    services = initialize_services(_config(monkeypatch, photo_dir, str(tmp / "port_data"), **extra))
     assert services["device"] == torch.device("cpu")
     port_out = run_flow(create_app(services).test_client(), photo_dir)
     for name in ("upload",):
         _drop_upload_temp_paths(jax_out[name])
         _drop_upload_temp_paths(port_out[name])
+    if grouped_route is not None:
+        jax_out["season_text"]["search_debug"].pop("index_route")
+        assert port_out["season_text"]["search_debug"].pop("index_route")["impl"] == grouped_route
     _assert_close(_normalize(port_out), _normalize(jax_out))
+    return jax_services, services
+
+
+def test_route_json_matches_jax_app(library, monkeypatch):
+    _, services = _compare_apps(library, monkeypatch)
     assert services["vector_index"].last_route["impl"] in {"exact", "exact_masked"}
+
+
+@pytest.mark.parametrize("keyword_backend", ["builtin", "none"])
+def test_route_json_matches_jax_app_microbatched(library, monkeypatch, keyword_backend):
+    """Both apps with the micro-batcher on.  Without a keyword index the
+    searcher sends the season filter to ``search_masked``, which the
+    micro-batcher runs as a grouped scan."""
+    jax_services, services = _compare_apps(
+        library, monkeypatch, grouped_route="exact_grouped" if keyword_backend == "none" else None,
+        SEARCH_MICROBATCH_ENABLED="1", KEYWORD_BACKEND=keyword_backend,
+    )
+    grouped = services["vector_index"]._microbatcher.grouped_batches_run
+    assert grouped == jax_services["vector_index"]._microbatcher.grouped_batches_run
+    assert grouped == (1 if keyword_backend == "none" else 0)
+    assert services["vector_index"]._microbatcher.requests_served >= 3
+    _close_batchers(jax_services)
+    _close_batchers(services)
 
 
 _JAX_BLOCKED = r"""
@@ -157,7 +197,7 @@ def test_gpu_platform_needs_cuda(monkeypatch):
         {"VECTOR_INDEX_TYPE": "ivf"},
         {"MESH_DEVICES": "2"},
         {"DIST_COORDINATOR": "localhost:1234", "DIST_NUM_PROCESSES": "2", "DIST_PROCESS_ID": "0"},
-        {"SEARCH_MICROBATCH_ENABLED": "1"},
+        {"EMBEDDING_BASE_URL": "http://localhost:1/v1"},  # the auto backend with a base URL
     ],
 )
 def test_unported_configurations_raise(library, monkeypatch, env):
@@ -167,16 +207,28 @@ def test_unported_configurations_raise(library, monkeypatch, env):
         initialize_services(cfg)
 
 
-def test_microbatch_unset_serves_without_it(library, monkeypatch, capsys):
+def test_microbatch_default_attaches_batchers(library, monkeypatch):
+    """With the knob at its default, the batched embedder and the
+    micro-batcher are wired as the JAX app wires them."""
     tmp, photo_dir = library
-    cfg = _config(monkeypatch, photo_dir, str(tmp / "data"))
+    cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), SEARCH_MICROBATCH_WINDOW_MS="7",
+                  SEARCH_MICROBATCH_MAX_BATCH="16", SEARCH_MICROBATCH_PIPELINE="3")
     monkeypatch.delenv("SEARCH_MICROBATCH_ENABLED")
     reset_config_cache()
     cfg = load_config()
     assert cfg["SEARCH_MICROBATCH_ENABLED"] is True  # the config default
     services = initialize_services(cfg)
-    assert sum("[INFO]" in line and "micro-batch" in line for line in capsys.readouterr().out.splitlines()) == 1
+    jax_services = jax_initialize(cfg)
+    for wired in (services, jax_services):
+        batcher = wired["vector_index"]._microbatcher
+        assert (batcher.window_s, batcher.max_batch, batcher.pipeline) == (0.007, 16, 3)
+        assert type(wired["searcher"].embedding_service).__name__ == "BatchedEmbeddingService"
+        assert wired["embedding_service"] is wired["indexer"].embedding_service
+    assert isinstance(services["vector_index"]._microbatcher, MicroBatcher)
+    assert isinstance(services["searcher"].embedding_service, BatchedEmbeddingService)
     assert services["indexer"].worker_entrypoint == ["-m", "photo_search_engine_tpu_torch.api.app"]
+    _close_batchers(services)
+    _close_batchers(jax_services)
 
 
 def test_port_load_config_keeps_its_overrides(monkeypatch, tmp_path):
@@ -186,12 +238,13 @@ def test_port_load_config_keeps_its_overrides(monkeypatch, tmp_path):
     cfg = port_load_config({"DATA_DIR": str(tmp_path), "TOP_K": "7", "PSE_PLATFORM": "cpu",
                             "SEARCH_MICROBATCH_ENABLED": "0"})
     assert cfg["TOP_K"] == 7 and cfg["PSE_PLATFORM"] == "cpu"
-    assert cfg["SEARCH_MICROBATCH_ENABLED"] is False and cfg["SEARCH_MICROBATCH_REQUESTED"] is False
+    assert cfg["SEARCH_MICROBATCH_ENABLED"] is False
     assert "PSE_PLATFORM" not in os.environ and "TOP_K" not in os.environ  # restored
-    assert port_load_config({"SEARCH_MICROBATCH_ENABLED": "1"})["SEARCH_MICROBATCH_REQUESTED"] is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initialize_services(port_load_config({"DATA_DIR": str(tmp_path), "PSE_PLATFORM": "cpu",
-                                              "SEARCH_MICROBATCH_ENABLED": "1"}))
+    assert not hasattr(initialize_services(cfg)["vector_index"], "_microbatcher")
+    services = initialize_services(port_load_config({"DATA_DIR": str(tmp_path), "PSE_PLATFORM": "cpu",
+                                                     "SEARCH_MICROBATCH_ENABLED": "1"}))
+    assert isinstance(services["vector_index"]._microbatcher, MicroBatcher)
+    _close_batchers(services)
     # the device comes from the config, not from the environment at call time
     assert initialize_services(cfg)["device"] == torch.device("cpu")
 

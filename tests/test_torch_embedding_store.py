@@ -163,7 +163,7 @@ def test_search_contract_edges():
     assert i.shape == (1, 4)
     with pytest.raises(ValueError):
         store.search(_rows(2, 1), 3, impl="int8")
-    with pytest.raises(NotImplementedError):
-        store.grouped_search(_rows(2, 1), 3, np.ones((1, 4)), np.zeros(1))
+    v, i = store.grouped_search(_rows(2, 1), 3, np.ones((1, 4)), np.zeros(1))
+    assert i.shape == (1, 3) and (i >= 0).all()  # one predicate that keeps every row
     store.clear()
     assert store.count == 0 and store.capacity == 0 and store.snapshot().shape == (0, D)

@@ -1,19 +1,24 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+kernel 1 (block_topk), kernel 2 (int8_block_topk) and their grouped
+variants, kernel 5 (grouped_block_topk) and kernel 6
+(int8_grouped_block_topk).
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; the plain versions they are held to run on the CPU in
-``test_torch_topk.py`` and ``test_torch_quantized.py``.  On a machine
+``test_torch_topk.py``, ``test_torch_grouped_mask.py`` and
+``test_torch_quantized.py``.  On a machine
 with a card and without jax (this file imports none), run:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: kernel 1 values within 1e-5 of the plain float32 product
-(summation order only, unit rows); kernel 2 identical (exact int32 dot,
-the same float32 scaling)."""
+Tolerance: kernels 1 and 5 values within 1e-5 of the plain float32
+product (summation order only, unit rows); kernels 2 and 6 identical
+(exact int32 dot, the same float32 scaling)."""
 
 import pytest
 import torch
 
+from photo_search_engine_tpu_torch.ops import grouped_mask as go
 from photo_search_engine_tpu_torch.ops import quantized as qo
 from photo_search_engine_tpu_torch.ops import topk as to
 from tests.torch_parity import assert_topk_match
@@ -85,3 +90,94 @@ def test_wrappers_check_their_inputs(gen):
     # the error is not left behind for the next launch to report
     to.block_topk(corpus, corpus, 5, count=100)
     qo.int8_block_topk(c8, cs, c8, cs, 5, count=100)
+
+
+def _predicates(gen, m, n, q):
+    """A random [m, n] table with an empty row 1 (m > 1) and ids that
+    include one past the table (q > 1) and one below it (q >= 9)."""
+    table = (torch.rand((m, n), generator=gen, device="cuda") < 0.5).to(torch.int8)
+    if m > 1:
+        table[1] = 0
+    ids = torch.randint(0, m, (q,), generator=gen, device="cuda", dtype=torch.int32)
+    if q > 1:
+        ids[-1] = m
+    if q >= 9:
+        ids[q // 2] = -1
+    return table, ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 50, 64])
+@pytest.mark.parametrize("m,q", [(1, 1), (3, 9), (8, 33), (3, 128)])
+def test_grouped_block_topk_matches_plain(gen, dtype, k, m, q):
+    corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
+    table, ids = _predicates(gen, m, 3000, q)
+    kw = dict(count=2900, block_n=1024)
+    before = go.grouped_block_topk.launches
+    got_v, got_i = go.grouped_block_topk(corpus, queries, table, ids, k, **kw)
+    torch.cuda.synchronize()
+    assert go.grouped_block_topk.launches == before + 1
+    ref_v, ref_i = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
+    assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
+
+
+@pytest.mark.parametrize("k", [1, 10, 50, 64])
+@pytest.mark.parametrize("m,q", [(1, 1), (3, 9), (8, 33), (3, 128)])
+def test_int8_grouped_block_topk_identical_to_plain(gen, k, m, q):
+    c8, cs = qo.quantize_rows(_unit(5000, 256, gen, torch.bfloat16))
+    q8, qs = qo.quantize_rows(_unit(q, 256, gen))
+    table, ids = _predicates(gen, m, 5000, q)
+    kw = dict(count=4800, block_n=2048)
+    before = qo.int8_grouped_block_topk.launches
+    got = qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k, **kw)
+    torch.cuda.synchronize()
+    assert qo.int8_grouped_block_topk.launches == before + 1
+    ref = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, k, **kw)
+    assert_topk_match(*got, *ref, tol=0.0, exact=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_search_duplicate_rows_and_edge_ids(gen, dtype):
+    """Duplicates of the query row across a block edge come out at the
+    smallest rows, each under its own predicate; an empty predicate and ids
+    outside the table give empty slots."""
+    corpus = _unit(3000, 256, gen, dtype)
+    dups = list(range(1000, 1030)) + [2990]
+    corpus[dups] = corpus[7].clone()
+    table = torch.zeros((3, 3000), dtype=torch.int8, device="cuda")
+    table[0] = 1
+    table[2, ::2] = 1  # row 1 stays empty
+    ids = torch.tensor([0, 1, 2, 3, -1, 2, 0, 1, 0], dtype=torch.int32, device="cuda")
+    queries = corpus[7:8].repeat(9, 1)
+    _, idx = go.grouped_mask_search(corpus, queries, table, ids, 10)
+    _, ref = go.grouped_mask_plain(corpus, queries, table, ids, 10)
+    assert torch.equal(idx, ref)
+    assert idx[0].tolist() == [7] + dups[:9]
+    assert idx[2].tolist() == [1000 + 2 * i for i in range(10)]
+    assert (idx[[1, 3, 4, 7]] == -1).all()
+    c8, cs = qo.quantize_rows(corpus)
+    q8, qs = qo.quantize_rows(queries)
+    got = qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, 10, count=3000, block_n=2048)
+    want = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, 10, count=3000, block_n=2048)
+    assert_topk_match(*got, *want, tol=0.0, exact=True)
+
+
+def test_grouped_wrappers_check_their_inputs(gen):
+    corpus = _unit(100, 64, gen)
+    table = torch.ones((2, 100), dtype=torch.int8, device="cuda")
+    ids = torch.zeros(100, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        go.grouped_block_topk(corpus, corpus, table.bool(), ids, 5, count=100)
+    with pytest.raises(ValueError):
+        go.grouped_block_topk(corpus, corpus, table, ids.long(), 5, count=100)
+    with pytest.raises(ValueError):
+        go.grouped_block_topk(corpus, corpus, table[:, :99].contiguous(), ids, 5, count=100)
+    with pytest.raises(ValueError):
+        go.grouped_block_topk(corpus, corpus, table, ids, 65, count=100)
+    c8, cs = qo.quantize_rows(corpus)
+    with pytest.raises(ValueError):
+        qo.int8_grouped_block_topk(c8, cs, c8, cs, table.cpu(), ids, 5, count=100)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        go.grouped_block_topk(corpus, corpus, table, ids, 5, count=100, block_n=65536)
+    go.grouped_block_topk(corpus, corpus, table, ids, 5, count=100)
+    qo.int8_grouped_block_topk(c8, cs, c8, cs, table, ids, 5, count=100)

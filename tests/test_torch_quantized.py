@@ -10,7 +10,12 @@ The port nominates each block's top-kloc by exact float32 comparison with
 ties to the smallest row; JAX uses packed int32 keys, which order the
 same except inside a ±2⁻¹³ relative window.  The nominated pool is only a
 superset filter for the exact rescore, so the planted cases below (well
-separated similarities) give identical results in both."""
+separated similarities) give identical results in both.
+
+``grouped_int8_search`` (kernel 6's plain version, the same pool and
+rescore) runs the cases of ``tests/test_quantized.py::GroupedInt8Test``
+beside JAX ``grouped_int8_search`` (Pallas interpret mode), with the same
+comparison."""
 
 import numpy as np
 import pytest
@@ -169,6 +174,92 @@ def test_block_partials_plain_layout():
     assert tuple(part_v.shape) == (4, 2, 5)
     assert (part_i[:, 1, :] < 2100).all() and (part_i[:, 1, :] >= 2048).all()
     assert (torch.diff(part_v, dim=-1) <= 0).all()
+
+
+# -- grouped_int8_search ------------------------------------------------------
+
+
+def _grouped_planted(seed=21, n=4000, d=64):
+    """Three predicates (all rows / even rows / rows 1000..1999) and six
+    queries, each with K planted neighbours its own predicate admits."""
+    rng = np.random.default_rng(seed)
+    corpus = unit_rows(rng, n, d)
+    queries = unit_rows(rng, 6, d)
+    table = np.zeros((3, n), np.int8)
+    table[0, :] = 1
+    table[1, ::2] = 1
+    table[2, 1000:2000] = 1
+    ids = np.array([0, 1, 2, 0, 1, 2], np.int32)
+    admissible = [rng.permutation(n), rng.permutation(np.arange(0, n, 2)), rng.permutation(np.arange(1000, 2000))]
+    cursor = [0, 0, 0]
+    for query, m in zip(queries, ids):
+        _plant(corpus, query, admissible[m][cursor[m] : cursor[m] + K], 0.95 - 0.03 * np.arange(K), rng)
+        cursor[m] += K
+    return corpus, queries, table, ids
+
+
+def _grouped_both(corpus, queries, table, ids, k, **kw):
+    """(port, jax) results of grouped_int8_search on the same rows."""
+    jq8, js = jq.quantize_rows(jnp.asarray(corpus))
+    ref = jq.grouped_int8_search(
+        jq8, js, jnp.asarray(corpus), jnp.asarray(queries), jnp.asarray(table), jnp.asarray(ids), k, **kw
+    )
+    c = torch.from_numpy(corpus)
+    tq8, ts = tq.quantize_rows(c)
+    got = tq.grouped_int8_search(
+        tq8, ts, c, torch.from_numpy(queries), torch.from_numpy(table), torch.from_numpy(ids), k, **kw
+    )
+    return (got[0].numpy(), got[1].numpy()), (np.asarray(ref[0]), np.asarray(ref[1]))
+
+
+def test_grouped_planted_matches_jax():
+    corpus, queries, table, ids = _grouped_planted()
+    got, ref = _grouped_both(corpus, queries, table, ids, K)
+    _assert_same(got, ref)
+    assert (got[1][[1, 4]] % 2 == 0).all()
+    assert ((got[1][[2, 5]] >= 1000) & (got[1][[2, 5]] < 2000)).all()
+
+
+def test_grouped_empty_predicate_and_count():
+    corpus, queries, _, _ = _grouped_planted(seed=22)
+    table = np.zeros((2, 4000), np.int8)
+    table[0, :] = 1  # predicate 1 matches nothing
+    got, ref = _grouped_both(corpus, queries[:2], table, np.array([0, 1], np.int32), 5, count=2000)
+    assert (got[1][0] < 2000).all() and (got[1][0] >= 0).all()
+    assert (got[1][1] == -1).all() and np.isneginf(got[0][1]).all()
+    _assert_same(got, ref)
+
+
+def test_grouped_ids_outside_the_table_match_no_row():
+    corpus, queries, table, _ = _grouped_planted(seed=23)
+    ids = np.array([0, 3, -1, 4, 1, 2], np.int32)
+    got, ref = _grouped_both(corpus, queries, table, ids, K)
+    assert (got[1][1:4] == -1).all()
+    _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("k,kloc", [(100, None), (40, 8)])
+def test_grouped_large_k_and_pool_guard_take_the_plain_path(k, kloc):
+    """k above 64, and a pool (2 blocks x kloc 8) that cannot cover k=40,
+    both take the exact grouped path."""
+    corpus, queries, table, ids = _grouped_planted(seed=24)
+    got, ref = _grouped_both(corpus, queries, table, ids, k, kloc=kloc)
+    assert got[1].shape == (6, k)
+    _assert_same(got, ref)
+
+
+def test_grouped_block_partials_plain_equal_masked_kernel2_plain():
+    """Kernel 6's plain version under one shared predicate row is kernel 2's
+    plain version with that row as its mask, bit for bit."""
+    corpus, queries, table, _ = _grouped_planted(seed=25, n=3000)
+    c8, cs = tq.quantize_rows(torch.from_numpy(corpus))
+    q8, qs = tq.quantize_rows(torch.from_numpy(queries))
+    ids = torch.full((6,), 2, dtype=torch.int32)
+    got = tq.int8_grouped_block_topk(c8, cs, q8, qs, torch.from_numpy(table[:, :3000]), ids, 7,
+                                     count=2500, block_n=2048)
+    ref = tq.int8_block_topk(c8, cs, q8, qs, 7, count=2500, mask=torch.from_numpy(table[2, :3000]), block_n=2048)
+    assert tuple(got[0].shape) == (6, 2, 7)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def test_resolve_store_quantized():

@@ -113,8 +113,8 @@ def test_routes_and_unported_configurations(tmp_path):
     index.search_masked(np.ones(D, np.float32), 3, np.ones(30, bool))
     assert index.last_route["impl"] == "int8_masked"
     assert index.describe()["count"] == 30
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.raw_grouped_search_batch(np.ones((1, D)), 3, np.ones((1, 30)), np.zeros(1))
+    index.raw_grouped_search_batch(np.ones((1, D)), 3, np.ones((1, 30)), np.zeros(1))
+    assert index.last_route["impl"] == "int8_grouped"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VectorIndex(D, index_type="ivf", **_paths(tmp_path, "i"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

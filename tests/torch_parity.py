@@ -67,7 +67,7 @@ def _upload_bytes():
 
 
 def run_flow(client, photo_dir):
-    """Build the index through the routes, then the four searches."""
+    """Build the index through the routes, then the five searches."""
     assert client.post("/init_index", json_body={"mode": "full"}).status_code == 200
     deadline = time.time() + 60
     while time.time() < deadline:
@@ -79,6 +79,9 @@ def run_flow(client, photo_dir):
     out = {"status": {k: status[k] for k in ("status", "indexed_count", "total_count")}}
     out["text"] = client.post("/search_photos", json_body={"query": "beach sunset sea", "top_k": 3}).get_json()
     out["season"] = client.post("/search_photos", json_body={"query": "夏天的照片", "top_k": 6}).get_json()
+    # search text plus a season: without a keyword index this is the masked
+    # vector search (the grouped scan under the micro-batcher)
+    out["season_text"] = client.post("/search_photos", json_body={"query": "夏天 海边", "top_k": 6}).get_json()
     out["image"] = client.post(
         "/search_by_image", json_body={"image_path": os.path.join(photo_dir, "beach_sunset_sea.jpg"), "top_k": 3}
     ).get_json()
@@ -87,4 +90,6 @@ def run_flow(client, photo_dir):
     ).get_json()
     for name in ("text", "season", "image", "upload"):
         assert out[name]["status"] == "success" and out[name]["results"], (name, out[name])
+    # the keyword channel's relevance floors may rightly leave this one empty
+    assert out["season_text"]["status"] == "success", out["season_text"]
     return out

@@ -12,7 +12,12 @@ Phases; each prints its results on lines of its own and raises on failure:
              then kernel 5 (grouped_block_topk) and kernel 6
              (int8_grouped_block_topk), a predicate per query, for M in
              {1, 3, 8} and Q in {1, 9, 33, 128}, with an empty predicate,
-             ids outside [0, M) and duplicate rows.
+             ids outside [0, M) and duplicate rows; then kernel 7
+             (ivf_block_topk, the IVF probed-cluster scan) on float32,
+             bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
+             (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
+             in {1, 8, 64}, with padding slots, a slot mask, a query whose
+             probed clusters are all masked out and duplicate rows.
 3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app,
              micro-batcher on, its default) as a subprocess on a PIL photo
              library; then the same app in this process without a keyword
@@ -28,10 +33,21 @@ Phases; each prints its results on lines of its own and raises on failure:
              checked against plain per-query searches, a season-filtered
              /search_photos, the batcher's counters, and the kernels'
              times against the plain versions (CUDA events, after warm-up).
+5. ivf     - VECTOR_INDEX_TYPE=ivf at 1M x 1536: bfloat16 rows of intrinsic
+             dimension 32 made on the card from a seed, served by the app's
+             wiring with IVF_NLIST=1024, IVF_NPROBE=64 and the micro-batcher
+             on, with STORE_QUANTIZED=0 and =1: the first routed search
+             builds the IVF (its seconds printed), 32 concurrent image
+             searches and an unfiltered /search_photos (k up to 500) reach
+             kernel 7 through the routes, a masked search_batch takes the
+             ivf_masked route; each result is held against the same search
+             with kernel 7's plain version under the same probes; recall@10
+             against the flat exact scan (kernel 1); kernel 7's times against
+             its plain version at batch 1 and 128, top-50.
 
-The launch counters of the four kernels are set to 0 before the route runs
-of phases 3 and 4 and read after every client thread has joined; a kernel
-that the routes never launched fails the run.  The second-to-last line of output is a JSON
+The launch counters are set to 0 before the route runs of phases 3, 4 and
+5 and read after every client thread has joined; a kernel that the routes
+never launched fails the run.  The second-to-last line of output is a JSON
 object with each kernel's route, launches, error and times; the last is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
@@ -44,6 +60,8 @@ Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import io
 import json
 import os
@@ -57,7 +75,9 @@ DEVICE = "cuda"
 TOL = 1e-5  # unit vectors at 1536-d: the kernel and the plain product differ in summation order only
 SEED = 20261016
 
-_NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk")
+_NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk", "ivf_block_topk")
+_FLAT = _NAMES[:4]
+_DRIVES = {"app": _FLAT, "scale": _FLAT, "ivf": ("ivf_block_topk",)}  # the kernels each route phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}
@@ -119,11 +139,13 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 def _wrappers() -> dict:
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
 
     return {"block_topk": to.block_topk, "int8_block_topk": qo.int8_block_topk,
-            "grouped_block_topk": go.grouped_block_topk, "int8_grouped_block_topk": qo.int8_grouped_block_topk}
+            "grouped_block_topk": go.grouped_block_topk, "int8_grouped_block_topk": qo.int8_grouped_block_topk,
+            "ivf_block_topk": io_.ivf_block_topk}
 
 
 def reset_launches() -> None:
@@ -305,6 +327,7 @@ def phase_kernels() -> None:
     log(f"[kernels] int8_block_topk: {cases} cases identical to the plain version "
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
     check_grouped_kernels(gen, n, d)
+    check_ivf_kernel(gen, d)
 
 
 def _predicates(gen, m, n, q):
@@ -404,6 +427,107 @@ def check_grouped_kernels(gen, n, d) -> None:
                    *qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, 65, **kw), exact=True)
     log("[kernels] grouped: duplicate-row ties at the smallest row under each query's predicate; "
         "empty predicate and ids outside [0, M) give empty slots (f32, bf16; k 1/10/50/64)")
+
+
+def check_partials(name, got, plain, k):
+    """Kernel 7's ``[Q, nprobe, T, kk]`` partials against its plain
+    version run at k + 1, whose extra column (when the tile has one) is the
+    cut, then the merged top-k the same way (:func:`check_topk`'s rule)."""
+    from tests.torch_parity import assert_topk_match
+
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    ref_v, ref_i = plain(k + 1)
+    kk = got[0].shape[-1]
+    cut = ref_v[..., kk] if ref_v.shape[-1] > kk else None
+    try:
+        err = assert_topk_match(*got, ref_v[..., :kk], ref_i[..., :kk], tol=TOL, cut=cut)
+    except AssertionError as exc:
+        raise AssertionError(f"{name} (partials): {exc}") from exc
+    return max(err, check_topk(f"{name} (merged)", *to.merge_partials(*got, k), *to.merge_partials(ref_v, ref_i, k + 1)))
+
+
+def _ivf_layout(gen, nlist, lrows, d):
+    """A cluster-major layout of unit rows whose clusters end in padding
+    slots (row_valid 0), with 64 duplicates of slot 7 spread over clusters
+    0, 1 and 2."""
+    import torch
+
+    corpus = _unit_rows(nlist * lrows, d, gen, torch.float32)
+    row_valid = torch.ones(nlist * lrows, dtype=torch.int8, device=DEVICE)
+    fill = torch.randint(lrows // 2, lrows + 1, (nlist,), generator=gen, device=DEVICE)
+    row_valid.view(nlist, lrows)[torch.arange(lrows, device=DEVICE)[None, :] >= fill[:, None]] = 0
+    dups = torch.tensor([lrows + 3 + 5 * i for i in range(40)] + [2 * lrows + i for i in range(24)], device=DEVICE)
+    corpus[dups] = corpus[7].clone()
+    row_valid[dups] = 1
+    row_valid[7] = 1
+    return corpus, row_valid, dups
+
+
+def check_ivf_kernel(gen, d) -> None:
+    """Kernel 7 against its plain version: float32, bfloat16 and int8
+    layouts, ip and l2, k 1/10/50/64 (and 500 on the float layouts), Q
+    1/9/33/128, nprobe 1/8/64, with padding slots; then a slot mask, a query
+    whose probed clusters are all masked out, and duplicate rows."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    nlist, lrows = 96, 384  # 384 slots: a ragged last tile of 128
+    base, row_valid, dups = _ivf_layout(gen, nlist, lrows, d)
+    cases = {"float32": 0, "bfloat16": 0, "int8": 0}
+    shapes = ((1, 1, 1), (10, 9, 8), (50, 33, 64), (64, 128, 8), (50, 128, 64), (500, 9, 8), (500, 1, 64))
+    for tier in cases:
+        ref_rows = base.to(torch.bfloat16 if tier != "float32" else torch.float32)
+        cnorms = to.row_sq_norms(ref_rows)
+        corpus, extra = ref_rows, {}
+        if tier == "int8":
+            corpus, cscales = qo.quantize_rows(ref_rows)
+        for metric in ("ip", "l2"):
+            for k, q, nprobe in shapes:
+                if tier == "int8" and k > 64:
+                    continue  # the int8 tier nominates at most 64 (k > 64 scans the full-precision layout)
+                queries = _unit_rows(q, d, gen, torch.float32)
+                queries[0] = base[7]
+                probes = torch.stack([torch.randperm(nlist, generator=gen, device=DEVICE)[:nprobe] for _ in range(q)])
+                probes = torch.sort(probes, dim=1).values.to(torch.int32).contiguous()
+                if tier == "int8":
+                    queries, qs = io_.quantize_ivf_queries(queries)
+                    extra = dict(qscales=qs, cscales=cscales)
+                else:
+                    queries = queries.to(corpus.dtype)
+                for valid, what in ((row_valid, ""), (row_valid * (torch.rand(row_valid.shape, generator=gen, device=DEVICE) < 0.3), " masked")):
+                    kw = dict(lrows=lrows, metric=metric, cnorms=cnorms, **extra)
+                    got = io_.ivf_block_topk(corpus, queries, probes, valid.to(torch.int8), k, **kw)
+                    torch.cuda.synchronize()
+                    name = f"ivf_block_topk {tier} {metric}{what} k={k} q={q} nprobe={nprobe}"
+                    plain = lambda kk: io_.ivf_block_topk_plain(corpus, queries, probes, valid.to(torch.int8), kk, **kw)  # noqa: E731
+                    if tier == "int8":
+                        err = check_topk(name, *got, *plain(k + 1), exact=True)
+                    else:
+                        err = check_partials(name, got, plain, k)
+                    _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+                    cases[tier] += 1
+    log(f"[kernels] ivf_block_topk: {cases['float32'] + cases['bfloat16']} float cases agree with the plain "
+        f"version (max |err| {_ERRORS['ivf_block_topk']:.3g}, tol {TOL}), {cases['int8']} int8 cases identical")
+
+    # a query whose probed clusters are all masked out; duplicates of slot 7
+    # come out at the smallest slots, across clusters
+    row_valid[3 * lrows : 5 * lrows] = 0
+    probes = torch.tensor([[0, 1], [3, 4]], dtype=torch.int32, device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = base.to(dtype)
+        queries = corpus[[7, 7]].contiguous()
+        vals, slots = to.merge_partials(*io_.ivf_block_topk(corpus, queries, probes, row_valid, 64, lrows=lrows), 64)
+        want = sorted([7] + [int(r) for r in dups[:40]])
+        if slots[0].tolist()[: len(want)] != want:
+            raise AssertionError(f"ivf duplicate-row ties {str(dtype)[6:]}: {slots[0].tolist()[:8]}... != {want[:8]}...")
+        if not (torch.isneginf(vals[1]).all() and (slots[1] == torch.iinfo(torch.int32).max).all()):
+            raise AssertionError("ivf: a query whose probed clusters are all masked out returned slots")
+    log("[kernels] ivf_block_topk: duplicate-row ties at the smallest slots across clusters; a query whose "
+        "probed clusters are all masked out gets empty slots (f32, bf16)")
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +683,7 @@ def phase_app() -> None:
         for name in names:
             if launches[name] <= 0:
                 raise AssertionError(f"STORE_QUANTIZED={tier}: the routes never launched {name}")
-    for name in _LAUNCHES:
+    for name in _FLAT:
         _LAUNCHES[name] += exact[name] + int8[name]
 
 
@@ -631,6 +755,16 @@ def _scale_metadata(rows: int):
     ]
 
 
+_METADATA = {}
+
+
+def _metadata(rows: int):
+    """:func:`_scale_metadata`, built once per row count (phases 4 and 5)."""
+    if rows not in _METADATA:
+        _METADATA[rows] = _scale_metadata(rows)
+    return _METADATA[rows]
+
+
 def _hits_to_topk(hits, k):
     """A search's ``[{metadata, distance}]`` as padded ``(values, row ids)``."""
     import numpy as np
@@ -672,7 +806,7 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
             metadata_path=os.path.join(tmp, "scale-meta.json"), metric="cosine",
             store_dtype="bfloat16", quantized=True, device=device,
         )
-        index.load_device_rows(corpus, _scale_metadata(rows))
+        index.load_device_rows(corpus, _metadata(rows))
         del corpus
         store = index._store
         torch.cuda.synchronize()
@@ -747,10 +881,10 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
             server.server_close()
             close_batchers(services)
         log(f"[scale] route launches {launches}")
-        for name, value in launches.items():
-            if value <= 0:
+        for name in _FLAT:
+            if launches[name] <= 0:
                 raise AssertionError(f"scale routes never launched {name}")
-            _LAUNCHES[name] += value
+            _LAUNCHES[name] += launches[name]
         mean = batcher.requests_served / max(batcher.batches_run, 1)
         log(f"[scale] micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run "
             f"{batcher.grouped_batches_run}, requests_served {batcher.requests_served} (mean batch {mean:.2f})")
@@ -825,7 +959,7 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
         k6 = dict(count=store.count, block_n=store._i8_block)
         for batch, tops, names in ((1, (10, 50), ("block_topk", "int8_block_topk")),
                                    (256, (10, 50), ("block_topk", "int8_block_topk")),
-                                   (128, (50,), _NAMES)):  # the grouped kernels beside 1 and 2
+                                   (128, (50,), _FLAT)):  # the grouped kernels beside 1 and 2
             qb = _unit_rows(batch, dim, gen, torch.float32)
             qb16 = qb.to(torch.bfloat16)
             q_i8, qs = qo.quantize_rows(qb)
@@ -867,12 +1001,218 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: VECTOR_INDEX_TYPE=ivf at 1M x 1536
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_ivf_scan():
+    """Inside, every IVF search runs kernel 7's plain version in place of
+    the kernel; the pipeline around it (probes, merge, rescore) is the same."""
+    from photo_search_engine_tpu_torch.ops import ivf_scan
+
+    kernel = ivf_scan.ivf_block_topk
+    ivf_scan.ivf_block_topk = ivf_scan.ivf_block_topk_plain
+    try:
+        yield
+    finally:
+        ivf_scan.ivf_block_topk = kernel
+
+
+def _intrinsic_rows(rows, dim, gen, intrinsic=32):
+    """Unit bf16 rows ``normalize(z @ B)``, ``z ~ N(0, I)`` of width
+    ``intrinsic`` and ``B`` a Gaussian ``[intrinsic, dim]`` basis over
+    sqrt(intrinsic), made on the card in chunks (the corpus of
+    ``tools/recall_eval.py``); returns the rows and the basis."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    basis = torch.randn((intrinsic, dim), generator=gen, device=DEVICE) / intrinsic ** 0.5
+    corpus = torch.empty((rows, dim), dtype=torch.bfloat16, device=DEVICE)
+    for start in range(0, rows, 131072):
+        stop = min(rows, start + 131072)
+        z = torch.randn((stop - start, intrinsic), generator=gen, device=DEVICE)
+        corpus[start:stop] = to.l2_normalize(z @ basis).to(torch.bfloat16)
+    return corpus, basis
+
+
+def phase_ivf(rows: int = 1_000_000, dim: int = 1536) -> None:
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    corpus, basis = _intrinsic_rows(rows, dim, gen)
+    rng = np.random.default_rng(SEED + 3)
+    # held-out queries: rows perturbed inside the corpus's subspace
+    picks = torch.from_numpy(rng.choice(rows, size=128, replace=False)).to(DEVICE)
+    noise = torch.randn((128, basis.shape[0]), generator=gen, device=DEVICE) @ basis
+    queries = to.l2_normalize(corpus[picks].float() + 0.1 * noise).cpu().numpy()
+    mask = rng.random(rows) < 0.25  # a filter keeping about a quarter of the rows
+    metadata = _metadata(rows)
+    torch.cuda.synchronize()
+    log(f"[ivf] {rows} x {dim} bf16 rows of intrinsic dimension 32 on the card, 128 held-out queries, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for quantized in ("0", "1"):
+        _ivf_tier(corpus, metadata, queries, mask, quantized)
+
+
+def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    demo = _demo()
+    device = torch.device(DEVICE)
+    rows, dim = corpus.shape
+    tier = "int8" if quantized == "1" else "exact"
+    with tempfile.TemporaryDirectory(prefix="pse_ivf_") as tmp:
+        config = load_config({
+            "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu", "VECTOR_INDEX_TYPE": "ivf",
+            "IVF_NLIST": "1024", "IVF_NPROBE": "64", "STORE_QUANTIZED": quantized,
+            "SEARCH_MICROBATCH_ENABLED": "1", "KEYWORD_BACKEND": "none",
+            "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10",
+            "QUERY_EXPANSION_ENABLED": "0", "QUERY_CACHE_ENABLED": "0", "EMBEDDING_CACHE_ENABLED": "0",
+        })
+        index = VectorIndex(
+            dimension=dim, index_path=os.path.join(tmp, "ivf.index"), metadata_path=os.path.join(tmp, "ivf-meta.json"),
+            metric="cosine", index_type=config["VECTOR_INDEX_TYPE"], store_dtype="bfloat16",
+            ivf_nlist=config["IVF_NLIST"], ivf_nprobe=config["IVF_NPROBE"],
+            ivf_target_recall=config["IVF_TARGET_RECALL"], quantized=config["STORE_QUANTIZED"], device=device,
+        )
+        index.load_device_rows(corpus, metadata)
+        services = initialize_services(config, device=device, vector_index=index)
+        batcher = index._microbatcher
+        server, port = _serve(create_app(services))
+        base = f"http://127.0.0.1:{port}"
+        try:
+            reset_launches()
+            # the first routed search (through the micro-batcher) builds the IVF
+            t = time.perf_counter()
+            first = index.search(queries[0], 10)
+            built = time.perf_counter() - t
+            ivf = index._ivf
+            parts = ", ".join(f"{name} {sec:.2f} s" for name, sec in ivf.build_seconds.items())
+            log(f"[ivf] STORE_QUANTIZED={quantized}: the first routed search built the IVF in {built:.1f} s "
+                f"(nlist {ivf.nlist}, L {ivf.capacity}, {ivf.nlist * ivf.capacity} slots; {parts}; the rest is the "
+                f"host snapshot and the search) and returned {len(first)} hits; "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+            latency = {}
+
+            def image_search(i):
+                t = time.perf_counter()
+                _results("ivf /search_by_image", demo._post(base, "/search_by_image",
+                                                            {"image_path": f"/photos/{i}.jpg", "top_k": 10}))
+                latency[i] = 1e3 * (time.perf_counter() - t)
+
+            before = (batcher.batches_run, batcher.grouped_batches_run, batcher.requests_served)
+            t = time.perf_counter()
+            run_threads(image_search, [(int(i),) for i in np.random.default_rng(SEED + 4).integers(0, rows, 32)])
+            wall = time.perf_counter() - t
+            (b, _, r), _ = _batch_delta(batcher, before)
+            ms = sorted(latency.values())
+            log(f"[ivf] 32 concurrent /search_by_image ({tier}, candidate_k 50, route {index.last_route}): "
+                f"{wall:.2f} s wall, request ms p50 {ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}; "
+                f"{r} searches in {b} batches (mean batch {r / max(b, 1):.2f})")
+            t = time.perf_counter()
+            hits = _results("ivf /search_photos", demo._post(base, "/search_photos", {"query": "海边 日落", "top_k": 10}),
+                            allow_empty=True)
+            route = dict(index.last_route)
+            log(f"[ivf] /search_photos '海边 日落' (candidate_k 500, route {route}): {hits} results in "
+                f"{1e3 * (time.perf_counter() - t):.1f} ms")
+            index.search_batch(queries[:4], 50, mask=mask)
+            masked_route = dict(index.last_route)
+            launches = read_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+            close_batchers(services)
+        log(f"[ivf] route launches {launches}; masked search_batch route {masked_route}; micro-batcher: "
+            f"batches_run {batcher.batches_run}, grouped_batches_run {batcher.grouped_batches_run}, "
+            f"requests_served {batcher.requests_served}")
+        if launches["ivf_block_topk"] <= 0:
+            raise AssertionError(f"STORE_QUANTIZED={quantized}: the IVF routes never launched ivf_block_topk")
+        if route["impl"] != "ivf" or masked_route["impl"] != "ivf_masked":
+            raise AssertionError(f"IVF routes: {route}, {masked_route}")
+        _LAUNCHES["ivf_block_topk"] += launches["ivf_block_topk"]
+
+        # the searches against the same searches with kernel 7's plain
+        # version, under the same probes (the reference at k + 1: its last
+        # column is the cut)
+        for k, m, what in ((10, None, "image"), (500, None, "search_photos"), (50, mask, "masked")):
+            got = index.raw_search_batch(queries[:4], k, mask=m)
+            with plain_ivf_scan():
+                ref = index.raw_search_batch(queries[:4], k + 1, mask=m)
+            err = check_topk(f"ivf {tier} {what} k={k}", *got, *ref)
+            _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+        # recall@10 of the IVF route at nprobe 64 against the flat exact scan (kernel 1)
+        _, got = index.raw_search_batch(queries, 10)
+        q16 = torch.from_numpy(queries).to(device).to(torch.bfloat16)
+        _, want = to.exact_search(index._store._device, q16, 10, count=index._store.count, metric="ip")
+        want = want.cpu().numpy()
+        recall = float(np.mean([len(set(g.tolist()) & set(w.tolist())) / 10 for g, w in zip(got, want)]))
+        log(f"[ivf] {tier}: results agree with kernel 7's plain version under the same probes (k 10, 500, "
+            f"masked 50; max |err| {_ERRORS['ivf_block_topk']:.3g}); recall@10 at nprobe 64 against the flat "
+            f"exact scan (kernel 1), 128 held-out queries: {recall:.4f}")
+
+        # kernel 7 against its plain version at the main-path shapes, then
+        # their times (CUDA events; plain, kernel, kernel, plain).  The
+        # wrapper's time includes its probe-group table (one probe-id read
+        # back, one table upload), which the path pays on every call.
+        for batch in (1, 128):
+            qb = torch.from_numpy(queries[:batch]).to(device).to(torch.bfloat16).contiguous()
+            probes = ivf._probe(qb, 64)
+            if quantized == "1":
+                ivf._ensure_quantized()
+                q8, qs = io_.quantize_ivf_queries(qb.float())
+                args = (ivf._corpus_i8, q8, probes, ivf._row_valid)
+                kw = dict(lrows=ivf.capacity, metric="ip", qscales=qs, cscales=ivf._cscales)
+                kk, name = 64, "ivf_block_topk int8"  # top-50 nominates min(2k, 64) = 64
+            else:
+                args, kw, kk, name = (ivf._corpus, qb, probes, ivf._row_valid), dict(lrows=ivf.capacity, metric="ip"), 50, "ivf_block_topk"
+            kernel = lambda: io_.ivf_block_topk(*args, kk, **kw)  # noqa: E731
+            plain = lambda kk_=kk: io_.ivf_block_topk_plain(*args, kk_, **kw)  # noqa: E731
+            if quantized == "1":
+                err = check_topk(f"{name} batch {batch}", *kernel(), *plain(kk + 1), exact=True)
+            else:
+                err = check_partials(f"{name} batch {batch}", kernel(), plain, kk)
+            _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+            plain_ms = cuda_ms(plain, reps=2)
+            kernel_ms = cuda_ms(kernel, reps=5)
+            kernel_ms2 = cuda_ms(kernel, reps=5)
+            plain_ms2 = cuda_ms(plain, reps=2)
+            ms, pms = (kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2
+            _TIMES[(name, batch, 50)] = (ms, pms)
+            pairs = batch * probes.shape[1]
+            groups, _, _, bq = io_.probe_groups(probes.cpu().numpy(), ivf.nlist)
+            fill = f"{groups.shape[0]} groups of up to {bq} queries, {pairs / (groups.shape[0] * bq):.0%} full"
+            gbytes = pairs * ivf.capacity * dim * args[0].element_size() / 1e9  # probed rows, counted per pair
+            gflop = 2 * pairs * ivf.capacity * dim / 1e9
+            log(f"[ivf] {name} batch {batch} top-50 (nprobe 64, {pairs} probe pairs in {fill}: {gbytes:.2f} GB of probed "
+                f"rows, {gflop:.1f} GFLOP) at {rows}x{dim}: agrees with the plain version (max |err| {err:.3g}); "
+                f"kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' rows, {gflop / ms:.2f} TFLOP/s), "
+                f"plain {pms:.3f} ms (kernel {kernel_ms:.3f}/{kernel_ms2:.3f}, plain {plain_ms:.3f}/{plain_ms2:.3f})")
+        # the micro-batcher's closures and the index refer to each other:
+        # collect the cycle, so that the next tier starts from free memory
+        del index, services, ivf, batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="device,kernels,app,scale",
-                        help="comma-separated subset of device,kernels,app,scale")
+    parser.add_argument("--phases", default="device,kernels,app,scale,ivf",
+                        help="comma-separated subset of device,kernels,app,scale,ivf")
     args = parser.parse_args(argv)
     import torch
 
@@ -887,16 +1227,15 @@ def main(argv=None) -> int:
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
     started = time.perf_counter()
     phase_device()
-    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale}
+    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "ivf": phase_ivf}
     for name in phases:
         if name in runners:
             t = time.perf_counter()
             runners[name]()
             log(f"[{name}] phase passed in {time.perf_counter() - t:.1f} s")
-    if "app" in phases or "scale" in phases:
-        for name, value in _LAUNCHES.items():
-            if value <= 0:
-                raise AssertionError(f"the main path never launched {name}")
+    for name in {n for phase in phases for n in _DRIVES.get(phase, ())}:
+        if _LAUNCHES[name] <= 0:
+            raise AssertionError(f"the main path never launched {name}")
     sources = {  # name: (source, TPU kernel it replaces, batch of the reported time)
         "block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
                        "photo_search_engine_tpu/ops/topk.py:345", 1),
@@ -906,6 +1245,8 @@ def main(argv=None) -> int:
                                "photo_search_engine_tpu/ops/grouped_mask.py:167", 128),
         "int8_grouped_block_topk": ("photo_search_engine_tpu_torch/csrc/int8_block_topk.cu",
                                     "photo_search_engine_tpu/ops/quantized.py:339", 128),
+        "ivf_block_topk": ("photo_search_engine_tpu_torch/csrc/ivf_topk.cu",
+                           "photo_search_engine_tpu/models/ivf.py:247", 1),
     }
     kernels = []
     for name, (source, replaces, batch) in sources.items():

@@ -8,10 +8,12 @@ indexer, keyword index, time parser, query formatter, vision); the
 device-side ones are this package's.
 
 The offline profile is what is ported, with the micro-batcher
-(``SEARCH_MICROBATCH_ENABLED``, on by default) wired as in the JAX app.
-These configurations raise ``NotImplementedError`` at startup, naming what
-they wait for in ROADMAP.md: an OpenAI-compatible embedding backend, an
-API-backed text or visual rerank, ``VECTOR_INDEX_TYPE=ivf``,
+(``SEARCH_MICROBATCH_ENABLED``, on by default) wired as in the JAX app,
+and both vector indexes: ``VECTOR_INDEX_TYPE=flat`` and ``ivf`` (``hnsw``
+maps to ``ivf``; ``IVF_NLIST``, ``IVF_NPROBE`` and ``IVF_TARGET_RECALL``
+as in the JAX app).  These configurations raise ``NotImplementedError``
+at startup, naming what they wait for in ROADMAP.md: an
+OpenAI-compatible embedding backend, an API-backed text or visual rerank,
 ``MESH_DEVICES != 0`` and ``DIST_*``.
 
 Run:  PSE_PLATFORM=gpu python -m photo_search_engine_tpu_torch.api.app
@@ -62,10 +64,6 @@ def _check_ported(config: Dict[str, Any]) -> None:
         config.get("VISUAL_RERANK_BASE_URL") and config.get("VISUAL_RERANK_API_KEY")
     ):
         raise _not_ported("the API-backed visual rerank", _ONLINE)
-    if str(config.get("VECTOR_INDEX_TYPE") or "flat").strip().lower() != "flat":
-        raise _not_ported(
-            f"VECTOR_INDEX_TYPE={config['VECTOR_INDEX_TYPE']}", "ROADMAP.md, queue 2: K7, IVF"
-        )
     if int(config.get("MESH_DEVICES") or 0) != 0:
         raise _not_ported("MESH_DEVICES != 0", "ROADMAP.md, queue 3: mesh and multi-host")
     if config.get("DIST_COORDINATOR"):
@@ -146,6 +144,9 @@ def initialize_services(
         metric=config["VECTOR_METRIC"],
         index_type=config["VECTOR_INDEX_TYPE"],
         store_dtype=config.get("STORE_DTYPE", "float32"),
+        ivf_nlist=config.get("IVF_NLIST", 1024),
+        ivf_nprobe=config.get("IVF_NPROBE", 64),
+        ivf_target_recall=config.get("IVF_TARGET_RECALL", 0.98),
         store_block_rows=config.get("TOPK_BLOCK_N") or None,
         quantized=config.get("STORE_QUANTIZED", "auto"),
         device=device,

@@ -1,17 +1,23 @@
 """Vector index: metadata-carrying wrapper over the device EmbeddingStore.
 
 Counterpart of ``photo_search_engine_tpu/core/vector_index.py``, flat
-(exact) index only.  The on-disk format is the JAX package's: a float32
+(exact) and IVF index.  The on-disk format is the JAX package's: a float32
 ``.npy`` of the rows, a metadata JSON list, a ``.meta.json`` sidecar that
-``load`` validates, and committed per-batch segments
-(``<index>.segments/``, see :meth:`VectorIndex.save_incremental`).  Each
-package loads the other's checkpoints.
+``load`` validates, committed per-batch segments (``<index>.segments/``,
+see :meth:`VectorIndex.save_incremental`) and, for ``index_type=ivf``, the
+trained IVF in ``<index>.ivf.npz``.  Each package loads the other's
+checkpoints, the IVF sidecar included (no retraining).
 
+``index_type=ivf`` (and ``hnsw``, which maps to it as in the JAX package)
+keeps the flat store beside an IVF layout built on the first routed
+search (``models/ivf.py``): unfiltered searches and, off the
+micro-batcher, filtered ones scan only the probed clusters (kernel 7).
 ``raw_grouped_search_batch`` is the micro-batcher's filtered path: one
-scan for queries with different predicates (``core/batcher.py``).
+scan of the flat store for queries with different predicates
+(``core/batcher.py``).
 
-Not ported yet (they raise ``NotImplementedError``): ``index_type=ivf``
-and a device mesh (``mesh_devices != 0``).
+Not ported yet (it raises ``NotImplementedError``): a device mesh
+(``mesh_devices != 0``).
 """
 
 from __future__ import annotations
@@ -19,11 +25,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
+from photo_search_engine_tpu_torch.models.ivf import IVFIndex
 from photo_search_engine_tpu_torch.ops.quantized import resolve_store_quantized
 from photo_search_engine_tpu_torch.ops.topk import resolve_store_dtype
 
@@ -31,7 +39,7 @@ _FORMAT_VERSION = 1
 
 
 class VectorIndex:
-    """Flat vector index over one device (reference VectorStore API)."""
+    """Flat or IVF vector index over one device (reference VectorStore API)."""
 
     def __init__(
         self,
@@ -41,6 +49,9 @@ class VectorIndex:
         metric: str = "cosine",
         index_type: str = "flat",
         store_dtype: str = "float32",
+        ivf_nlist: int = 1024,
+        ivf_nprobe: int = 64,
+        ivf_target_recall: float = 0.98,
         store_block_rows: Optional[int] = None,
         quantized: Any = False,
         mesh_devices: int = 0,
@@ -54,11 +65,13 @@ class VectorIndex:
         if self.metric not in {"l2", "cosine"}:
             raise ValueError("metric must be l2 or cosine")
         self.index_type = (index_type or "flat").strip().lower()
-        if self.index_type != "flat":
-            raise NotImplementedError(
-                f"index_type={self.index_type} is not ported yet; the PyTorch "
-                "port serves the flat index only (ROADMAP.md, queue 2: K7, IVF)"
-            )
+        if self.index_type == "hnsw":
+            # reference configs use hnsw; the IVF index fills the approximate
+            # role here, as in the JAX package
+            print("[WARN] index_type=hnsw has no native analogue here; using ivf (coarse-quantized ANN) instead")
+            self.index_type = "ivf"
+        if self.index_type not in {"flat", "ivf"}:
+            raise ValueError("index_type must be flat, ivf, or hnsw")
         if int(mesh_devices or 0) != 0:
             raise NotImplementedError(
                 "mesh_devices != 0 is not ported yet; the PyTorch port serves "
@@ -69,6 +82,12 @@ class VectorIndex:
         self.store_dtype = resolve_store_dtype(store_dtype, device)
         self.store_block_rows = store_block_rows or None
         self.quantized = resolve_store_quantized(quantized)
+        self.ivf_nlist = max(1, int(ivf_nlist))
+        # nprobe 0 = autotune: after each (re)build, the smallest power-of-two
+        # nprobe reaching ivf_target_recall@10 on a sample of stored rows
+        self.ivf_nprobe = max(0, int(ivf_nprobe))
+        self.ivf_target_recall = float(ivf_target_recall)
+        self._ivf_nprobe_auto: Optional[int] = None
         # which device path served the last search (surfaced in search_debug)
         self.last_route: Optional[Dict[str, Any]] = None
         self.metadata: List[Dict[str, Any]] = []
@@ -76,10 +95,17 @@ class VectorIndex:
             self._create_store(dimension) if dimension else None
         )
         self._path_to_index: Dict[str, int] = {}
+        self._ivf = None
+        self._ivf_built_at = -1
+        self._ivf_trained_at = -1
+        self._ivf_autotune_report: Optional[Dict[str, Any]] = None  # the last autotune, for /metrics
         self.ivf_sidecar_path = f"{self.index_path}.ivf.npz"
         self.segments_dir = f"{self.index_path}.segments"
         self._manifest_path = os.path.join(self.segments_dir, "manifest.json")
         self._durable_count = 0
+        # the micro-batcher's two pipeline threads can route searches at once;
+        # the lock keeps them from running two IVF builds
+        self._ivf_lock = threading.Lock()
 
     def _create_store(self, dimension: int) -> EmbeddingStore:
         return EmbeddingStore(
@@ -146,6 +172,98 @@ class VectorIndex:
         self._rebuild_path_index()
 
     # ------------------------------------------------------------------
+    def _ensure_ivf(self):
+        """Build, or extend in place, the IVF layout (the first routed
+        search builds it).  New rows are appended to the trained lists
+        (FAISS ``IndexIVF.add``); a full rebuild runs when there is no
+        index, rows went away, the layout is full, or the count has more
+        than doubled since training.  Serialized: the fast path rechecks
+        under the lock."""
+        with self._ivf_lock:
+            return self._ensure_ivf_locked()
+
+    def _ensure_ivf_locked(self):
+        count = self._store.count
+        if self._ivf is not None and self._ivf_built_at == count:
+            return self._ivf
+        if self._ivf is not None and self._ivf_built_at < count <= 2 * self._ivf_trained_at:
+            delta = self._store.snapshot_range(self._ivf_built_at, count)
+            if self._ivf.append(delta, np.arange(self._ivf_built_at, count, dtype=np.int64)):
+                self._ivf_built_at = count
+                self._persist_ivf_if_fresh(count)
+                return self._ivf
+        nlist = max(1, min(self.ivf_nlist, count // 8 or 1))
+        snapshot = self._store.snapshot()
+        self._ivf = IVFIndex.build(
+            snapshot, nlist=nlist, metric="ip" if self.metric == "cosine" else self.metric,
+            store_dtype=self.store_dtype, quantized=self.quantized, device=self.device,
+        )
+        self._ivf_built_at = count
+        self._ivf_trained_at = count
+        if self.ivf_nprobe == 0:
+            # autotune on a sample of stored rows, leave-self-in on both the
+            # probed and the full-probe side: what it measures is the
+            # cluster-pruning loss alone
+            rng = np.random.default_rng(0)
+            sample = snapshot[rng.choice(count, size=min(128, count), replace=False)]
+            if self.metric == "cosine":
+                sample = sample / np.maximum(np.linalg.norm(sample, axis=1, keepdims=True), 1e-30)
+            nprobe, achieved = self._ivf.tune_nprobe(sample, k=10, target_recall=self.ivf_target_recall)
+            self._ivf_nprobe_auto = nprobe
+            heldout = self._heldout_recall(sample, nprobe, rng)
+            self._ivf_autotune_report = {
+                "nprobe": nprobe,
+                "target_recall": self.ivf_target_recall,
+                "self_recall_at_10": round(float(achieved), 4),
+                "heldout_recall_at_10": round(float(heldout), 4),
+                "sample_size": int(sample.shape[0]),
+                "nlist": nlist,
+            }
+            print(
+                f"[INFO] IVF nprobe autotune: nprobe={nprobe} (recall@10 {achieved:.3f} self / "
+                f"{heldout:.3f} held-out vs target {self.ivf_target_recall:.2f}, nlist={nlist})"
+            )
+        self._persist_ivf_if_fresh(count)
+        return self._ivf
+
+    def _heldout_recall(self, sample: np.ndarray, nprobe: int, rng) -> float:
+        """Recall@10 of ``nprobe`` on perturbed sample rows against their
+        full-probe result: an estimate for unseen queries (the stored row is
+        no longer the query, so self-hits cannot inflate it)."""
+        noise = rng.normal(size=sample.shape).astype(np.float32)
+        noise /= np.maximum(np.linalg.norm(noise, axis=1, keepdims=True), 1e-30)
+        perturbed = sample + 0.15 * np.linalg.norm(sample, axis=1, keepdims=True) * noise
+        if self.metric == "cosine":
+            perturbed /= np.maximum(np.linalg.norm(perturbed, axis=1, keepdims=True), 1e-30)
+        _, probed = self._ivf.search(perturbed, 10, nprobe=nprobe)
+        _, full = self._ivf.search(perturbed, 10, nprobe=self._ivf.nlist)
+        hits, rows = 0.0, 0
+        for got, want in zip(probed, full):
+            want_set = {int(w) for w in np.asarray(want).ravel() if w >= 0}
+            if want_set:
+                hits += len({int(g) for g in np.asarray(got).ravel() if g >= 0} & want_set) / len(want_set)
+                rows += 1
+        return hits / max(rows, 1)
+
+    def _persist_ivf_if_fresh(self, count: int) -> None:
+        """The IVF builds lazily, usually after the indexer's last save:
+        write its sidecar now when it matches the rows already on disk
+        (base plus committed segments)."""
+        try:
+            if os.path.exists(self.meta_path) and self._durable_count == count:
+                self._save_ivf_sidecar()
+        except Exception as exc:  # noqa: BLE001 — persistence is best-effort
+            print(f"[WARN] IVF sidecar write skipped ({exc})")
+
+    @property
+    def effective_nprobe(self) -> int:
+        """The serving nprobe: the configured one when > 0, else the last
+        autotuned one (64 until the first autotuned build)."""
+        if self.ivf_nprobe > 0:
+            return self.ivf_nprobe
+        return self._ivf_nprobe_auto or 64
+
+    # ------------------------------------------------------------------
     def describe(self) -> Dict[str, Any]:
         """Operational snapshot for the ``/metrics`` route."""
         return {
@@ -156,14 +274,18 @@ class VectorIndex:
             "store_dtype": self.store_dtype,
             "quantized": self.quantized,
             "mesh_devices": self.mesh_devices,
+            "ivf_nlist": self.ivf_nlist,
+            "ivf_nprobe_effective": self.effective_nprobe if self.index_type == "ivf" else None,
+            # self- and held-out recall of the last autotune
+            "ivf_autotune": self._ivf_autotune_report,
             "device": str(self.device),
         }
 
-    def _checked(self, search, impl: str):
+    def _checked(self, search, impl: str, nprobe: Optional[int] = None):
         """Run ``search`` under the route name ``impl`` (``last_route``) and
         check the row ids it returns against the live count: an id out of
         range raises instead of serving a row that does not exist."""
-        self.last_route = {"impl": impl, "nprobe": None, "mesh_devices": self.mesh_devices}
+        self.last_route = {"impl": impl, "nprobe": nprobe, "mesh_devices": self.mesh_devices}
         dists, idx = search()
         if idx.size and (int(idx.max()) >= self._store.count or int(idx.min()) < -1):
             raise RuntimeError(
@@ -173,7 +295,20 @@ class VectorIndex:
         return dists, idx
 
     def _route_search(self, queries: np.ndarray, k: int, mask):
-        """The one routing point of every single-predicate search entry."""
+        """The one routing point of every single-predicate search entry: the
+        IVF index when configured (a filter folds into its scan), the flat
+        store otherwise."""
+        if self.index_type == "ivf":
+            if self.metric == "cosine":
+                norms = np.linalg.norm(queries, axis=1, keepdims=True)
+                queries = np.where(norms > 0, queries / np.maximum(norms, 1e-30), queries)
+            ivf = self._ensure_ivf()
+            if mask is None or ivf.supports_masked_search():
+                nprobe = self.effective_nprobe
+                return self._checked(
+                    lambda: ivf.search(queries, k, nprobe=nprobe, mask=mask),
+                    "ivf" if mask is None else "ivf_masked", nprobe,
+                )
         impl = ("int8" if self.quantized else "exact") + ("_masked" if mask is not None else "")
         return self._checked(
             lambda: self._store.search(queries, k, mask=mask, impl=self._search_impl), impl
@@ -251,6 +386,8 @@ class VectorIndex:
             "dimension": self.dimension,
             "store_dtype": self.store_dtype,
             "count": self.get_total_items(),
+            "ivf_nlist": self.ivf_nlist,
+            "ivf_nprobe": self.ivf_nprobe,
             "quantized": self.quantized,
         }
 
@@ -285,10 +422,7 @@ class VectorIndex:
         )
         self._durable_count = self.get_total_items()
         self._remove_segments()
-        # a flat index has no trained IVF: a stale sidecar must not outlive
-        # the rows it indexed (the JAX index removes it the same way)
-        if os.path.exists(self.ivf_sidecar_path):
-            os.remove(self.ivf_sidecar_path)
+        self._save_ivf_sidecar()
 
     def _remove_segments(self) -> None:
         if os.path.isdir(self.segments_dir):
@@ -381,6 +515,69 @@ class VectorIndex:
             if expected != int(seg["count_after"]):
                 raise ValueError(f"segment {seg['name']} count mismatch; rebuild the index")
 
+    # -- IVF sidecar --------------------------------------------------------
+    def _save_ivf_sidecar(self) -> None:
+        """Write the trained IVF (centroids, layout perm, autotuned nprobe)
+        next to the ``.npy`` so that ``load`` restores it without
+        retraining; written atomically, and removed when there is no current
+        trained index (a stale sidecar must never outlive the rows it
+        indexed).  The format is the JAX package's."""
+        current = self.index_type == "ivf" and self._ivf is not None and self._ivf_built_at == self.get_total_items()
+        if not current:
+            if os.path.exists(self.ivf_sidecar_path):
+                os.remove(self.ivf_sidecar_path)
+            return
+        state = dict(self._ivf.state())
+        meta = {
+            "format_version": _FORMAT_VERSION,
+            "kind": "single",
+            "metric": str(state.pop("metric", self.metric)),
+            "mesh_devices": self.mesh_devices,
+            "built_at": self._ivf_built_at,
+            "trained_at": self._ivf_trained_at,
+            "nprobe_auto": self._ivf_nprobe_auto,
+            "autotune_report": self._ivf_autotune_report,
+        }
+        tmp = f"{self.ivf_sidecar_path}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta), **state)
+        os.replace(tmp, self.ivf_sidecar_path)
+
+    def _load_ivf_sidecar(self) -> None:
+        """Restore the trained IVF when the sidecar matches the loaded rows;
+        any mismatch (count, kind, corrupt file) leaves the lazy rebuild:
+        the sidecar saves time and is never needed for a right answer."""
+        if self.index_type != "ivf" or not os.path.exists(self.ivf_sidecar_path):
+            return
+        try:
+            with np.load(self.ivf_sidecar_path, allow_pickle=False) as payload:
+                meta = json.loads(str(payload["__meta__"]))
+                state = {key: payload[key] for key in payload.files if key != "__meta__"}
+            if (
+                meta.get("kind") != "single"
+                or int(meta.get("mesh_devices", 0)) != 0
+                or int(meta.get("built_at", -1)) != self.get_total_items()
+            ):
+                raise ValueError("IVF sidecar does not match the loaded index")
+            state["metric"] = meta.get("metric", self.metric)
+            self._ivf = IVFIndex.from_state(
+                self._store.snapshot(), state, store_dtype=self.store_dtype,
+                quantized=self.quantized, device=self.device,
+            )
+            self._ivf_built_at = int(meta["built_at"])
+            self._ivf_trained_at = int(meta.get("trained_at", meta["built_at"]))
+            nprobe_auto = meta.get("nprobe_auto")
+            self._ivf_nprobe_auto = int(nprobe_auto) if nprobe_auto is not None else None
+            self._ivf_autotune_report = meta.get("autotune_report")
+        except Exception as exc:  # noqa: BLE001 — deliberate fail-soft
+            print(f"[WARN] IVF sidecar ignored ({exc}); index will rebuild")
+            self._reset_ivf()
+
+    def _reset_ivf(self) -> None:
+        self._ivf = None
+        self._ivf_built_at = -1
+        self._ivf_trained_at = -1
+
     def load(self) -> bool:
         """Load and validate; False when absent, ValueError on any
         config or count mismatch."""
@@ -405,6 +602,7 @@ class VectorIndex:
         expected_count = payload.get("count")
         if expected_count is not None and int(expected_count) != array.shape[0]:
             raise ValueError("index row count differs from sidecar; rebuild the index")
+        self._reset_ivf()
         self.dimension = int(array.shape[1]) if array.size else payload.get("dimension")
         self._store = self._create_store(self.dimension)
         if array.size:
@@ -412,10 +610,12 @@ class VectorIndex:
         self._apply_segments(array.shape[0])
         self._durable_count = self.get_total_items()
         self._rebuild_path_index()
+        self._load_ivf_sidecar()
         return True
 
     def clear(self) -> None:
         self._store = self._create_store(self.dimension) if self.dimension else None
         self.metadata = []
         self._path_to_index = {}
+        self._reset_ivf()
         self._durable_count = 0

@@ -1,6 +1,7 @@
-// Shared pieces of the scan kernels (block_topk.cu, int8_block_topk.cu and
-// their grouped variants): the tile geometry, the per-query predicates of
-// the grouped scans and the block-local top-k selection.
+// Shared pieces of the scan kernels (block_topk.cu, int8_block_topk.cu,
+// their grouped variants, and ivf_topk.cu): the tile geometry, the
+// per-query predicates of the grouped scans and the tile-local top-k
+// selection.
 //
 // Selection replaces the TPU's k rounds of "max -> first occurrence ->
 // eliminate" over a [BQ, BN] tile (_extract_block_topk,
@@ -74,24 +75,22 @@ __device__ __forceinline__ void lane_best(const float* row, int bn, int lane,
   }
 }
 
-// Top-k of every query row of the [BQ, bn] score tile `scores`, written to
-// out_v/out_i[(q * nb + blk) * k + slot]; row ids are global (row0 + col).
-// Slots with no valid column hold -inf and INT_MAX.  `scores` is consumed.
-template <int BQ>
-__device__ void select_block_topk(float* scores, int bn, int q0, int q,
-                                  int blk, int nb, int row0, int k,
-                                  float* __restrict__ out_v,
-                                  int* __restrict__ out_i) {
+// Top-k of rows 0 .. nrows-1 of the score tile `scores` (row pitch
+// `pitch`, columns [0, ncols)): row ql's slot s goes to
+// out_v/out_i[base(ql) + s], with id col0 + column.  Slots with no valid
+// column hold -inf and INT_MAX.  `scores` is consumed.
+template <typename Base>
+__device__ void select_topk(float* scores, int pitch, int ncols, int nrows, int col0,
+                            int k, Base base, float* __restrict__ out_v,
+                            int* __restrict__ out_i) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  for (int ql = warp; ql < BQ; ql += kWarps) {
-    const int gq = q0 + ql;
-    if (gq >= q) break;  // warp-uniform
-    float* row = scores + ql * bn;
+  for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
+    float* row = scores + ql * pitch;
     float bv;
     int bc;
-    lane_best(row, bn, lane, bv, bc);
-    const size_t base = (static_cast<size_t>(gq) * nb + blk) * k;
+    lane_best(row, ncols, lane, bv, bc);
+    const size_t first = base(ql);
     for (int slot = 0; slot < k; ++slot) {
       float wv = bv;
       int wc = bc;
@@ -105,15 +104,28 @@ __device__ void select_block_topk(float* scores, int bn, int q0, int q,
         }
       }
       if (lane == 0) {
-        out_v[base + slot] = wv;
-        out_i[base + slot] = wc == INT_MAX ? INT_MAX : row0 + wc;
+        out_v[first + slot] = wv;
+        out_i[first + slot] = wc == INT_MAX ? INT_MAX : col0 + wc;
       }
       if (wc != INT_MAX && lane == (wc & 31)) {
         row[wc] = -CUDART_INF_F;  // eliminate, then rescan this lane only
-        lane_best(row, bn, lane, bv, bc);
+        lane_best(row, ncols, lane, bv, bc);
       }
     }
   }
+}
+
+// Top-k of every query row of the [BQ, bn] score tile `scores`, written to
+// out_v/out_i[(q * nb + blk) * k + slot]; row ids are global (row0 + col).
+template <int BQ>
+__device__ void select_block_topk(float* scores, int bn, int q0, int q,
+                                  int blk, int nb, int row0, int k,
+                                  float* __restrict__ out_v,
+                                  int* __restrict__ out_i) {
+  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+  select_topk(scores, bn, bn, nrows, row0, k,
+              [=](int ql) { return (static_cast<size_t>(q0 + ql) * nb + blk) * k; },
+              out_v, out_i);
 }
 
 }  // namespace pse

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "pse_grouped_block_topk_f32": (6, 7),
     "pse_grouped_block_topk_bf16": (6, 7),
     "pse_int8_grouped_block_topk": (8, 7),
+    "pse_ivf_topk_f32": (11, 9),
+    "pse_ivf_topk_bf16": (11, 9),
+    "pse_ivf_topk_int8": (11, 9),
 }
 
 _lock = threading.Lock()

@@ -147,6 +147,24 @@ def test_route_json_matches_jax_app_microbatched(library, monkeypatch, keyword_b
     _close_batchers(services)
 
 
+@pytest.mark.parametrize("microbatch", ["0", "1"])
+def test_route_json_matches_jax_app_ivf(library, monkeypatch, microbatch):
+    """``VECTOR_INDEX_TYPE=ivf`` in both apps: unfiltered searches report
+    the ``ivf`` route and, off the micro-batcher, the season search with
+    text reports ``ivf_masked`` (under it, the grouped scan of the flat
+    store, as in the JAX batcher)."""
+    jax_services, services = _compare_apps(
+        library, monkeypatch, grouped_route="exact_grouped" if microbatch == "1" else None,
+        VECTOR_INDEX_TYPE="ivf", IVF_NPROBE="4", KEYWORD_BACKEND="none", SEARCH_MICROBATCH_ENABLED=microbatch,
+    )
+    index = services["vector_index"]
+    assert index.index_type == "ivf" and index._ivf is not None
+    assert index.last_route == {"impl": "ivf", "nprobe": 4, "mesh_devices": 0}
+    assert index.describe()["ivf_nprobe_effective"] == 4 and index.ivf_nlist == 1024
+    _close_batchers(jax_services)
+    _close_batchers(services)
+
+
 _JAX_BLOCKED = r"""
 import json, os, sys
 sys.modules["jax"] = None  # any import of jax now fails
@@ -158,21 +176,32 @@ services = initialize_services(load_config())
 out = run_flow(create_app(services).test_client(), os.environ["PHOTO_DIR"])
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print(json.dumps({"device": str(services["device"]), "loaded": loaded,
+                  "route": services["vector_index"].last_route,
                   "counts": {k: len(out[k]["results"]) for k in ("text", "season", "image", "upload")}}))
 """
 
 
-def test_port_app_serves_with_jax_absent(library):
+def _serve_with_jax_absent(library, **extra):
     tmp, photo_dir = library
     env = {k: v for k, v in os.environ.items() if not k.startswith(_CLEARED)}
     env.update(PHOTO_DIR=photo_dir, DATA_DIR=str(tmp / "data"), RUNTIME_DATA_DIR=str(tmp / "data"),
-               EMBEDDING_DIMENSION="256", SEARCH_MICROBATCH_ENABLED="0", PSE_PLATFORM="cpu", REPO=REPO)
+               EMBEDDING_DIMENSION="256", SEARCH_MICROBATCH_ENABLED="0", PSE_PLATFORM="cpu", REPO=REPO, **extra)
     done = subprocess.run([sys.executable, "-c", _JAX_BLOCKED], env=env, cwd=str(tmp),
                           capture_output=True, text=True, timeout=240)
     assert done.returncode == 0, done.stderr[-3000:]
     result = json.loads(done.stdout.strip().splitlines()[-1])
     assert result["device"] == "cpu" and result["loaded"] == ["jax"]  # only the blocking None entry
     assert all(n > 0 for n in result["counts"].values()), result
+    return result
+
+
+def test_port_app_serves_with_jax_absent(library):
+    _serve_with_jax_absent(library)
+
+
+def test_port_app_serves_ivf_with_jax_absent(library):
+    result = _serve_with_jax_absent(library, VECTOR_INDEX_TYPE="ivf", IVF_NPROBE="2")
+    assert result["route"] == {"impl": "ivf", "nprobe": 2, "mesh_devices": 0}
 
 
 def test_gpu_platform_needs_cuda(monkeypatch):
@@ -194,7 +223,7 @@ def test_gpu_platform_needs_cuda(monkeypatch):
         {"EMBEDDING_BACKEND": "openai", "EMBEDDING_BASE_URL": "http://localhost:1/v1"},
         {"TEXT_RERANK_BACKEND": "api"},
         {"VISUAL_RERANK_BASE_URL": "http://localhost:1/v1", "VISUAL_RERANK_API_KEY": "k"},
-        {"VECTOR_INDEX_TYPE": "ivf"},
+        {"VECTOR_INDEX_TYPE": "ivf", "MESH_DEVICES": "2"},  # IVF is ported, the mesh is not
         {"MESH_DEVICES": "2"},
         {"DIST_COORDINATOR": "localhost:1234", "DIST_NUM_PROCESSES": "2", "DIST_PROCESS_ID": "0"},
         {"EMBEDDING_BASE_URL": "http://localhost:1/v1"},  # the auto backend with a base URL

@@ -17,7 +17,13 @@ Phases; each prints its results on lines of its own and raises on failure:
              bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
              (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
              in {1, 8, 64}, with padding slots, a slot mask, a query whose
-             probed clusters are all masked out and duplicate rows.
+             probed clusters are all masked out and duplicate rows; then
+             kernel 3 (fast_block_topk, the packed-key scan, and
+             fast_grouped_block_topk, through kernel 5's body) and kernel 4
+             (fused_topk, the fused running top-k): the searches through
+             them against the same searches on their plain versions, kernel
+             4's range partials and its result against kernel 1's, with an
+             empty predicate or mask, a live count below n and k = 64.
 3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app,
              micro-batcher on, its default) as a subprocess on a PIL photo
              library; then the same app in this process without a keyword
@@ -31,8 +37,14 @@ Phases; each prints its results on lines of its own and raises on failure:
              concurrent image searches (kernels 1 and 2), concurrent
              filtered searches over five predicates (kernels 5 and 6)
              checked against plain per-query searches, a season-filtered
-             /search_photos, the batcher's counters, and the kernels'
-             times against the plain versions (CUDA events, after warm-up).
+             /search_photos, the batcher's counters; then the store's own
+             impl routes: search(impl="pallas_fast") (kernel 3) and
+             search(impl="pallas_fused") (kernel 4) at batch 1 and 128,
+             top-50, and grouped_search(impl="pallas_fast") (grouped kernel 3)
+             at batch 128 with M = 5, checked against kernel 1 and the plain
+             versions; and every kernel's time against its plain version
+             (CUDA events, after warm-up), its bound and the time of the
+             nearest library composition.
 5. ivf     - VECTOR_INDEX_TYPE=ivf at 1M x 1536: bfloat16 rows of intrinsic
              dimension 32 made on the card from a seed, served by the app's
              wiring with IVF_NLIST=1024, IVF_NPROBE=64 and the micro-batcher
@@ -46,9 +58,12 @@ Phases; each prints its results on lines of its own and raises on failure:
              its plain version at batch 1 and 128, top-50.
 
 The launch counters are set to 0 before the route runs of phases 3, 4 and
-5 and read after every client thread has joined; a kernel that the routes
-never launched fails the run.  The second-to-last line of output is a JSON
-object with each kernel's route, launches, error and times; the last is
+5 (and before the store's impl routes in phase 4) and read after every
+client thread has joined; a kernel that its path never launched fails the
+run.  The second-to-last line of output is a JSON object with each
+kernel's route, launches, error, times, bound (the larger of its bytes
+over 3.35 TB/s and its operations over the peak of their type: 989 TFLOP/s
+bf16, 67 TFLOP/s f32, 1,979 TOP/s int8) and library time; the last is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
 
@@ -75,12 +90,17 @@ DEVICE = "cuda"
 TOL = 1e-5  # unit vectors at 1536-d: the kernel and the plain product differ in summation order only
 SEED = 20261016
 
-_NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk", "ivf_block_topk")
+_NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk", "ivf_block_topk",
+          "fast_block_topk", "fast_grouped_block_topk", "fused_topk")
 _FLAT = _NAMES[:4]
-_DRIVES = {"app": _FLAT, "scale": _FLAT, "ivf": ("ivf_block_topk",)}  # the kernels each route phase must launch
+_IMPL_ROUTES = _NAMES[5:]  # driven through the store's impl values in phase 4
+_DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",)}  # what each phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
-_TIMES = {}
+_TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}  # dense; f32 outside the tensor cores
 
 
 def log(line: str) -> None:
@@ -113,7 +133,7 @@ def check_scores(name, got_v, got_i, scores, *, tol=TOL):
     """Every row id a kernel returned has the plain score it reports."""
     import torch
 
-    live = got_i != torch.iinfo(torch.int32).max
+    live = (got_i != torch.iinfo(torch.int32).max) & (got_i >= 0)  # INT_MAX or -1: an empty slot
     q = torch.arange(got_i.shape[0], device=got_i.device).view(-1, *([1] * (got_i.ndim - 1)))
     rows = torch.where(live, got_i, 0).long()
     true = scores[q.expand_as(rows), rows]
@@ -137,6 +157,37 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(moved_bytes: float, ops: float, unit: str):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    by_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S[unit]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_kernel(key, kernel, plain, library, moved_bytes, ops, unit, reps=3):
+    """Kernel and plain times in turns (plain, kernel, kernel, plain), the
+    library composition's time (None where there is none), and the bound;
+    recorded under ``key`` and returned."""
+    plain_ms = cuda_ms(plain, reps=2)
+    kernel_ms = cuda_ms(kernel, reps=reps)
+    kernel_ms2 = cuda_ms(kernel, reps=reps)
+    plain_ms2 = cuda_ms(plain, reps=2)
+    lib_ms = None
+    if library is not None:
+        try:  # a yardstick only: one the card refuses is reported as none
+            lib_ms = cuda_ms(library, reps=2)
+        except RuntimeError as exc:
+            log(f"[time] {key}: the library composition failed ({str(exc).splitlines()[0][:200]})")
+    bound, by = bound_ms(moved_bytes, ops, unit)
+    _TIMES[key] = ((kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2, bound, by, lib_ms)
+    return _TIMES[key] + ((kernel_ms, kernel_ms2, plain_ms, plain_ms2),)
+
+
 def _wrappers() -> dict:
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
@@ -145,7 +196,8 @@ def _wrappers() -> dict:
 
     return {"block_topk": to.block_topk, "int8_block_topk": qo.int8_block_topk,
             "grouped_block_topk": go.grouped_block_topk, "int8_grouped_block_topk": qo.int8_grouped_block_topk,
-            "ivf_block_topk": io_.ivf_block_topk}
+            "ivf_block_topk": io_.ivf_block_topk, "fast_block_topk": to.fast_block_topk,
+            "fast_grouped_block_topk": go.fast_grouped_block_topk, "fused_topk": to.fused_topk}
 
 
 def reset_launches() -> None:
@@ -232,6 +284,19 @@ def _plain_scores(corpus, queries, metric, count, mask):
     qf = queries.float()
     scores = to.score_chunk(corpus, qf, (qf * qf).sum(1), metric)
     return to.mask_scores(scores, 0, corpus.shape[0], count, mask)
+
+
+def _chunked_ip_scores(corpus, queries):
+    """Every row's plain inner product with each query, in row chunks (a
+    1M-row bf16 corpus widened at once would be a 6 GB temporary)."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    out = torch.empty((queries.shape[0], corpus.shape[0]), dtype=torch.float32, device=corpus.device)
+    for start in range(0, corpus.shape[0], 65536):
+        out[:, start:start + 65536] = to.score_chunk(corpus[start:start + 65536], queries.float(), None, "ip")
+    return out
 
 
 def phase_kernels() -> None:
@@ -328,6 +393,8 @@ def phase_kernels() -> None:
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
     check_grouped_kernels(gen, n, d)
     check_ivf_kernel(gen, d)
+    check_fast_kernels(gen, n, d)
+    check_fused_kernel(gen, n, d)
 
 
 def _predicates(gen, m, n, q):
@@ -528,6 +595,152 @@ def check_ivf_kernel(gen, d) -> None:
             raise AssertionError("ivf: a query whose probed clusters are all masked out returned slots")
     log("[kernels] ivf_block_topk: duplicate-row ties at the smallest slots across clusters; a query whose "
         "probed clusters are all masked out gets empty slots (f32, bf16)")
+
+
+@contextlib.contextmanager
+def plain_scan(module, name: str):
+    """Inside, ``module.name`` is its plain version (``name + "_plain"``):
+    the search around the scan (probes, merge, rescore) runs the same code."""
+    kernel = getattr(module, name)
+    setattr(module, name, getattr(module, name + "_plain"))
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
+    """A search through kernel 3 (``[Q, k]``, higher is better) against the
+    same search on kernel 3's plain version, by the rule of the CPU tests
+    (``tests/torch_parity.py:assert_window_match``: a differing id only
+    inside the 2^-12 window of the k-th score), and every returned row has
+    the plain score it reports.  Returns the largest value error where the
+    ids agree."""
+    from tests.torch_parity import assert_window_match
+
+    try:
+        err = assert_window_match(got_v, got_i, ref_v, ref_i, tol=TOL)
+    except AssertionError as exc:
+        raise AssertionError(f"{name}: {exc}") from exc
+    check_scores(name, got_v, got_i, scores)
+    return err
+
+
+def check_fast_kernels(gen, n, d) -> None:
+    """Kernel 3 through exact_search(impl="pallas_fast") and grouped kernel 3
+    through grouped_mask_search(impl="pallas_fast"), against the same
+    searches on their plain versions (:func:`check_fast`): float32 and
+    bfloat16; ip, l2 and masked with a live count below n; an empty
+    predicate and ids outside [0, M); k 1/10/50/64; then duplicate rows."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    cases = {"fast_block_topk": 0, "fast_grouped_block_topk": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        for variant in ("ip", "l2", "masked", "empty"):
+            metric = "l2" if variant == "l2" else "ip"
+            count, mask = n, None
+            if variant in ("masked", "empty"):
+                count = n - 777
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < (0.3 if variant == "masked" else 0.0)).to(torch.int8)
+            sign = -1.0 if metric == "l2" else 1.0
+            for k, q in ((1, 1), (10, 9), (50, 40), (64, 128)):
+                queries = _unit_rows(q, d, gen, dtype)
+                kw = dict(count=count, mask=mask, metric=metric, impl="pallas_fast", block_n=1024)
+                got = to.exact_search(corpus, queries, k, **kw)
+                torch.cuda.synchronize()
+                with plain_scan(to, "fast_block_topk"):
+                    ref = to.exact_search(corpus, queries, k, **kw)
+                name = f"fast_block_topk {str(dtype)[6:]} {variant} k={k} q={q}"
+                scores = _plain_scores(corpus, queries, metric, count, mask)
+                err = check_fast(name, sign * got[0], got[1], sign * ref[0], ref[1], scores)
+                _ERRORS["fast_block_topk"] = max(_ERRORS["fast_block_topk"], err)
+                cases["fast_block_topk"] += 1
+        count = n - 777
+        for m in (1, 3, 8):
+            for q in (1, 33, 128):
+                queries = _unit_rows(q, d, gen, dtype)
+                table, ids = _predicates(gen, m, n, q)
+                scores = _grouped_plain_scores(corpus, queries, count, table, ids)
+                for k in (10, 64):
+                    got = go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")
+                    torch.cuda.synchronize()
+                    with plain_scan(go, "fast_grouped_block_topk"):
+                        ref = go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")
+                    name = f"fast_grouped_block_topk {str(dtype)[6:]} M={m} q={q} k={k}"
+                    err = check_fast(name, *got, *ref, scores)
+                    _ERRORS["fast_grouped_block_topk"] = max(_ERRORS["fast_grouped_block_topk"], err)
+                    cases["fast_grouped_block_topk"] += 1
+    # duplicate rows: one packed-key window, ties to the smallest row
+    dups = list(range(1000, 1062)) + [3000, 4990]
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        corpus[dups] = corpus[7].clone()
+        for k in (1, 10, 50, 64):
+            _, idx = to.exact_search(corpus, corpus[7:8].clone(), k, metric="ip", impl="pallas_fast")
+            if idx[0].tolist() != ([7] + dups)[:k]:
+                raise AssertionError(f"fast duplicate-row ties {str(dtype)[6:]} k={k}: {idx[0].tolist()[:8]}...")
+    log(f"[kernels] fast_block_topk: {cases['fast_block_topk']} searches, fast_grouped_block_topk: "
+        f"{cases['fast_grouped_block_topk']} searches agree with their plain versions (ids within the "
+        f"2^-12 window of the k-th score; max |err| {_ERRORS['fast_block_topk']:.3g} / "
+        f"{_ERRORS['fast_grouped_block_topk']:.3g}, tol {TOL}); duplicate-row ties at the smallest row")
+
+
+def check_fused_kernel(gen, n, d) -> None:
+    """Kernel 4 against its plain version (range partials and result, by
+    :func:`check_topk`'s rule) and against kernel 1 on the same batch
+    (identical ids and values: the same scores, the same tie rule):
+    float32 and bfloat16; ip, l2, masked with a live count below n, and an
+    empty mask; k 1/10/50/64; 1, 2 and the default blocks per range; then
+    duplicate rows."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nb = -(-n // 1024)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        cnorms = to.row_sq_norms(corpus)
+        for variant in ("ip", "l2", "masked", "empty"):
+            metric = "l2" if variant == "l2" else "ip"
+            count, mask = n, None
+            if variant in ("masked", "empty"):
+                count = n - 777
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < (0.3 if variant == "masked" else 0.0)).to(torch.int8)
+            for k, q in ((1, 1), (10, 9), (50, 40), (64, 128)):
+                queries = _unit_rows(q, d, gen, dtype)
+                kw = dict(count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=1024)
+                for per in (1, 2, to.fused_ranges(q, nb, sms)[1]):
+                    got = to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw)
+                    torch.cuda.synchronize()
+                    ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
+                    name = f"fused_topk {str(dtype)[6:]} {variant} k={k} q={q} blocks/range={per}"
+                    err = max(check_topk(f"{name} (ranges)", got[2], got[3], ref[2], ref[3]),
+                              check_topk(name, got[0], got[1], ref[0], ref[1]))
+                    check_scores(name, got[0], got[1], _plain_scores(corpus, queries, metric, count, mask))
+                    k1 = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
+                    check_topk(f"{name} against kernel 1", got[0], got[1],
+                               torch.nn.functional.pad(k1[0], (0, 1), value=float("-inf")),
+                               torch.nn.functional.pad(k1[1], (0, 1), value=torch.iinfo(torch.int32).max),
+                               exact=True)
+                    _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], err)
+                    cases += 1
+    dups = list(range(1000, 1062)) + [3000, 4990]
+    for dtype in (torch.float32, torch.bfloat16):
+        corpus = _unit_rows(n, d, gen, dtype)
+        corpus[dups] = corpus[7].clone()
+        for k in (1, 10, 50, 64):
+            _, idx = to.exact_search(corpus, corpus[7:8].clone(), k, metric="ip", impl="pallas_fused")
+            if idx[0].tolist() != ([7] + dups)[:k]:
+                raise AssertionError(f"fused duplicate-row ties {str(dtype)[6:]} k={k}: {idx[0].tolist()[:8]}...")
+    log(f"[kernels] fused_topk: {cases} cases agree with the plain version, ranges and result (max |err| "
+        f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and are identical to kernel 1's; duplicate-row ties at "
+        f"the smallest row")
 
 
 # ---------------------------------------------------------------------------
@@ -949,74 +1162,170 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
                 raise AssertionError("scale image search: a query row is not its own nearest neighbour")
         log("[scale] image-search results agree with the plain version (exact and int8)")
 
-        # the kernels against their plain versions at the main-path shapes,
-        # then their times (CUDA events; plain, kernel, kernel, plain)
-        table = torch.zeros((len(masks), store.capacity), dtype=torch.int8, device=device)
-        table[:, :rows] = torch.from_numpy(np.stack(masks)).to(device)
-        k1 = dict(count=store.count, metric="ip", block_n=store.block_rows)
-        k2 = dict(count=store.count, metric="ip", block_n=store._i8_block)
-        k5 = dict(count=store.count, block_n=store.block_rows)
-        k6 = dict(count=store.count, block_n=store._i8_block)
-        for batch, tops, names in ((1, (10, 50), ("block_topk", "int8_block_topk")),
-                                   (256, (10, 50), ("block_topk", "int8_block_topk")),
-                                   (128, (50,), _FLAT)):  # the grouped kernels beside 1 and 2
-            qb = _unit_rows(batch, dim, gen, torch.float32)
-            qb16 = qb.to(torch.bfloat16)
-            q_i8, qs = qo.quantize_rows(qb)
-            ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
-            runs = {
-                "block_topk": (
-                    lambda kk: to.block_topk(store._device, qb16, kk, **k1),
-                    lambda kk: to.exact_block_topk_plain(store._device, qb16, kk, **k1),
-                ),
-                "int8_block_topk": (
-                    lambda kk: qo.int8_block_topk(store._device_i8, store._scales, q_i8, qs, kk, **k2),
-                    lambda kk: qo.int8_block_topk_plain(store._device_i8, store._scales, q_i8, qs, kk, **k2),
-                ),
-                "grouped_block_topk": (
-                    lambda kk: go.grouped_block_topk(store._device, qb16, table, ids, kk, **k5),
-                    lambda kk: go.grouped_block_topk_plain(store._device, qb16, table, ids, kk, **k5),
-                ),
-                "int8_grouped_block_topk": (
-                    lambda kk: qo.int8_grouped_block_topk(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
-                    lambda kk: qo.int8_grouped_block_topk_plain(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
-                ),
-            }
-            for k in tops:
-                for name in names:
-                    kernel, plain = runs[name]
-                    err = check_topk(f"scale {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1),
-                                     exact=name.startswith("int8"))
-                    _ERRORS[name] = max(_ERRORS[name], err)
-                    plain_ms = cuda_ms(lambda: plain(k), reps=2)
-                    kernel_ms = cuda_ms(lambda: kernel(k), reps=3)
-                    kernel_ms2 = cuda_ms(lambda: kernel(k), reps=3)
-                    plain_ms2 = cuda_ms(lambda: plain(k), reps=2)
-                    ms, pms = (kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2
-                    _TIMES[(name, batch, k)] = (ms, pms)
-                    extra = f", M={len(masks)}" if name.startswith(("grouped", "int8_grouped")) else ""
-                    log(f"[scale] {name} batch {batch} top-{k}{extra} at {rows}x{dim}: agrees with the plain "
-                        f"version (max |err| {err:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                        f"(kernel {kernel_ms:.3f}/{kernel_ms2:.3f}, plain {plain_ms:.3f}/{plain_ms2:.3f})")
+        scale_impl_routes(store, masks, gen)
+        scale_kernel_times(store, masks, gen)
+
+
+def scale_impl_routes(store, masks, gen) -> None:
+    """Kernels 3 and 4 through the store's impl values, as a caller asks for
+    them: search(impl="pallas_fast") and search(impl="pallas_fused") at
+    batch 1 and 128, top-50, and grouped_search(impl="pallas_fast") at batch
+    128 over the five predicates.  Kernel 4's results must equal kernel 1's
+    (impl="pallas"); kernel 3's are held against the same searches on its
+    plain version (:func:`check_fast`)."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    dim = store.dimension
+    queries = {b: _unit_rows(b, dim, gen, torch.float32).cpu().numpy() for b in (1, 128)}
+    table = np.stack(masks)
+    ids = (np.arange(128) % len(masks)).astype(np.int32)
+    reset_launches()
+    got = {(impl, b): store.search(queries[b], 50, impl=impl) for b in (1, 128) for impl in ("pallas_fast", "pallas_fused")}
+    got[("grouped", 128)] = store.grouped_search(queries[128], 50, table, ids, impl="pallas_fast")
+    launches = read_launches()
+    log(f"[scale] store impl routes (pallas_fast, pallas_fused at batch 1 and 128; grouped pallas_fast at "
+        f"batch 128, M={len(masks)}): launches {launches}")
+    for name in _IMPL_ROUTES:
+        if launches[name] <= 0:
+            raise AssertionError(f"the store's impl routes never launched {name}")
+        _LAUNCHES[name] += launches[name]
+
+    device = store._device.device
+    live = store._device[: store.count]
+    for b in (1, 128):
+        want = store.search(queries[b], 50, impl="pallas")
+        for j, what in ((1, "ids"), (0, "values")):
+            if not np.array_equal(got[("pallas_fused", b)][j], want[j]):
+                raise AssertionError(f"scale fused search batch {b}: {what} differ from kernel 1's")
+        with plain_scan(to, "fast_block_topk"):
+            ref = store.search(queries[b], 50, impl="pallas_fast")
+        q16 = torch.from_numpy(queries[b] / np.linalg.norm(queries[b], axis=1, keepdims=True)).to(device).to(torch.bfloat16)
+        scores = _chunked_ip_scores(live, q16)
+        err = check_fast(f"scale fast search batch {b}", *(torch.from_numpy(x).to(device) for x in (*got[("pallas_fast", b)], *ref)), scores)
+        _ERRORS["fast_block_topk"] = max(_ERRORS["fast_block_topk"], err)
+    with plain_scan(go, "fast_grouped_block_topk"):
+        ref = store.grouped_search(queries[128], 50, table, ids, impl="pallas_fast")
+    q16 = torch.from_numpy(queries[128] / np.linalg.norm(queries[128], axis=1, keepdims=True)).to(device).to(torch.bfloat16)
+    keep = torch.from_numpy(table[ids]).to(device)
+    scores = torch.where(keep, _chunked_ip_scores(live, q16), float("-inf"))
+    err = check_fast("scale grouped fast search batch 128", *(torch.from_numpy(x).to(device) for x in (*got[("grouped", 128)], *ref)), scores)
+    _ERRORS["fast_grouped_block_topk"] = max(_ERRORS["fast_grouped_block_topk"], err)
+    del scores, keep
+    log("[scale] impl routes: pallas_fused results identical to kernel 1's; pallas_fast (flat and grouped) "
+        "agree with the same searches on kernel 3's plain version")
+
+
+def scale_kernel_times(store, masks, gen) -> None:
+    """Every flat kernel against its plain version at the main-path shapes
+    (kernel 3's partials are quantized: its searches were held against the
+    plain version in scale_impl_routes), then its time (CUDA events; plain,
+    kernel, kernel, plain), its bound and the time of the nearest library
+    composition (cuBLAS product, then torch.topk over the [Q, N] scores)."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    device, (cap, dim) = store._device.device, store._device.shape
+    rows = store.count
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    table = torch.zeros((len(masks), cap), dtype=torch.int8, device=device)
+    table[:, :rows] = torch.from_numpy(np.stack(masks)).to(device)
+    k1 = dict(count=rows, metric="ip", block_n=store.block_rows)
+    k2 = dict(count=rows, metric="ip", block_n=store._i8_block)
+    k5 = dict(count=rows, block_n=store.block_rows)
+    k6 = dict(count=rows, block_n=store._i8_block)
+    nb, nb8 = -(-cap // store.block_rows), -(-cap // store._i8_block)
+    k = 50
+    for batch, names in ((1, ("block_topk", "int8_block_topk", "fast_block_topk", "fused_topk")),
+                         (128, _FLAT + _IMPL_ROUTES),
+                         (256, ("block_topk", "int8_block_topk"))):
+        qb = _unit_rows(batch, dim, gen, torch.float32)
+        qb16 = qb.to(torch.bfloat16)
+        q_i8, qs = qo.quantize_rows(qb)
+        ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
+        per = to.fused_ranges(batch, nb, sms, block_n=store.block_rows, k=k)[1]
+        ranges = -(-nb // per)
+        # the int8 product through cuBLAS wants more than 16 rows
+        qpad = torch.zeros((max(32, -(-batch // 8) * 8), dim), dtype=torch.int8, device=device)
+        qpad[:batch] = q_i8
+
+        def int8_scores():
+            acc = torch._int_mm(qpad, store._device_i8.T)[:batch]
+            return acc.float() * qs[:, None] * store._scales[None, :]
+
+        dense = lambda: torch.matmul(qb16, store._device.T)  # noqa: E731
+        keep = lambda: table[ids.long()] > 0  # noqa: E731
+        bf16_in = nbytes(store._device, qb16)
+        i8_in = nbytes(store._device_i8, store._scales, q_i8, qs)
+        flops = 2.0 * batch * cap * dim
+        runs = {  # name: (kernel, plain, library, bytes moved, operations, unit)
+            "block_topk": (
+                lambda kk: to.block_topk(store._device, qb16, kk, **k1),
+                lambda kk: to.exact_block_topk_plain(store._device, qb16, kk, **k1),
+                lambda: torch.topk(dense(), k), bf16_in + batch * nb * k * 8, flops, "bf16"),
+            "fast_block_topk": (
+                lambda kk: to.fast_block_topk(store._device, qb16, kk, **k1),
+                lambda kk: to.fast_block_topk_plain(store._device, qb16, kk, **k1),
+                lambda: torch.topk(dense(), k), bf16_in + batch * nb * k * 8, flops, "bf16"),
+            "fused_topk": (
+                lambda kk: to.fused_topk(store._device, qb16, kk, blocks_per_range=per, **k1)[:2],
+                lambda kk: to.fused_topk_plain(store._device, qb16, kk, blocks_per_range=per, **k1)[:2],
+                lambda: torch.topk(dense(), k), bf16_in + batch * (ranges + 1) * k * 8, flops, "bf16"),
+            "int8_block_topk": (
+                lambda kk: qo.int8_block_topk(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                lambda kk: qo.int8_block_topk_plain(store._device_i8, store._scales, q_i8, qs, kk, **k2),
+                lambda: torch.topk(int8_scores(), k), i8_in + batch * nb8 * k * 8, flops, "int8"),
+            "grouped_block_topk": (
+                lambda kk: go.grouped_block_topk(store._device, qb16, table, ids, kk, **k5),
+                lambda kk: go.grouped_block_topk_plain(store._device, qb16, table, ids, kk, **k5),
+                lambda: torch.topk(torch.where(keep(), dense(), float("-inf")), k),
+                bf16_in + nbytes(table, ids) + batch * nb * k * 8, flops, "bf16"),
+            "fast_grouped_block_topk": (
+                lambda kk: go.fast_grouped_block_topk(store._device, qb16, table, ids, kk, **k5),
+                lambda kk: go.fast_grouped_block_topk_plain(store._device, qb16, table, ids, kk, **k5),
+                lambda: torch.topk(torch.where(keep(), dense(), float("-inf")), k),
+                bf16_in + nbytes(table, ids) + batch * nb * k * 8, flops, "bf16"),
+            "int8_grouped_block_topk": (
+                lambda kk: qo.int8_grouped_block_topk(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
+                lambda kk: qo.int8_grouped_block_topk_plain(store._device_i8, store._scales, q_i8, qs, table, ids, kk, **k6),
+                lambda: torch.topk(torch.where(keep(), int8_scores(), float("-inf")), k),
+                i8_in + nbytes(table, ids) + batch * nb8 * k * 8, flops, "int8"),
+        }
+        for name in names:
+            kernel, plain, library, moved, ops, unit = runs[name]
+            err = 0.0
+            if not name.startswith("fast"):
+                err = check_topk(f"scale {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1),
+                                 exact=name.startswith("int8"))
+                _ERRORS[name] = max(_ERRORS[name], err)
+            ms, pms, bound, by, lib_ms, (a, b, c, d) = time_kernel(
+                (name, batch, k), lambda: kernel(k), lambda: plain(k), library, moved, ops, unit)
+            extra = f", M={len(masks)}" if "grouped" in name else ""
+            extra += f", {ranges} ranges of {per} blocks" if name == "fused_topk" else ""
+            log(f"[scale] {name} batch {batch} top-{k}{extra} at {rows}x{dim}: "
+                + ("" if name.startswith("fast") else f"agrees with the plain version (max |err| {err:.3g}); ")
+                + f"kernel {ms:.3f} ms, plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{d:.3f}); "
+                f"bound {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB, {ops / 1e12:.3f} T{unit} ops); "
+                f"library {lib_ms:.3f} ms (cuBLAS product + torch.topk)")
+        # the whole search through each impl: kernel 1 + torch merge, kernel 3
+        # + merge + rescore, kernel 4 with its merge on the card
+        q_host = qb.cpu().numpy()
+        times = {impl: cuda_ms(lambda impl=impl: store.search(q_host, k, impl=impl), reps=3)
+                 for impl in ("pallas", "pallas_fast", "pallas_fused")}
+        log(f"[scale] store.search batch {batch} top-{k}, host to host: "
+            + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items()))
 
 
 # ---------------------------------------------------------------------------
 # phase 5: VECTOR_INDEX_TYPE=ivf at 1M x 1536
 # ---------------------------------------------------------------------------
-
-
-@contextlib.contextmanager
-def plain_ivf_scan():
-    """Inside, every IVF search runs kernel 7's plain version in place of
-    the kernel; the pipeline around it (probes, merge, rescore) is the same."""
-    from photo_search_engine_tpu_torch.ops import ivf_scan
-
-    kernel = ivf_scan.ivf_block_topk
-    ivf_scan.ivf_block_topk = ivf_scan.ivf_block_topk_plain
-    try:
-        yield
-    finally:
-        ivf_scan.ivf_block_topk = kernel
 
 
 def _intrinsic_rows(rows, dim, gen, intrinsic=32):
@@ -1148,7 +1457,7 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
         # column is the cut)
         for k, m, what in ((10, None, "image"), (500, None, "search_photos"), (50, mask, "masked")):
             got = index.raw_search_batch(queries[:4], k, mask=m)
-            with plain_ivf_scan():
+            with plain_scan(io_, "ivf_block_topk"):
                 ref = index.raw_search_batch(queries[:4], k + 1, mask=m)
             err = check_topk(f"ivf {tier} {what} k={k}", *got, *ref)
             _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
@@ -1184,21 +1493,33 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
             else:
                 err = check_partials(f"{name} batch {batch}", kernel(), plain, kk)
             _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
-            plain_ms = cuda_ms(plain, reps=2)
-            kernel_ms = cuda_ms(kernel, reps=5)
-            kernel_ms2 = cuda_ms(kernel, reps=5)
-            plain_ms2 = cuda_ms(plain, reps=2)
-            ms, pms = (kernel_ms + kernel_ms2) / 2, (plain_ms + plain_ms2) / 2
-            _TIMES[(name, batch, 50)] = (ms, pms)
             pairs = batch * probes.shape[1]
+            probed = torch.unique(probes).numel()  # clusters read, each once
+            moved = (probed * ivf.capacity * (dim * args[0].element_size() + 1) + nbytes(*args[1:3])
+                     + pairs * -(-ivf.capacity // 256) * kk * 8)  # rows and slot flags, queries, probes, partials
+            gflop = 2 * pairs * ivf.capacity * dim / 1e9
+            library = None
+            if quantized != "1" and batch == 1:  # the gathered clusters of batch 128 would not fit
+                layout = ivf._corpus.view(ivf.nlist, ivf.capacity, dim)
+                valid = ivf._row_valid.view(ivf.nlist, ivf.capacity)
+
+                def library():
+                    rows_ = layout[probes[0].long()].reshape(-1, dim)
+                    scores = torch.where(valid[probes[0].long()].reshape(-1) > 0, rows_ @ qb[0], float("-inf"))
+                    return torch.topk(scores.float(), 50)
+
+            ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
+                (name, batch, 50), kernel, plain, library, moved, gflop * 1e9,
+                "int8" if quantized == "1" else "bf16", reps=5)
             groups, _, _, bq = io_.probe_groups(probes.cpu().numpy(), ivf.nlist)
             fill = f"{groups.shape[0]} groups of up to {bq} queries, {pairs / (groups.shape[0] * bq):.0%} full"
             gbytes = pairs * ivf.capacity * dim * args[0].element_size() / 1e9  # probed rows, counted per pair
-            gflop = 2 * pairs * ivf.capacity * dim / 1e9
+            lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms (gather, cuBLAS product, torch.topk)"
             log(f"[ivf] {name} batch {batch} top-50 (nprobe 64, {pairs} probe pairs in {fill}: {gbytes:.2f} GB of probed "
                 f"rows, {gflop:.1f} GFLOP) at {rows}x{dim}: agrees with the plain version (max |err| {err:.3g}); "
                 f"kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' rows, {gflop / ms:.2f} TFLOP/s), "
-                f"plain {pms:.3f} ms (kernel {kernel_ms:.3f}/{kernel_ms2:.3f}, plain {plain_ms:.3f}/{plain_ms2:.3f})")
+                f"plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{e:.3f}); bound {bound:.3f} ms by "
+                f"{by} ({probed} clusters read, {moved / 1e9:.3f} GB); library {lib}")
         # the micro-batcher's closures and the index refer to each other:
         # collect the cycle, so that the next tier starts from free memory
         del index, services, ivf, batcher
@@ -1247,13 +1568,20 @@ def main(argv=None) -> int:
                                     "photo_search_engine_tpu/ops/quantized.py:339", 128),
         "ivf_block_topk": ("photo_search_engine_tpu_torch/csrc/ivf_topk.cu",
                            "photo_search_engine_tpu/models/ivf.py:247", 1),
+        "fast_block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
+                            "photo_search_engine_tpu/ops/topk.py:301", 1),
+        "fast_grouped_block_topk": ("photo_search_engine_tpu_torch/csrc/block_topk.cu",
+                                    "photo_search_engine_tpu/ops/grouped_mask.py:167", 128),
+        "fused_topk": ("photo_search_engine_tpu_torch/csrc/fused_topk.cu",
+                       "photo_search_engine_tpu/ops/topk.py:483", 1),
     }
     kernels = []
     for name, (source, replaces, batch) in sources.items():
-        ms, plain_ms = _TIMES.get((name, batch, 50), (None, None))
+        ms, plain_ms, bound, by, lib_ms = _TIMES.get((name, batch, 50), (None,) * 5)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": _LAUNCHES[name], "max_abs_err": _ERRORS[name],
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms, "batch": batch, "top_k": 50})
     log(f"[done] phases {phases} passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

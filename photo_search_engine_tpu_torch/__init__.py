@@ -4,14 +4,17 @@ The JAX package's default serving configuration, rebuilt on PyTorch for
 one NVIDIA H100: the device embedding store, the flat and IVF vector
 indexes, the micro-batcher with its per-query filtered (grouped) scans,
 the hashing embedder, the local rerank services and the composition root.
-The scan kernels (``csrc/block_topk.cu``: exact and grouped exact;
-``csrc/int8_block_topk.cu``: int8 and grouped int8; ``csrc/ivf_topk.cu``:
-the IVF probed-cluster scan) are CUDA C++ written for ``sm_90a``, built
-with ``nvcc`` at first use and bound with ``ctypes`` (``ops/_cuda.py``).
+The scan kernels (``csrc/block_topk.cu``: exact, packed-key and their
+grouped variants; ``csrc/int8_block_topk.cu``: int8 and grouped int8;
+``csrc/ivf_topk.cu``: the IVF probed-cluster scan;
+``csrc/fused_topk.cu``: the fused running top-k) are CUDA C++ written for
+``sm_90a``, built with ``nvcc`` at first use and bound with ``ctypes``
+(``ops/_cuda.py``).
 
-Host modules of the JAX package that do not depend on JAX (config,
-routes, wsgi, searcher, indexer, keyword index, the LLM-backed services)
-are reused by import; this package itself never loads JAX.
+The host modules (config, routes, wsgi, searcher, indexer, keyword
+index, the LLM-backed services, the native host library) are copies of
+the JAX package's that differ only in their import lines: this package
+imports nothing of the JAX package and never loads JAX.
 
 Layer map:
   device            — PSE_PLATFORM → torch.device

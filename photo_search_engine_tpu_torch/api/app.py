@@ -2,10 +2,10 @@
 
 Counterpart of ``photo_search_engine_tpu/api/app.py``: ``initialize_services``
 builds every service from the config, ``create_app`` registers the routes,
-``main`` serves them.  The host modules of the JAX package that do not
-depend on JAX are reused as they are (config, routes, WSGI, searcher,
-indexer, keyword index, time parser, query formatter, vision); the
-device-side ones are this package's.
+``main`` serves them.  The host modules (config, routes, WSGI, searcher,
+indexer, keyword index, time parser, query formatter, vision) are this
+package's copies of the JAX package's, which differ only in their import
+lines; the port imports nothing of the JAX package.
 
 The offline profile is what is ported, with the micro-batcher
 (``SEARCH_MICROBATCH_ENABLED``, on by default) wired as in the JAX app,
@@ -27,17 +27,17 @@ import socket
 import sys
 from typing import Any, Dict, Optional, Tuple
 
-from photo_search_engine_tpu.api.routes import register_routes
-from photo_search_engine_tpu.api.wsgi import App
-from photo_search_engine_tpu.config import get_config
-from photo_search_engine_tpu.config import load_config as _load_env_config
-from photo_search_engine_tpu.config import reset_config_cache
-from photo_search_engine_tpu.core.indexer import Indexer
-from photo_search_engine_tpu.core.keyword_index import KeywordIndex
-from photo_search_engine_tpu.core.searcher import Searcher
-from photo_search_engine_tpu.services.query_formatter import QueryFormatter
-from photo_search_engine_tpu.services.time_parser import TimeParser
-from photo_search_engine_tpu.services.vision import LocalVisionService, OpenAIVisionService
+from photo_search_engine_tpu_torch.api.routes import register_routes
+from photo_search_engine_tpu_torch.api.wsgi import App
+from photo_search_engine_tpu_torch.config import get_config
+from photo_search_engine_tpu_torch.config import load_config as _load_env_config
+from photo_search_engine_tpu_torch.config import reset_config_cache
+from photo_search_engine_tpu_torch.core.indexer import Indexer
+from photo_search_engine_tpu_torch.core.keyword_index import KeywordIndex
+from photo_search_engine_tpu_torch.core.searcher import Searcher
+from photo_search_engine_tpu_torch.services.query_formatter import QueryFormatter
+from photo_search_engine_tpu_torch.services.time_parser import TimeParser
+from photo_search_engine_tpu_torch.services.vision import LocalVisionService, OpenAIVisionService
 from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, attach_microbatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
@@ -163,7 +163,7 @@ def initialize_services(
             keyword_index = None
     elif keyword_backend == "elasticsearch":
         try:
-            from photo_search_engine_tpu.core.es_keyword_index import ElasticsearchKeywordIndex
+            from photo_search_engine_tpu_torch.core.es_keyword_index import ElasticsearchKeywordIndex
 
             keyword_index = ElasticsearchKeywordIndex(
                 host=config.get("ELASTICSEARCH_HOST", "localhost"),

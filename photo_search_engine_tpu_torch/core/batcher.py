@@ -1,37 +1,180 @@
 """Request micro-batcher of the serving path.
 
-Counterpart of ``photo_search_engine_tpu/core/batcher.py``.  Concurrent
-single-query searches are coalesced into one device scan: unfiltered ones
-into kernel 1 or 2, filtered ones, with different predicates, into one
-grouped scan (kernel 5 or 6, ``VectorIndex.raw_grouped_search_batch``).
+Counterpart of ``photo_search_engine_tpu/core/batcher.py``, whose
+batching logic this module copies: concurrent single-query searches are
+coalesced into one device scan, unfiltered ones into kernel 1 or 2,
+filtered ones, with different predicates, into one grouped scan (kernel
+5 or 6, ``VectorIndex.raw_grouped_search_batch``).  ``CallBatcher`` and
+``BatchedEmbeddingService`` coalesce concurrent embedding calls the same
+way.  The predicate table is built with this package's
+``bucket_mask_table``.
 
-The batching logic does not depend on JAX and is the JAX package's:
-``CallBatcher`` and ``BatchedEmbeddingService`` are used as they are, and
-:class:`MicroBatcher` subclasses the JAX one only to build its predicate
-table with this package's ``bucket_mask_table`` (the JAX method imports
-the JAX ``grouped_mask`` module, and with it jax).
+Enabled via ``SEARCH_MICROBATCH_ENABLED`` (``api/app.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from photo_search_engine_tpu.core import batcher as _jax_batcher
-from photo_search_engine_tpu.core.batcher import BatchedEmbeddingService, CallBatcher  # noqa: F401  (re-exported)
-from photo_search_engine_tpu_torch.ops.grouped_mask import bucket_mask_table
+
+class _Pending:
+    __slots__ = ("query", "k", "mask", "event", "result", "error")
+
+    def __init__(self, query: np.ndarray, k: int, mask: Optional[np.ndarray]) -> None:
+        self.query = query
+        self.k = k
+        self.mask = mask
+        self.event = threading.Event()
+        self.result: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.error: Optional[BaseException] = None
 
 
-class MicroBatcher(_jax_batcher.MicroBatcher):
-    """The JAX package's micro-batcher, with the predicate table built by
-    this package's :func:`bucket_mask_table`."""
+class MicroBatcher:
+    """Batches concurrent ``search(query, k[, mask])`` calls into one
+    device call.
+
+    ``run_batch(queries [B, D], k) -> (dists [B, k], idx [B, k])`` is the
+    unfiltered batched search.  ``run_grouped_batch(queries, k,
+    mask_table [M, N], mask_ids [B])`` (optional) handles batches where
+    at least one request carries a row filter; without it, filtered
+    requests fall back to per-request calls via ``run_masked``.
+    Requests arriving within ``window_s`` of each other (up to
+    ``max_batch``) share one call; a request's k may differ — the batch
+    runs at the max k and each caller gets a slice.
+    """
+
+    def __init__(
+        self,
+        run_batch: Callable[[np.ndarray, int], Tuple[np.ndarray, np.ndarray]],
+        *,
+        run_grouped_batch: Optional[Callable[..., Tuple[np.ndarray, np.ndarray]]] = None,
+        max_batch: int = 128,
+        window_s: float = 0.003,
+        dimension: Optional[int] = None,
+        pipeline: int = 2,
+    ) -> None:
+        self._run_batch = run_batch
+        self._run_grouped_batch = run_grouped_batch
+        # when known, per-request shape validation happens BEFORE enqueue —
+        # one malformed request must not poison every request coalesced
+        # into its micro-batch
+        self.dimension = dimension
+        self.max_batch = int(max_batch)
+        self.window_s = float(window_s)
+        # in-flight batch depth: the collector hands batches to a small
+        # executor pool instead of running them inline, so batch N+1's
+        # dispatch overlaps batch N's result fetch.  Device compute
+        # serializes on-chip either way; what overlaps is the
+        # dispatch/fetch round trip — a few ms locally, 0.5-2 s on
+        # remote-attached runtimes, where depth 2 roughly doubles
+        # route-level throughput.  Depth 1 restores strict serial order.
+        self.pipeline = max(1, int(pipeline))
+        self._lock = threading.Condition()
+        self._queue: List[_Pending] = []
+        self._worker: Optional[threading.Thread] = None
+        self._stopped = False
+        self._inflight = 0
+        self.batches_run = 0
+        self.requests_served = 0
+        self.grouped_batches_run = 0
+
+    # ------------------------------------------------------------------
+    def _ensure_worker(self) -> None:
+        # Called under self._lock.  The worker clears self._worker (under
+        # this same lock) immediately before returning, so "worker exists"
+        # is decided by self._worker alone — an is_alive() probe would race
+        # with a post-close() worker that has passed its exit check but not
+        # yet died, leaving an enqueued request with no consumer forever.
+        self._stopped = False  # a new request revives a closed batcher
+        if self._worker is None:
+            self._worker = threading.Thread(
+                target=self._loop, name="search-microbatcher", daemon=True
+            )
+            self._worker.start()
+
+    def close(self) -> None:
+        with self._lock:
+            self._stopped = True
+            self._lock.notify_all()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._queue and not self._stopped:
+                    self._lock.wait()
+                if self._stopped and not self._queue:
+                    # mark exit under the lock so _ensure_worker can spawn
+                    # a replacement without racing our death
+                    self._worker = None
+                    return
+                # linger briefly so concurrent requests can coalesce
+                deadline = time.monotonic() + self.window_s
+                while (
+                    len(self._queue) < self.max_batch
+                    and time.monotonic() < deadline
+                ):
+                    remaining = deadline - time.monotonic()
+                    if remaining > 0:
+                        self._lock.wait(timeout=remaining)
+                batch = self._queue[: self.max_batch]
+                del self._queue[: len(batch)]
+                if self.pipeline > 1:
+                    # bounded handoff: block collection (not callers) when
+                    # `pipeline` batches are already in flight
+                    while self._inflight >= self.pipeline and not self._stopped:
+                        self._lock.wait(timeout=0.05)
+                    self._inflight += 1
+                    threading.Thread(
+                        target=self._execute_and_release,
+                        args=(batch,),
+                        daemon=True,
+                    ).start()
+                    continue
+            self._execute(batch)
+
+    def _execute_and_release(self, batch: List[_Pending]) -> None:
+        try:
+            self._execute(batch)
+        finally:
+            with self._lock:
+                self._inflight -= 1
+                self._lock.notify_all()
+
+    # Bound on distinct predicates per grouped device call (incl. the
+    # all-ones row 0): each extra row costs kernel VMEM + an [M, N] int8
+    # staging (1 MB/row at 1M), and every distinct M bucket is a compile.
+    # An adversarial mix of per-request date filters otherwise grows the
+    # table without bound (round-3 verdict weak #4); beyond the cap the
+    # batch splits into sub-batches that each stay within it.
+    mask_table_cap = 8
 
     @staticmethod
-    def _factor_masks(batch, keys: List[Optional[bytes]]) -> Tuple[np.ndarray, np.ndarray]:
-        """Dedupe per-request masks into ``(mask_table [M, N], ids [B])``:
-        row 0 all ones for unfiltered requests, one row per distinct raw
-        mask, M padded to the same bucket as the JAX batcher's table."""
+    def _mask_keys(batch: List[_Pending]) -> List[Optional[bytes]]:
+        """One raw-bytes digest per request mask, computed ONCE per batch
+        — both the cap split and the table factoring key on these (the
+        masks are ~1 MB each at 1M rows; digesting them twice was pure
+        overhead on the grouped hot path, review round 4)."""
+        return [
+            None
+            if item.mask is None
+            else np.asarray(item.mask, np.int8).tobytes()
+            for item in batch
+        ]
+
+    @staticmethod
+    def _factor_masks(
+        batch: List[_Pending], keys: List[Optional[bytes]]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Dedupe per-request masks into (mask_table [M, N], ids [B]).
+        Row 0 is the all-ones predicate for unfiltered requests.  M is
+        padded to the op-level bucket sizes ({2, 4, 8}) with zero rows so
+        consecutive mixed batches reuse one compiled kernel per bucket.
+        Equality is on the RAW mask bytes (identical raw ⇒ identical
+        padded row), so only UNIQUE masks are padded/copied."""
         n = max(item.mask.shape[0] for item in batch if item.mask is not None)
         rows: List[np.ndarray] = [np.ones(n, np.int8)]
         digests: Dict[bytes, int] = {}
@@ -47,7 +190,261 @@ class MicroBatcher(_jax_batcher.MicroBatcher):
                 rows.append(mask)
                 digests[key] = row
             ids[pos] = row
+        from photo_search_engine_tpu_torch.ops.grouped_mask import bucket_mask_table
+
         return bucket_mask_table(np.stack(rows)), ids
+
+    def _split_by_mask_cap(
+        self, batch: List[_Pending], keys: List[Optional[bytes]]
+    ) -> List[Tuple[List[_Pending], List[Optional[bytes]]]]:
+        """Partition a filtered batch so each chunk holds at most
+        ``mask_table_cap - 1`` distinct non-trivial predicates (row 0 is
+        reserved for unfiltered requests).  Order-preserving greedy split;
+        normal serving mixes (a handful of season/time-of-day filters)
+        stay one chunk."""
+        cap = max(1, self.mask_table_cap - 1)
+        chunks: List[Tuple[List[_Pending], List[Optional[bytes]]]] = []
+        current: List[_Pending] = []
+        current_keys: List[Optional[bytes]] = []
+        digests: set = set()
+        for item, key in zip(batch, keys):
+            if key is not None and key not in digests and len(digests) >= cap:
+                chunks.append((current, current_keys))
+                current, current_keys, digests = [], [], set()
+            current.append(item)
+            current_keys.append(key)
+            if key is not None:
+                digests.add(key)
+        if current:
+            chunks.append((current, current_keys))
+        return chunks
+
+    def _execute(self, batch: List[_Pending]) -> None:
+        try:
+            if any(item.mask is not None for item in batch) and (
+                self._run_grouped_batch is not None
+            ):
+                for chunk, chunk_keys in self._split_by_mask_cap(
+                    batch, self._mask_keys(batch)
+                ):
+                    queries = np.stack([item.query for item in chunk])
+                    k_max = max(item.k for item in chunk)
+                    table, ids = self._factor_masks(chunk, chunk_keys)
+                    dists, idx = self._run_grouped_batch(
+                        queries, k_max, table, ids
+                    )
+                    self.grouped_batches_run += 1
+                    for row, item in enumerate(chunk):
+                        item.result = (dists[row, : item.k], idx[row, : item.k])
+            else:
+                queries = np.stack([item.query for item in batch])
+                k_max = max(item.k for item in batch)
+                dists, idx = self._run_batch(queries, k_max)
+                for row, item in enumerate(batch):
+                    item.result = (dists[row, : item.k], idx[row, : item.k])
+        except BaseException as exc:  # propagate to every unserved waiter
+            for item in batch:
+                if item.result is None:
+                    item.error = exc
+        finally:
+            self.batches_run += 1
+            self.requests_served += len(batch)
+            for item in batch:
+                item.event.set()
+
+    # ------------------------------------------------------------------
+    def search(
+        self,
+        query: np.ndarray,
+        k: int,
+        mask: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        if mask is not None and self._run_grouped_batch is None:
+            raise ValueError("this MicroBatcher has no grouped (filtered) path")
+        query = np.asarray(query, np.float32).reshape(-1)
+        if self.dimension is not None and query.shape[0] != self.dimension:
+            # fail only this caller, not the whole coalesced batch
+            raise ValueError(
+                f"vector dimension mismatch: {query.shape[0]} != "
+                f"{self.dimension}"
+            )
+        pending = _Pending(
+            query,
+            int(k),
+            None if mask is None else np.asarray(mask),
+        )
+        with self._lock:
+            self._ensure_worker()
+            self._queue.append(pending)
+            self._lock.notify_all()
+        pending.event.wait()
+        if pending.error is not None:
+            raise pending.error
+        return pending.result
+
+
+class CallBatcher:
+    """Payload-agnostic sibling of :class:`MicroBatcher`: coalesces
+    concurrent one-item calls into one ``run_batch(items) -> results``
+    call (same linger-window/revivable-worker discipline).  Used to batch
+    per-request query embeddings — each ``/search_photos`` request costs
+    one device (or embedding-API HTTP) round trip for its embed; under
+    concurrency those dispatches dominate per-request latency on
+    remote-attached runtimes and are pure overhead on local chips."""
+
+    def __init__(
+        self,
+        run_batch: Callable[[List[Any]], List[Any]],
+        *,
+        max_batch: int = 128,
+        window_s: float = 0.003,
+        pipeline: int = 2,
+    ) -> None:
+        self._run_batch = run_batch
+        self.max_batch = int(max_batch)
+        self.window_s = float(window_s)
+        self.pipeline = max(1, int(pipeline))  # see MicroBatcher.pipeline
+        self._lock = threading.Condition()
+        self._queue: List[Any] = []  # _PendingCall
+        self._worker: Optional[threading.Thread] = None
+        self._stopped = False
+        self._inflight = 0
+        self.batches_run = 0
+        self.requests_served = 0
+
+    class _PendingCall:
+        __slots__ = ("item", "event", "result", "error")
+
+        def __init__(self, item: Any) -> None:
+            self.item = item
+            self.event = threading.Event()
+            self.result: Any = None
+            self.error: Optional[BaseException] = None
+
+    def _ensure_worker(self) -> None:
+        # see MicroBatcher._ensure_worker for the worker-liveness contract
+        self._stopped = False
+        if self._worker is None:
+            self._worker = threading.Thread(
+                target=self._loop, name="call-batcher", daemon=True
+            )
+            self._worker.start()
+
+    def close(self) -> None:
+        with self._lock:
+            self._stopped = True
+            self._lock.notify_all()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._queue and not self._stopped:
+                    self._lock.wait()
+                if self._stopped and not self._queue:
+                    self._worker = None
+                    return
+                deadline = time.monotonic() + self.window_s
+                while (
+                    len(self._queue) < self.max_batch
+                    and time.monotonic() < deadline
+                ):
+                    remaining = deadline - time.monotonic()
+                    if remaining > 0:
+                        self._lock.wait(timeout=remaining)
+                batch = self._queue[: self.max_batch]
+                del self._queue[: len(batch)]
+                if self.pipeline > 1:
+                    while self._inflight >= self.pipeline and not self._stopped:
+                        self._lock.wait(timeout=0.05)
+                    self._inflight += 1
+                    threading.Thread(
+                        target=self._execute_and_release,
+                        args=(batch,),
+                        daemon=True,
+                    ).start()
+                    continue
+            self._execute(batch)
+
+    def _execute_and_release(
+        self, batch: List["CallBatcher._PendingCall"]
+    ) -> None:
+        try:
+            self._execute(batch)
+        finally:
+            with self._lock:
+                self._inflight -= 1
+                self._lock.notify_all()
+
+    def _execute(self, batch: List["CallBatcher._PendingCall"]) -> None:
+        try:
+            # dedupe identical items (repeated query texts under load):
+            # the batch call runs on unique items only
+            unique: List[Any] = []
+            slot: dict = {}
+            for pending in batch:
+                key = pending.item
+                if key not in slot:
+                    slot[key] = len(unique)
+                    unique.append(key)
+            results = self._run_batch(unique)
+            if len(results) != len(unique):
+                raise RuntimeError(
+                    f"batch returned {len(results)} results for "
+                    f"{len(unique)} items"
+                )
+            for pending in batch:
+                pending.result = results[slot[pending.item]]
+        except BaseException as exc:  # propagate to every waiter
+            for pending in batch:
+                pending.error = exc
+        finally:
+            self.batches_run += 1
+            self.requests_served += len(batch)
+            for pending in batch:
+                pending.event.set()
+
+    def submit(self, item: Any) -> Any:
+        pending = self._PendingCall(item)
+        with self._lock:
+            self._ensure_worker()
+            self._queue.append(pending)
+            self._lock.notify_all()
+        pending.event.wait()
+        if pending.error is not None:
+            raise pending.error
+        return pending.result
+
+
+class BatchedEmbeddingService:
+    """Embedding-service wrapper whose single-text ``generate_embedding``
+    coalesces concurrent callers into ONE ``generate_embedding_batch``
+    call.  Batch and attribute access pass through, so it drops in
+    anywhere the wrapped service does (searcher, indexer, rerank)."""
+
+    def __init__(
+        self, service: Any, *, max_batch: int = 128, window_s: float = 0.003,
+        pipeline: int = 2,
+    ) -> None:
+        self._service = service
+        self._batcher = CallBatcher(
+            service.generate_embedding_batch,
+            max_batch=max_batch,
+            window_s=window_s,
+            pipeline=pipeline,
+        )
+
+    def generate_embedding(self, text: str) -> List[float]:
+        if not text or not str(text).strip():
+            # preserve the wrapped service's empty-input contract without
+            # poisoning a coalesced batch
+            return self._service.generate_embedding(text)
+        return self._batcher.submit(str(text))
+
+    def generate_embedding_batch(self, texts: List[str]) -> List[List[float]]:
+        return self._service.generate_embedding_batch(texts)
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._service, name)
 
 
 def attach_microbatcher(

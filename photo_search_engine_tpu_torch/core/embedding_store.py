@@ -17,6 +17,11 @@ Counterpart of ``photo_search_engine_tpu/core/embedding_store.py``:
 * ``grouped_search`` scans a batch whose queries carry different
   predicates in one pass (kernel 5, or kernel 6 on the int8 tier): the
   micro-batcher's filtered path.
+* Both take the JAX store's ``impl`` values and pass them on as it does:
+  ``"int8"`` scans the int8 shadow; ``"auto"``, ``"pallas"``,
+  ``"pallas_fast"`` (kernel 3), ``"pallas_fused"`` (kernel 4, flat search
+  only) and ``"lax"`` go to ``ops/topk.exact_search`` or
+  ``ops/grouped_mask.grouped_mask_search``.  Any other value raises.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from photo_search_engine_tpu_torch.ops import quantized as quant_ops
 from photo_search_engine_tpu_torch.ops import topk as topk_ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+STORE_IMPLS = topk_ops.IMPLS + ("int8",)
 _QUANTIZE_CHUNK = 131072  # rows per quantize step (bounds the f32 temporary)
 
 
@@ -235,9 +241,11 @@ class EmbeddingStore:
         """Top-k over live rows; returns host ``(distances, indices)``.
 
         ``impl="int8"`` scans the int8 shadow (kernel 2) for k ≤ 64; every
-        other call scans the primary corpus exactly (kernel 1 for k ≤ 64,
-        the plain chunked product above).  ``mask`` is a length-``count``
-        boolean filter."""
+        other call scans the primary corpus exactly through
+        ``exact_search(impl=...)`` (``"int8"`` there as ``"auto"``: kernel 1
+        for k ≤ 64, the plain chunked product above).  ``mask`` is a
+        length-``count`` boolean filter."""
+        topk_ops.check_impl(impl, STORE_IMPLS)
         if self._count == 0:
             q = np.atleast_2d(np.asarray(queries)).shape[0]
             return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
@@ -256,7 +264,7 @@ class EmbeddingStore:
             dists, idx = topk_ops.exact_search(
                 self._device, queries.to(self.store_dtype), k,
                 count=self._count, mask=mask_dev, metric=metric,
-                block_n=self.block_rows,
+                impl="auto" if impl == "int8" else impl, block_n=self.block_rows,
             )
         return dists.cpu().numpy(), idx.cpu().numpy()
 
@@ -275,9 +283,10 @@ class EmbeddingStore:
 
         The host table is widened to the capacity, so the kernels see the
         corpus's row stride.  ``impl="int8"`` with k ≤ 64 runs kernel 6;
-        every other call kernel 5 (k ≤ 64) or the plain grouped search.
-        Inner product and cosine only: an l2 store runs one masked
-        :meth:`search` per query."""
+        every other call ``grouped_mask_search(impl=...)`` (``"int8"`` there
+        as ``"auto"``).  Inner product and cosine only: an l2 store runs one
+        masked :meth:`search` per query."""
+        topk_ops.check_impl(impl, STORE_IMPLS)
         if self._count == 0:
             q = np.atleast_2d(np.asarray(queries)).shape[0]
             return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int32)
@@ -305,7 +314,7 @@ class EmbeddingStore:
         else:
             dists, idx = grouped_ops.grouped_mask_search(
                 self._device, queries.to(self.store_dtype), table_dev, ids, k,
-                count=self._count, block_n=self.block_rows,
+                count=self._count, impl="auto" if impl == "int8" else impl, block_n=self.block_rows,
             )
         return dists.cpu().numpy(), idx.cpu().numpy()
 

@@ -1,7 +1,7 @@
 // Shared pieces of the scan kernels (block_topk.cu, int8_block_topk.cu,
-// their grouped variants, and ivf_topk.cu): the tile geometry, the
-// per-query predicates of the grouped scans and the tile-local top-k
-// selection.
+// their grouped variants, ivf_topk.cu and fused_topk.cu): the tile
+// geometry, the per-query predicates of the grouped scans and the
+// tile-local top-k selections.
 //
 // Selection replaces the TPU's k rounds of "max -> first occurrence ->
 // eliminate" over a [BQ, BN] tile (_extract_block_topk,
@@ -12,6 +12,11 @@
 // among equal values, after which only the winning lane rescans its
 // columns.  Ties therefore go to the smallest row, as lax.top_k does, and
 // the comparison is on exact float32 values (no packed keys).
+//
+// Three variants beside it: select_block_topk_fast, the packed keys of
+// kernel 3 (_extract_block_topk_fast, topk.py:301-342); merge_topk_ids,
+// which carries explicit ids for kernel 4's running top-k; and the
+// merge of sorted lists in fused_topk.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -126,6 +131,152 @@ __device__ void select_block_topk(float* scores, int bn, int q0, int q,
   select_topk(scores, bn, bn, nrows, row0, k,
               [=](int ql) { return (static_cast<size_t>(q0 + ql) * nb + blk) * k; },
               out_v, out_i);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3: packed-key selection (_extract_block_topk_fast).  The score's
+// bits become a totally ordered int32 key (the sign flip below), and the
+// low lane_bits = max(10, bit_length(bn - 1)) bits are replaced by
+// lm - column, so every key is unique and ties go to the smallest column.
+// A round is one __reduce_max_sync; the winning column falls out of the
+// key's low bits, and its value is the key's window top (m | lm) with the
+// flip inverted: quantized upward, as on the TPU.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int flip_key(int bits) {  // an involution
+  return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ int lane_best_key(const int* keys, int ncols, int lane) {
+  int best = INT_MIN;
+  for (int c = lane; c < ncols; c += 32) best = max(best, keys[c]);
+  return best;
+}
+
+// As select_block_topk, with packed keys; requires k <= bn <= 2048.  The
+// tile is turned into keys in place.  A slot past the valid rows holds
+// -inf and the column its key decodes to, as the TPU kernel writes it.
+// Kept out of line: inlined into the kernel, it changed how the compiler
+// scheduled the scoring loop before it, and kernel 3 ran 43 % slower than
+// kernel 1 at batches 1 and 8 (5.56 against 3.88 ms at 1M x 1536, H100);
+// out of line the two take the same time there.
+template <int BQ>
+__device__ __noinline__ void select_block_topk_fast(float* scores, int bn, int q0, int q, int blk,
+                                       int nb, int row0, int k,
+                                       float* __restrict__ out_v,
+                                       int* __restrict__ out_i) {
+  const int lane_bits = max(10, 32 - __clz(bn - 1));
+  const int lm = (1 << lane_bits) - 1;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+  for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
+    int* keys = reinterpret_cast<int*>(scores + ql * bn);
+    // each lane keys, and later rescans, only its own columns
+    for (int c = lane; c < bn; c += 32)
+      keys[c] = (flip_key(__float_as_int(scores[ql * bn + c])) & ~lm) | (lm - c);
+    int best = lane_best_key(keys, bn, lane);
+    const size_t first = (static_cast<size_t>(q0 + ql) * nb + blk) * k;
+    for (int slot = 0; slot < k; ++slot) {
+      const int m = __reduce_max_sync(0xffffffffu, best);
+      const int col = lm - (m & lm);
+      if (lane == 0) {
+        out_v[first + slot] = __int_as_float(flip_key(m | lm));
+        out_i[first + slot] = row0 + col;
+      }
+      if (lane == (col & 31) && col < bn) {  // keys are unique: one owner
+        keys[col] = INT_MIN;
+        best = lane_best_key(keys, bn, lane);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Selection with explicit ids (kernel 4).  The candidates of one warp are
+// the list av/ai[0, na) and the score row b[0, ncols) with ids b0 + column;
+// the order is value descending, then id ascending, and -inf never wins.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool better_id(float v, int id, float bv, int bid) {
+  return v > bv || (v == bv && v != -CUDART_INF_F && id < bid);
+}
+
+// Best live candidate among the entries lane, lane + 32, ... of both lists;
+// pos is its position (list first, then na + column), -1 when none.
+__device__ __forceinline__ void lane_best_ids(const float* av, const int* ai, int na,
+                                              const float* b, int ncols, int b0,
+                                              int lane, float& bv, int& bid, int& pos) {
+  bv = -CUDART_INF_F;
+  bid = INT_MAX;
+  pos = -1;
+  for (int s = lane; s < na; s += 32)
+    if (better_id(av[s], ai[s], bv, bid)) {
+      bv = av[s];
+      bid = ai[s];
+      pos = s;
+    }
+  for (int c = lane; c < ncols; c += 32)
+    if (better_id(b[c], b0 + c, bv, bid)) {
+      bv = b[c];
+      bid = b0 + c;
+      pos = na + c;
+    }
+}
+
+// The warp's best (value, id) of the lanes' candidates: a five-step butterfly.
+__device__ __forceinline__ void warp_best_id(float& v, int& id) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, id, off);
+    if (better(ov, oi, v, id)) {  // a lane with no candidate holds (-inf, INT_MAX)
+      v = ov;
+      id = oi;
+    }
+  }
+}
+
+// One warp replaces the list av/ai[0, k) (k <= 64) with the top-k of the list
+// and the score row b (ids b0 + column).  Ids must be unique among live
+// entries.  Both inputs are consumed.  Empty slots hold -inf and INT_MAX.
+__device__ __forceinline__ void merge_topk_ids(float* av, int* ai, int k, float* b, int ncols, int b0) {
+  const int lane = threadIdx.x % 32;
+  float bv;
+  int bid, pos;
+  lane_best_ids(av, ai, k, b, ncols, b0, lane, bv, bid, pos);
+  // this lane's result slots, lane and lane + 32, kept in registers
+  float keep_v0 = -CUDART_INF_F, keep_v1 = -CUDART_INF_F;
+  int keep_i0 = INT_MAX, keep_i1 = INT_MAX;
+  for (int slot = 0; slot < k; ++slot) {
+    float wv = bv;
+    int wid = bid;
+    warp_best_id(wv, wid);
+    if (slot == lane) {
+      keep_v0 = wv;
+      keep_i0 = wid;
+    } else if (slot == lane + 32) {
+      keep_v1 = wv;
+      keep_i1 = wid;
+    }
+    if (pos >= 0 && bid == wid && bv == wv) {  // the owner: eliminate, rescan
+      if (pos < k)
+        av[pos] = -CUDART_INF_F;
+      else
+        b[pos - k] = -CUDART_INF_F;
+      lane_best_ids(av, ai, k, b, ncols, b0, lane, bv, bid, pos);
+    }
+  }
+  __syncwarp();  // every lane is done reading the old list
+  if (lane < k) {
+    av[lane] = keep_v0;
+    ai[lane] = keep_i0;
+  }
+  if (lane + 32 < k) {
+    av[lane + 32] = keep_v1;
+    ai[lane + 32] = keep_i1;
+  }
+  __syncwarp();
 }
 
 }  // namespace pse

@@ -1,0 +1,215 @@
+// Kernel 4: the fused running top-k scan (float32 or bfloat16 corpus).
+//
+// Replaces: _topk_kernel (photo_search_engine_tpu/ops/topk.py:483-556),
+// launched there by _pallas_impl (:563-630), exact_search(impl=
+// "pallas_fused").  On the TPU one grid row walks every corpus block in
+// order for its query tile, keeps the top-k in VMEM scratch, and merges a
+// block only when the block's best score reaches the running k-th value;
+// no [Q, NB, k] partials reach HBM.
+//
+// What bounds it on the H100: the same work as kernel 1.  At 1M x 1536 bf16
+// every batch reads the 3.1 GB corpus (about 0.92 ms at 3.35 TB/s); at
+// batch 128 the product is 0.39 TFLOP of f32 FMAs (5.9 ms at 67 TFLOP/s).
+//
+// What the design does about it: Hopper runs CTAs in parallel and in no
+// order, and one CTA per query tile would keep 1 of 132 SMs busy at batch 1,
+// so the sequential grid is not copied.  The grid is (query tile, range):
+// each range is a contiguous run of blocks, with enough ranges to fill every
+// CTA slot of the SMs once (by shared memory), at least two CTAs per SM
+// (topk.fused_ranges).  A CTA scores its blocks one after the other with
+// kernel 1's scoring loop (block_score.cuh, the same accumulation order, so the
+// scores are kernel 1's bit for bit) and keeps a [BQ, k] running top-k
+// (values and row ids) in shared memory.  Each query merges a block only
+// when its own block maximum reaches its running k-th value, a finer skip
+// than the TPU's whole-tile test with the same result.  Running entries
+// hold smaller rows than the block, and the merge orders by (value, row id),
+// so ties still go to the smallest row.  The second kernel merges the
+// [Q, S, k] range partials to [Q, k] on the card (ties to the smallest row
+// id), one warp per query walking the heads of the S sorted lists.
+//
+// Outputs: the [Q, S, k] range partials and the [Q, k] result, float32
+// scores (higher is better; l2 as -(|q|^2 + |c|^2 - 2 q.c)) and int32 row
+// ids, padded with -inf and INT_MAX.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "block_score.cuh"
+#include "block_select.cuh"
+
+namespace {
+
+using namespace pse;
+
+// Each query row of the block's score tile merges into its running top-k,
+// one warp per row, unless the block cannot displace the row's k-th entry.
+// Kept out of line, as kernel 3's selection is (block_select.cuh): inlined,
+// it changed how the compiler scheduled the scoring loop, and this kernel
+// took 48.9 ms at batch 128 (1M x 1536 bf16, top-50, H100), 46.7 out of
+// line.  Ranges of 15 blocks rarely let a query skip a block: the k-th of
+// 15K rows is seldom above a block's best.
+__device__ __noinline__ void merge_block(float* scores, int bn, int nrows, int k, int row0,
+                                         float* run_v, int* run_i) {
+  const int lane = threadIdx.x % 32;
+  for (int ql = threadIdx.x / 32; ql < nrows; ql += kWarps) {  // warp-uniform
+    float* row = scores + ql * bn;
+    float bmax = -CUDART_INF_F;
+    for (int c = lane; c < bn; c += 32) bmax = fmaxf(bmax, row[c]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
+    // the block cannot displace the query's running k-th entry: skip it
+    if (bmax == -CUDART_INF_F || bmax < run_v[ql * k + k - 1]) continue;
+    merge_topk_ids(run_v + ql * k, run_i + ql * k, k, row, bn, row0);
+  }
+}
+
+template <typename T, int BQ>
+__global__ void __launch_bounds__(kThreads)
+fused_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
+                  const float* __restrict__ qnorms, const float* __restrict__ cnorms,
+                  const int8_t* __restrict__ mask, float* __restrict__ part_v,
+                  int* __restrict__ part_i, int n, int d, int q, int count, int k, int bn,
+                  int l2, int blocks_per_range) {
+  extern __shared__ float smem[];
+  float* run_v = smem + score_smem_floats<BQ>(bn);       // [BQ][k], after the score tile
+  int* run_i = reinterpret_cast<int*>(run_v + BQ * k);   // [BQ][k]
+  const int q0 = blockIdx.x * BQ;
+  const int range = blockIdx.y;
+  const int nb = (n + bn - 1) / bn;
+  const int b_end = min(nb, (range + 1) * blocks_per_range);
+  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+
+  for (int e = threadIdx.x; e < BQ * k; e += kThreads) {
+    run_v[e] = -CUDART_INF_F;
+    run_i[e] = INT_MAX;
+  }
+  for (int blk = range * blocks_per_range; blk < b_end; ++blk) {
+    const int row0 = blk * bn;
+    score_block<T, BQ, false>(corpus, queries, qnorms, cnorms, mask, Predicates{}, smem, n, d,
+                              q, count, bn, l2, q0, row0);
+    __syncthreads();
+    merge_block(smem, bn, nrows, k, row0, run_v, run_i);
+    __syncthreads();  // the tile and the staging are rewritten next
+  }
+  for (int e = threadIdx.x; e < nrows * k; e += kThreads) {
+    const int ql = e / k, s = e % k;
+    const size_t out = (static_cast<size_t>(q0 + ql) * gridDim.y + range) * k + s;
+    part_v[out] = run_v[e];
+    part_i[out] = run_i[e];
+  }
+}
+
+// One warp per query merges its S range lists (each sorted by value
+// descending, then id ascending) to the top-k: lane l owns ranges l, l + 32,
+// ...; a round picks the best head by the butterfly and its owner advances
+// that list.  heads: [kWarps][S] ints of shared memory.
+__global__ void __launch_bounds__(kThreads)
+fused_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                   float* __restrict__ out_v, int* __restrict__ out_i, int q, int s,
+                   int k) {
+  extern __shared__ int heads[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = blockIdx.x * kWarps + warp;
+  if (gq >= q) return;  // warp-uniform, and no block barrier follows
+  int* head = heads + warp * s;
+  for (int r = lane; r < s; r += 32) head[r] = 0;
+  __syncwarp();
+  const float* pv = part_v + static_cast<size_t>(gq) * s * k;
+  const int* pi = part_i + static_cast<size_t>(gq) * s * k;
+
+  auto lane_best = [&](float& bv, int& bid, int& br) {
+    bv = -CUDART_INF_F;
+    bid = INT_MAX;
+    br = -1;
+    for (int r = lane; r < s; r += 32) {
+      if (head[r] >= k) continue;
+      const float v = pv[r * k + head[r]];
+      const int id = pi[r * k + head[r]];
+      if (better_id(v, id, bv, bid)) {
+        bv = v;
+        bid = id;
+        br = r;
+      }
+    }
+  };
+  float bv;
+  int bid, br;
+  lane_best(bv, bid, br);
+  for (int slot = 0; slot < k; ++slot) {
+    float wv = bv;
+    int wid = bid;
+    warp_best_id(wv, wid);
+    if (lane == 0) {
+      out_v[static_cast<size_t>(gq) * k + slot] = wv;
+      out_i[static_cast<size_t>(gq) * k + slot] = wid;
+    }
+    if (br >= 0 && bid == wid && bv == wv) {  // the owner advances its list
+      ++head[br];
+      lane_best(bv, bid, br);
+    }
+  }
+}
+
+template <typename T, int BQ>
+cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
+                const void* cnorms, const void* mask, void* part_v, void* part_i,
+                void* out_v, void* out_i, int n, int d, int q, int count, int k, int bn,
+                int l2, int ranges, int blocks_per_range, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (score_smem_floats<BQ>(bn) + 2 * static_cast<size_t>(BQ) * k);
+  auto kernel = fused_topk_kernel<T, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that the next launch does not report it
+    return err;
+  }
+  kernel<<<dim3((q + BQ - 1) / BQ, ranges), kThreads, smem, stream>>>(
+      static_cast<const T*>(corpus), static_cast<const T*>(queries),
+      static_cast<const float*>(qnorms), static_cast<const float*>(cnorms),
+      static_cast<const int8_t*>(mask), static_cast<float*>(part_v),
+      static_cast<int*>(part_i), n, d, q, count, k, bn, l2, blocks_per_range);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t merge_smem = sizeof(int) * kWarps * static_cast<size_t>(ranges);
+  fused_merge_kernel<<<(q + kWarps - 1) / kWarps, kThreads, merge_smem, stream>>>(
+      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), q, ranges, k);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
+             const void* mask, void* part_v, void* part_i, void* out_v, void* out_i, int n,
+             int d, int q, int count, int k, int bn, int l2, int ranges,
+             int blocks_per_range, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (q <= 8)
+    return run<T, 8>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n, d,
+                     q, count, k, bn, l2, ranges, blocks_per_range, s);
+  return run<T, 32>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n, d,
+                    q, count, k, bn, l2, ranges, blocks_per_range, s);
+}
+
+}  // namespace
+
+// part_v/part_i: [q][ranges][k]; out_v/out_i: [q][k].  Range r covers blocks
+// [r * blocks_per_range, (r + 1) * blocks_per_range) of `bn` rows.
+extern "C" int pse_fused_topk_f32(const void* corpus, const void* queries, const void* qnorms,
+                                  const void* cnorms, const void* mask, void* part_v,
+                                  void* part_i, void* out_v, void* out_i, int n, int d, int q,
+                                  int count, int k, int bn, int l2, int ranges,
+                                  int blocks_per_range, void* stream) {
+  return dispatch<float>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n,
+                         d, q, count, k, bn, l2, ranges, blocks_per_range, stream);
+}
+
+extern "C" int pse_fused_topk_bf16(const void* corpus, const void* queries, const void* qnorms,
+                                   const void* cnorms, const void* mask, void* part_v,
+                                   void* part_i, void* out_v, void* out_i, int n, int d, int q,
+                                   int count, int k, int bn, int l2, int ranges,
+                                   int blocks_per_range, void* stream) {
+  return dispatch<__nv_bfloat16>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v,
+                                 out_i, n, d, q, count, k, bn, l2, ranges, blocks_per_range,
+                                 stream);
+}

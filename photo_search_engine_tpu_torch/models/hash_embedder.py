@@ -18,7 +18,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from photo_search_engine_tpu.core.keyword_index import tokenize
+from photo_search_engine_tpu_torch.core.keyword_index import tokenize
 
 _SUBLINEAR = True
 

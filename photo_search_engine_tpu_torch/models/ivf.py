@@ -11,9 +11,8 @@ Counterpart of ``photo_search_engine_tpu/models/ivf.py``:
   them (a stable sort; ``torch.topk`` promises no order).
 * :func:`balanced_layout` — every cluster gets ``L`` slots (slack × the
   mean size); overflow rows spill to their next-nearest cluster with
-  room.  It runs in the JAX package's native C++ core
-  (``photo_search_engine_tpu.native``, which imports no jax), with the
-  same Python fallback.
+  room.  It runs in the native C++ host library (``native/``, a copy of
+  the JAX package's), with the same Python fallback.
 * :class:`IVFIndex` — the cluster-major layout on the device.  A search
   picks each query's ``nprobe`` clusters (stage 1, :meth:`IVFIndex._probe`)
   and scans only those (stage 2, kernel 7 in ``ops/ivf_scan.py``).  The
@@ -43,11 +42,11 @@ from photo_search_engine_tpu_torch.ops import ivf_scan
 from photo_search_engine_tpu_torch.ops.quantized import (
     INT8_MAX_K,
     quantize_rows,
-    rescore_pool,
     resolve_store_quantized,
 )
 from photo_search_engine_tpu_torch.ops.topk import (
     merge_partials,
+    rescore_pool,
     resolve_store_dtype,
     row_sq_norms,
     stable_topk,
@@ -200,7 +199,7 @@ def balanced_layout(ranked: np.ndarray, nlist: int, slack: float = 1.5) -> Tuple
 def _native_layout(ranked, n, nlist, capacity) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
     """The placement in ``native/src/ivf_layout.cc`` (about 100× the
     Python loop at 1M rows), or None when the library is unavailable."""
-    from photo_search_engine_tpu.native import get_library
+    from photo_search_engine_tpu_torch.native import get_library
 
     lib = get_library()
     if lib is None or n == 0:

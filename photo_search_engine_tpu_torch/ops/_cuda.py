@@ -46,6 +46,12 @@ _SIGNATURES = {
     "pse_ivf_topk_f32": (11, 9),
     "pse_ivf_topk_bf16": (11, 9),
     "pse_ivf_topk_int8": (11, 9),
+    "pse_fast_block_topk_f32": (7, 7),
+    "pse_fast_block_topk_bf16": (7, 7),
+    "pse_fast_grouped_block_topk_f32": (6, 7),
+    "pse_fast_grouped_block_topk_bf16": (6, 7),
+    "pse_fused_topk_f32": (9, 9),
+    "pse_fused_topk_bf16": (9, 9),
 }
 
 _lock = threading.Lock()

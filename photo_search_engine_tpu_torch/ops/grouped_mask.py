@@ -19,7 +19,15 @@ predicate row.  Inner product only, as in the JAX package.
   its own predicate row in the epilogue, where the TPU kernel used a
   one-hot ``[BQ, M] × [M, BN]`` product on the MXU.
 * phase B — the stable merge of kernel 1 (``merge_partials``).
+* :func:`fast_grouped_block_topk` — kernel 3 through kernel 5's body
+  (``grouped_mask_search(impl="pallas_fast")``): the packed-key selection,
+  then the exact rescore of the k winners (inner product, as JAX's
+  ``grouped_mask.py:276-285``).
 
+``impl`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
+``"pallas_fused"`` run kernel 5 (the JAX function has no fused grouped
+scan: ``pallas_fused`` takes its two-phase kernel), ``"pallas_fast"``
+kernel 3, ``"lax"`` :func:`grouped_mask_plain`; any other value raises.
 k > 64 takes :func:`grouped_mask_plain`, exact like the JAX oracle.  The
 JAX store sends large k on big corpora to ApproxTopK
 (``grouped_approx_large_k``), a TPU choice; off the TPU that computes the
@@ -38,13 +46,16 @@ import torch
 from photo_search_engine_tpu_torch.ops import _cuda
 from photo_search_engine_tpu_torch.ops.topk import (
     DEFAULT_BLOCK_N,
+    FAST_MAX_BN,
     MAX_KERNEL_K,
     _empty,
     _finalize,
+    check_impl,
     mask_scores,
     merge_partials,
     plain_block_topk,
     plain_topk,
+    rescore_pool,
     score_chunk,
 )
 
@@ -121,12 +132,54 @@ def grouped_block_topk_plain(
     *,
     count: int,
     block_n: int = DEFAULT_BLOCK_N,
+    fast: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel 5, with kernel 1's outputs:
-    ``[Q, NB, k]`` float32 inner products and int32 global row ids, ties
-    to the smallest row, slots with no valid row ``-inf`` and ``INT_MAX``."""
+    """Plain PyTorch version of kernel 5 (``fast``: of kernel 3 through
+    kernel 5's body), with kernel 1's outputs: ``[Q, NB, k]`` float32 inner
+    products (``fast``: quantized) and int32 global row ids, ties to the
+    smallest row, slots with no valid row ``-inf`` and ``INT_MAX``
+    (``fast``: see ``topk.packed_key_topk_plain``)."""
     score_rows = _grouped_score_rows(corpus, queries.float(), count, mask_table, mask_ids)
-    return plain_block_topk(score_rows, corpus.shape[0], queries.shape[0], k, block_n, corpus.device)
+    return plain_block_topk(score_rows, corpus.shape[0], queries.shape[0], k, block_n, corpus.device, fast=fast)
+
+
+def fast_grouped_block_topk_plain(corpus, queries, mask_table, mask_ids, k, *, count,
+                                  block_n=DEFAULT_BLOCK_N) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of grouped kernel 3."""
+    return grouped_block_topk_plain(corpus, queries, mask_table, mask_ids, k, count=count,
+                                    block_n=block_n, fast=True)
+
+
+def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, count, block_n):
+    """Checks and launch of kernel 5 (``fast``: grouped kernel 3) on CUDA tensors."""
+    if corpus.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {corpus.device}")
+    if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
+        raise ValueError(f"{name}: corpus must be [N, D] float32 or bfloat16, got {corpus.dtype}")
+    (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
+    m = mask_table.shape[0]
+    _cuda.require(f"{name} corpus", corpus, dev, corpus.dtype, (n, d))
+    _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
+    _cuda.require(f"{name} mask_table", mask_table, dev, torch.int8, (m, n))
+    _cuda.require(f"{name} mask_ids", mask_ids, dev, torch.int32, (q,))
+    if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
+        raise ValueError(f"{name}: n={n}, q={q}, k={k} outside the kernel's range")
+    if fast and block_n > FAST_MAX_BN:
+        raise ValueError(f"{name}: block_n={block_n} above the packed keys' {FAST_MAX_BN}")
+    nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
+    out_v = torch.empty((q, nb, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+    prefix = "pse_fast_grouped_block_topk" if fast else "pse_grouped_block_topk"
+    fn = getattr(lib, f"{prefix}_bf16" if corpus.dtype == torch.bfloat16 else f"{prefix}_f32")
+    err = fn(
+        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(mask_table), _cuda.ptr(mask_ids),
+        _cuda.ptr(out_v), _cuda.ptr(out_i),
+        n, d, q, int(min(count, n)), k, block_n, m,
+        _cuda.stream(dev),
+    )
+    _cuda.check(err, name)
+    return out_v, out_i
 
 
 def grouped_block_topk(
@@ -151,35 +204,40 @@ def grouped_block_topk(
         return grouped_block_topk_plain(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
         )
-    if corpus.device.type != "cuda":
-        raise ValueError(f"grouped_block_topk: unsupported device {corpus.device}")
-    if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
-        raise ValueError(f"grouped_block_topk: corpus must be [N, D] float32 or bfloat16, got {corpus.dtype}")
-    (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
-    m = mask_table.shape[0]
-    _cuda.require("grouped_block_topk corpus", corpus, dev, corpus.dtype, (n, d))
-    _cuda.require("grouped_block_topk queries", queries, dev, corpus.dtype, (q, d))
-    _cuda.require("grouped_block_topk mask_table", mask_table, dev, torch.int8, (m, n))
-    _cuda.require("grouped_block_topk mask_ids", mask_ids, dev, torch.int32, (q,))
-    if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
-        raise ValueError(f"grouped_block_topk: n={n}, q={q}, k={k} outside the kernel's range")
-    nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
-    out_v = torch.empty((q, nb, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
-    lib = _cuda.library()
-    fn = lib.pse_grouped_block_topk_bf16 if corpus.dtype == torch.bfloat16 else lib.pse_grouped_block_topk_f32
-    err = fn(
-        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(mask_table), _cuda.ptr(mask_ids),
-        _cuda.ptr(out_v), _cuda.ptr(out_i),
-        n, d, q, int(min(count, n)), k, block_n, m,
-        _cuda.stream(dev),
-    )
-    _cuda.check(err, "grouped_block_topk")
+    out = _launch_grouped_scan("grouped_block_topk", False, corpus, queries, mask_table, mask_ids, k,
+                               count, block_n)
     grouped_block_topk.launches += 1
-    return out_v, out_i
+    return out
 
 
 grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+
+
+def fast_grouped_block_topk(
+    corpus: torch.Tensor,
+    queries: torch.Tensor,
+    mask_table: torch.Tensor,
+    mask_ids: torch.Tensor,
+    k: int,
+    *,
+    count: int,
+    block_n: int = DEFAULT_BLOCK_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped kernel 3: kernel 5 with packed-key selection (``block_n <=
+    2048``).  Inputs as :func:`grouped_block_topk`; the partial values are
+    quantized.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if corpus.device.type == "cpu":
+        return fast_grouped_block_topk_plain(
+            corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
+        )
+    out = _launch_grouped_scan("fast_grouped_block_topk", True, corpus, queries, mask_table, mask_ids,
+                               k, count, block_n)
+    fast_grouped_block_topk.launches += 1
+    return out
+
+
+fast_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
 
 
 def predicate_inputs(mask_table: torch.Tensor, mask_ids: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,13 +260,17 @@ def grouped_mask_search(
     k: int,
     *,
     count: Optional[int] = None,
+    impl: str = "auto",
     block_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched per-query filtered top-k (inner product) over ``corpus``
     ``[N, D]`` for ``queries`` ``[Q, D]``, ``mask_table`` ``[M, N]`` and
-    ``mask_ids`` ``[Q]``.  k ≤ 64 runs kernel 5 and the stable merge;
-    larger k runs :func:`grouped_mask_plain`.  Returns FAISS-style
-    ``(distances desc [Q, k], indices [Q, k] int32)``, -1 in empty slots."""
+    ``mask_ids`` ``[Q]``.  For k ≤ 64, ``impl`` picks the scan (module
+    docstring): kernel 5 and the stable merge, or kernel 3 and the exact
+    rescore (``"pallas_fast"``); ``"lax"`` and larger k run
+    :func:`grouped_mask_plain`.  Returns FAISS-style ``(distances desc
+    [Q, k], indices [Q, k] int32)``, -1 in empty slots."""
+    check_impl(impl)
     queries = torch.atleast_2d(queries)
     n = corpus.shape[0]
     k = min(k, n) if n else 0
@@ -216,11 +278,14 @@ def grouped_mask_search(
         return _empty(queries.shape[0], corpus.device)
     table, ids = predicate_inputs(mask_table, mask_ids, corpus.device)
     count = n if count is None else int(count)
-    if k > MAX_KERNEL_K:
+    if impl == "lax" or k > MAX_KERNEL_K:
         return grouped_mask_plain(corpus, queries, table, ids, k, count=count)
     bn = block_n or DEFAULT_BLOCK_N
-    part_v, part_i = grouped_block_topk(
-        corpus.contiguous(), queries.to(corpus.dtype).contiguous(), table, ids,
-        min(k, bn), count=count, block_n=bn,
-    )
+    corpus = corpus.contiguous()
+    queries = queries.to(corpus.dtype).contiguous()
+    if impl == "pallas_fast":
+        bn = min(bn, FAST_MAX_BN)
+        part_v, part_i = fast_grouped_block_topk(corpus, queries, table, ids, min(k, bn), count=count, block_n=bn)
+        return _finalize(*rescore_pool(part_v, part_i, corpus, queries.float(), k, cand=k, metric="ip"), "ip")
+    part_v, part_i = grouped_block_topk(corpus, queries, table, ids, min(k, bn), count=count, block_n=bn)
     return _finalize(*merge_partials(part_v, part_i, k), "ip")

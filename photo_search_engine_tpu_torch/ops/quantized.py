@@ -36,8 +36,8 @@ from photo_search_engine_tpu_torch.ops.topk import (
     exact_search,
     mask_scores,
     plain_block_topk,
+    rescore_pool,
     row_sq_norms,
-    stable_topk,
 )
 
 INT8_MAX_K = 64  # larger k takes the full-precision exact path
@@ -300,32 +300,6 @@ def int8_rescore_search(
         mask=mask, cnorms=cnorms, block_n=block_n,
     )
     return rescore_pool(part_v, part_i, corpus_ref, queries, k, cand=cand, metric=metric)
-
-
-def rescore_pool(part_v, part_i, corpus_ref, queries, k, *, cand, metric):
-    """The int8 tier's tail (JAX ``quantized.py`` :311-336 and :440-457):
-    merge the scan's per-block partials to the ``cand`` pool and rescore
-    the pool exactly against ``corpus_ref``.  Kernel-space values (higher
-    is better) and int32 row ids; slots that found no row hold ``-inf``."""
-    n = corpus_ref.shape[0]
-    # the pool is a superset filter: quantized order is enough here
-    nq = queries.shape[0]
-    pool = min(cand, part_v.shape[1] * part_v.shape[2])
-    cv, pos = stable_topk(part_v.reshape(nq, -1), pool)
-    ci = torch.gather(part_i.reshape(nq, -1), 1, pos)
-    live = ~torch.isneginf(cv)
-    # exact rescore at reference precision: widen the gathered rows to f32
-    # (bf16 is exact in f32), queries cast to the reference dtype first
-    rows = corpus_ref[torch.clamp(ci, 0, n - 1).long()].float()  # [Q, pool, D]
-    qref = queries.to(corpus_ref.dtype).float()
-    exact = torch.einsum("qd,qcd->qc", qref, rows)
-    if metric == "l2":
-        qn = (queries * queries).sum(dim=1, keepdim=True)
-        cn = (rows * rows).sum(dim=2)
-        exact = -(qn + cn - 2.0 * exact)
-    exact = torch.where(live, exact, float("-inf"))
-    vals, order = stable_topk(exact, k)
-    return vals, torch.gather(ci, 1, order)
 
 
 def int8_search(

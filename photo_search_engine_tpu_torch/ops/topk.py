@@ -1,15 +1,26 @@
-"""Exact corpus scan + top-k: kernel 1 and its host contract.
+"""Exact corpus scan + top-k: kernels 1, 3 and 4 and their host contract.
 
-Counterpart of ``photo_search_engine_tpu/ops/topk.py``.  The flat scan is
-two-phase, as on the TPU:
+Counterpart of ``photo_search_engine_tpu/ops/topk.py``.  :func:`exact_search`
+takes the JAX package's ``impl`` values:
 
-* phase A, :func:`block_topk` — the hand-written CUDA kernel
-  ``csrc/block_topk.cu`` (port of ``_block_topk_kernel`` with
-  ``fast=False``).  For every block of ``block_n`` corpus rows it scores
-  the queries and keeps the block's top-k, ties to the smallest row.
-* phase B — a stable descending sort over the ``[Q, NB·k]`` partials.
-  Blocks are laid out in ascending row order, so equal scores keep the
-  smallest index, which makes the result identical to a full sort.
+* ``"auto"`` / ``"pallas"`` — the two-phase scan, as on the TPU.  Phase A,
+  :func:`block_topk`, is kernel 1 (``csrc/block_topk.cu``, port of
+  ``_block_topk_kernel`` with ``fast=False``): for every block of
+  ``block_n`` corpus rows it scores the queries and keeps the block's
+  top-k, ties to the smallest row.  Phase B is a stable descending sort
+  over the ``[Q, NB·k]`` partials.  Blocks are laid out in ascending row
+  order, so equal scores keep the smallest index, which makes the result
+  identical to a full sort.
+* ``"pallas_fast"`` — kernel 3, :func:`fast_block_topk` (kernel 1 with the
+  packed-key selection of ``_extract_block_topk_fast``, ``block_n`` at most
+  2048): the partials hold quantized scores, so after the merge the k
+  winners are rescored exactly and re-sorted (:func:`rescore_pool`).
+* ``"pallas_fused"`` — kernel 4, :func:`fused_topk` (``csrc/fused_topk.cu``,
+  port of ``_topk_kernel``): a running top-k over contiguous ranges of
+  blocks, the range partials merged on the card.
+* ``"lax"`` — :func:`exact_search_plain`.
+
+Any other ``impl`` raises.
 
 Contract (FAISS flat conventions, as in the JAX package): ``ip``/
 ``cosine`` distances are inner products sorted descending; ``l2``
@@ -17,7 +28,7 @@ distances are squared distances sorted ascending; an empty slot holds
 index ``-1`` and ``-inf`` (``+inf`` for l2); ``count`` masks rows past
 the live count; ``mask`` excludes rows where it is ``<= 0``.
 
-For ``k > 64`` the scan leaves the kernel for :func:`exact_search_plain`:
+For ``k > 64`` every ``impl`` takes :func:`exact_search_plain`:
 a row-chunked float32 product plus a stable top-k, exact like the JAX
 oracle.  (The JAX store's ApproxTopK route at large k was a TPU choice.)
 """
@@ -32,6 +43,11 @@ from photo_search_engine_tpu_torch.ops import _cuda
 
 MAX_KERNEL_K = 64
 DEFAULT_BLOCK_N = 1024  # corpus rows per kernel-1 block
+FAST_MAX_BN = 2048  # packed lane ids carry at most 11 bits
+IMPLS = ("auto", "pallas", "pallas_fast", "pallas_fused", "lax")
+FUSED_MIN_CTAS_PER_SM = 2  # kernel 4's ranges: at least two CTAs per SM
+SM_SHARED_BYTES = 233472  # shared memory of one H100 SM (228 KB)
+H100_SMS = 132  # SMs assumed when no card is asked (the plain version)
 _INT_MAX = torch.iinfo(torch.int32).max
 _PLAIN_ROWS = 65536  # rows per chunk of the plain scans (bounds the f32 temp)
 
@@ -121,11 +137,38 @@ def score_chunk(corpus_chunk, queries_f32, qn, metric, cn=None):
 # ---------------------------------------------------------------------------
 
 
-def plain_block_topk(score_rows, n, nq, k, block_n, device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _flip_key(bits: torch.Tensor) -> torch.Tensor:
+    """The sign flip of the packed keys (an involution on int32): float
+    order becomes int32 order."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def packed_key_topk_plain(scores: torch.Tensor, col_base, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of the float32 score tile ``scores`` ``[..., bn]``
+    by packed keys, bit for bit as JAX's ``_extract_block_topk_fast``
+    (``topk.py:301-342``): each score's bits become a totally ordered
+    int32 key whose low ``max(10, bit_length(bn - 1))`` bits are replaced
+    by ``lm - lane``, so keys are unique and ties go to the smallest lane.
+    Values are the winning keys' window tops with the flip inverted
+    (quantized upward); ids are ``col_base + lane``, also for ``-inf``
+    slots.  Requires ``k <= bn <= 2048``."""
+    bn = scores.shape[-1]
+    if bn > FAST_MAX_BN or not 1 <= k <= bn:
+        raise ValueError(f"packed-key extraction requires k <= bn <= {FAST_MAX_BN}, got k={k}, bn={bn}")
+    lm = (1 << max(10, (bn - 1).bit_length())) - 1
+    lane = torch.arange(bn, dtype=torch.int32, device=scores.device)
+    keys = (_flip_key(scores.contiguous().view(torch.int32)) & ~lm) | (lm - lane)
+    top = torch.topk(keys, k, dim=-1).values  # unique keys: the k rounds of max
+    vals = _flip_key(top | lm).view(torch.float32)
+    return vals, (col_base + (lm - (top & lm))).to(torch.int32)
+
+
+def plain_block_topk(score_rows, n, nq, k, block_n, device, *, fast=False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each ``block_n``-row block's top-k of the scores ``score_rows(start,
     stop)`` gives for rows ``[start, stop)`` (invalid rows already ``-inf``):
     ``[Q, NB, k]`` values and int32 global row ids, ties to the smallest row,
-    slots with no valid row ``-inf`` and ``INT_MAX``.  Scores are made in
+    slots with no valid row ``-inf`` and ``INT_MAX``.  ``fast`` selects by
+    :func:`packed_key_topk_plain` instead (kernel 3).  Scores are made in
     chunks of whole blocks, which bounds the float32 temporary."""
     nb = -(-n // block_n)
     kk = min(k, block_n)
@@ -138,12 +181,16 @@ def plain_block_topk(score_rows, n, nq, k, block_n, device) -> Tuple[torch.Tenso
         scores = torch.nn.functional.pad(
             score_rows(start, stop), (0, blocks * block_n - (stop - start)), value=float("-inf")
         )
-        vals, pos = stable_topk(scores.reshape(nq, blocks, block_n), kk)
-        first_row = start + block_n * torch.arange(blocks, dtype=torch.int32, device=device)
-        rows = pos.to(torch.int32) + first_row[None, :, None]
+        scores = scores.reshape(nq, blocks, block_n)
+        first_row = (start + block_n * torch.arange(blocks, dtype=torch.int32, device=device))[None, :, None]
+        if fast:
+            vals, rows = packed_key_topk_plain(scores, first_row, kk)
+        else:
+            vals, pos = stable_topk(scores, kk)
+            rows = torch.where(torch.isneginf(vals), _INT_MAX, pos.to(torch.int32) + first_row)
         b0 = start // block_n
         out_v[:, b0 : b0 + blocks, :kk] = vals
-        out_i[:, b0 : b0 + blocks, :kk] = torch.where(torch.isneginf(vals), _INT_MAX, rows)
+        out_i[:, b0 : b0 + blocks, :kk] = rows
     return out_v, out_i
 
 
@@ -157,11 +204,12 @@ def exact_block_topk_plain(
     mask: Optional[torch.Tensor] = None,
     cnorms: Optional[torch.Tensor] = None,
     block_n: int = DEFAULT_BLOCK_N,
+    fast: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel 1, with the same outputs: each
-    block's top-k float32 scores (higher is better; l2 as
-    ``-(|q|²+|c|²-2q·c)``) and int32 global row ids, as in
-    :func:`plain_block_topk`."""
+    """Plain PyTorch version of kernel 1 (``fast``: of kernel 3), with the
+    same outputs: each block's top-k float32 scores (higher is better; l2
+    as ``-(|q|²+|c|²-2q·c)``; kernel 3: quantized) and int32 global row
+    ids, as in :func:`plain_block_topk`."""
     qf = queries.float()
     qn = (qf * qf).sum(dim=1)
 
@@ -169,7 +217,53 @@ def exact_block_topk_plain(
         cn = None if cnorms is None else cnorms[start:stop]
         return mask_scores(score_chunk(corpus[start:stop], qf, qn, metric, cn), start, stop, count, mask)
 
-    return plain_block_topk(score_rows, corpus.shape[0], qf.shape[0], k, block_n, corpus.device)
+    return plain_block_topk(score_rows, corpus.shape[0], qf.shape[0], k, block_n, corpus.device, fast=fast)
+
+
+def fast_block_topk_plain(corpus, queries, k, *, count, metric="ip", mask=None, cnorms=None,
+                          block_n=DEFAULT_BLOCK_N) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 3: kernel 1's plain scoring, then
+    :func:`packed_key_topk_plain` in every block."""
+    return exact_block_topk_plain(corpus, queries, k, count=count, metric=metric, mask=mask,
+                                  cnorms=cnorms, block_n=block_n, fast=True)
+
+
+def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnorms, block_n):
+    """Checks and launch of kernel 1 (``fast``: kernel 3) on CUDA tensors."""
+    if corpus.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {corpus.device}")
+    if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
+        raise ValueError(f"{name}: corpus must be [N, D] float32 or bfloat16, got {corpus.dtype}")
+    (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
+    _cuda.require(f"{name} corpus", corpus, dev, corpus.dtype, (n, d))
+    _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
+    if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
+        raise ValueError(f"{name}: n={n}, q={q}, k={k} outside the kernel's range")
+    if fast and block_n > FAST_MAX_BN:
+        raise ValueError(f"{name}: block_n={block_n} above the packed keys' {FAST_MAX_BN}")
+    nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
+    if mask is not None:
+        _cuda.require(f"{name} mask", mask, dev, torch.int8, (n,))
+    l2 = metric == "l2"
+    qnorms = None
+    if l2:
+        _cuda.require(f"{name} cnorms", cnorms, dev, torch.float32, (n,))
+        qf = queries.float()
+        qnorms = (qf * qf).sum(dim=1)
+    out_v = torch.empty((q, nb, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+    prefix = "pse_fast_block_topk" if fast else "pse_block_topk"
+    fn = getattr(lib, f"{prefix}_bf16" if corpus.dtype == torch.bfloat16 else f"{prefix}_f32")
+    err = fn(
+        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms),
+        _cuda.ptr(cnorms if l2 else None), _cuda.ptr(mask),
+        _cuda.ptr(out_v), _cuda.ptr(out_i),
+        n, d, q, int(min(count, n)), k, block_n, int(l2),
+        _cuda.stream(dev),
+    )
+    _cuda.check(err, name)
+    return out_v, out_i
 
 
 def block_topk(
@@ -195,41 +289,40 @@ def block_topk(
             corpus, queries, k, count=count, metric=metric, mask=mask,
             cnorms=cnorms, block_n=block_n,
         )
-    if corpus.device.type != "cuda":
-        raise ValueError(f"block_topk: unsupported device {corpus.device}")
-    if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
-        raise ValueError(f"block_topk: corpus must be [N, D] float32 or bfloat16, got {corpus.dtype}")
-    (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
-    _cuda.require("block_topk corpus", corpus, dev, corpus.dtype, (n, d))
-    _cuda.require("block_topk queries", queries, dev, corpus.dtype, (q, d))
-    if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
-        raise ValueError(f"block_topk: n={n}, q={q}, k={k} outside the kernel's range")
-    nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
-    if mask is not None:
-        _cuda.require("block_topk mask", mask, dev, torch.int8, (n,))
-    l2 = metric == "l2"
-    qnorms = None
-    if l2:
-        _cuda.require("block_topk cnorms", cnorms, dev, torch.float32, (n,))
-        qf = queries.float()
-        qnorms = (qf * qf).sum(dim=1)
-    out_v = torch.empty((q, nb, k), dtype=torch.float32, device=corpus.device)
-    out_i = torch.empty((q, nb, k), dtype=torch.int32, device=corpus.device)
-    lib = _cuda.library()
-    fn = lib.pse_block_topk_bf16 if corpus.dtype == torch.bfloat16 else lib.pse_block_topk_f32
-    err = fn(
-        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms),
-        _cuda.ptr(cnorms if l2 else None), _cuda.ptr(mask),
-        _cuda.ptr(out_v), _cuda.ptr(out_i),
-        n, d, q, int(min(count, n)), k, block_n, int(l2),
-        _cuda.stream(corpus.device),
-    )
-    _cuda.check(err, "block_topk")
+    out = _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n)
     block_topk.launches += 1
-    return out_v, out_i
+    return out
 
 
 block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+
+
+def fast_block_topk(
+    corpus: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    *,
+    count: int,
+    metric: str = "ip",
+    mask: Optional[torch.Tensor] = None,
+    cnorms: Optional[torch.Tensor] = None,
+    block_n: int = DEFAULT_BLOCK_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3: kernel 1 with packed-key selection (``block_n <= 2048``).
+    Inputs as :func:`block_topk`; the partial values are the quantized
+    scores of :func:`packed_key_topk_plain`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if corpus.device.type == "cpu":
+        return fast_block_topk_plain(
+            corpus, queries, k, count=count, metric=metric, mask=mask,
+            cnorms=cnorms, block_n=block_n,
+        )
+    out = _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n)
+    fast_block_topk.launches += 1
+    return out
+
+
+fast_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
 
 
 def merge_partials(part_v, part_i, k):
@@ -237,6 +330,159 @@ def merge_partials(part_v, part_i, k):
     q = part_v.shape[0]
     vals, pos = stable_topk(part_v.reshape(q, -1), k)
     return vals, torch.gather(part_i.reshape(q, -1), 1, pos)
+
+
+def rescore_pool(part_v, part_i, corpus_ref, queries, k, *, cand, metric):
+    """The tail of the scans whose partials hold quantized scores: the int8
+    tier (JAX ``quantized.py`` :311-336 and :440-457) and kernel 3
+    (``topk.py`` :457-479, ``cand = k``).  Merge the per-block partials to
+    the ``cand`` pool and rescore the pool exactly against ``corpus_ref``.  Kernel-space values (higher
+    is better) and int32 row ids; slots that found no row hold ``-inf``."""
+    n = corpus_ref.shape[0]
+    # the pool is a superset filter: quantized order is enough here
+    nq = queries.shape[0]
+    pool = min(cand, part_v.shape[1] * part_v.shape[2])
+    cv, pos = stable_topk(part_v.reshape(nq, -1), pool)
+    ci = torch.gather(part_i.reshape(nq, -1), 1, pos)
+    live = ~torch.isneginf(cv)
+    # exact rescore at reference precision: widen the gathered rows to f32
+    # (bf16 is exact in f32), queries cast to the reference dtype first
+    rows = corpus_ref[torch.clamp(ci, 0, n - 1).long()].float()  # [Q, pool, D]
+    qref = queries.to(corpus_ref.dtype).float()
+    exact = torch.einsum("qd,qcd->qc", qref, rows)
+    if metric == "l2":
+        qn = (queries * queries).sum(dim=1, keepdim=True)
+        cn = (rows * rows).sum(dim=2)
+        exact = -(qn + cn - 2.0 * exact)
+    exact = torch.where(live, exact, float("-inf"))
+    vals, order = stable_topk(exact, k)
+    return vals, torch.gather(ci, 1, order)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: fused running top-k (csrc/fused_topk.cu) and its plain version
+# ---------------------------------------------------------------------------
+
+
+def kernel_block_q(nq: int) -> int:
+    """Queries per CTA of kernels 1, 3 and 4 (their ``dispatch``)."""
+    return 8 if nq <= 8 else 32
+
+
+def fused_ranges(nq: int, nb: int, sm_count: int = H100_SMS, *, block_n: int = DEFAULT_BLOCK_N,
+                 k: int = MAX_KERNEL_K) -> Tuple[int, int]:
+    """``(ranges, blocks_per_range)`` of kernel 4: contiguous runs of
+    blocks, enough of them over the query tiles to fill every CTA slot of
+    the SMs once (as many CTAs as the shared memory of an SM holds, at
+    least two), and none empty."""
+    bq = kernel_block_q(nq)
+    cta_bytes = 4 * (bq * block_n + 32 * (bq + 1) + 32 * 257 + 2 * bq * k) + 1024  # + the SM's reserve
+    per_sm = max(FUSED_MIN_CTAS_PER_SM, SM_SHARED_BYTES // cta_bytes)
+    tiles = -(-nq // bq)
+    want = max(1, min(nb, -(-per_sm * sm_count // tiles)))
+    per = -(-nb // want)
+    return -(-nb // per), per
+
+
+def fused_topk_plain(
+    corpus: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    *,
+    count: int,
+    metric: str = "ip",
+    mask: Optional[torch.Tensor] = None,
+    cnorms: Optional[torch.Tensor] = None,
+    block_n: int = DEFAULT_BLOCK_N,
+    blocks_per_range: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 4, with the same outputs: the
+    ``[Q, k]`` top-k and the ``[Q, S, k]`` range partials (S ranges of
+    ``blocks_per_range`` blocks).  Kernel 1's plain block partials are
+    merged range by range, which is what the running merge keeps, then
+    over ranges; ties to the smallest row, empty slots ``-inf`` and
+    ``INT_MAX``."""
+    part_v, part_i = exact_block_topk_plain(
+        corpus, queries, k, count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=block_n,
+    )
+    q, nb, _ = part_v.shape
+    ranges = -(-nb // blocks_per_range)
+    pad = ranges * blocks_per_range - nb
+    part_v = torch.nn.functional.pad(part_v, (0, 0, 0, pad), value=float("-inf"))
+    part_i = torch.nn.functional.pad(part_i, (0, 0, 0, pad), value=_INT_MAX)
+    range_v, pos = stable_topk(part_v.reshape(q, ranges, -1), k)
+    range_i = torch.gather(part_i.reshape(q, ranges, -1), 2, pos)
+    return (*merge_partials(range_v, range_i, k), range_v, range_i)
+
+
+def fused_topk(
+    corpus: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    *,
+    count: int,
+    metric: str = "ip",
+    mask: Optional[torch.Tensor] = None,
+    cnorms: Optional[torch.Tensor] = None,
+    block_n: int = DEFAULT_BLOCK_N,
+    blocks_per_range: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4: the fused running top-k of ``queries`` over ``corpus``.
+
+    Inputs as :func:`block_topk`; ``blocks_per_range`` defaults to
+    :func:`fused_ranges` for the card's SM count.  Returns kernel-space
+    ``(values [Q, k], row ids [Q, k], range values [Q, S, k], range ids
+    [Q, S, k])``, as :func:`fused_topk_plain`.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    n, q = corpus.shape[0], queries.shape[0]
+    nb = -(-n // block_n)
+    if blocks_per_range is None:
+        sms = H100_SMS
+        if corpus.device.type == "cuda":
+            sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+        blocks_per_range = fused_ranges(q, nb, sms, block_n=block_n, k=k)[1]
+    if corpus.device.type == "cpu":
+        return fused_topk_plain(
+            corpus, queries, k, count=count, metric=metric, mask=mask, cnorms=cnorms,
+            block_n=block_n, blocks_per_range=blocks_per_range,
+        )
+    if corpus.device.type != "cuda":
+        raise ValueError(f"fused_topk: unsupported device {corpus.device}")
+    if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
+        raise ValueError(f"fused_topk: corpus must be [N, D] float32 or bfloat16, got {corpus.dtype}")
+    d, dev = corpus.shape[1], corpus.device
+    _cuda.require("fused_topk corpus", corpus, dev, corpus.dtype, (n, d))
+    _cuda.require("fused_topk queries", queries, dev, corpus.dtype, (q, d))
+    if n == 0 or q == 0 or not 1 <= k <= MAX_KERNEL_K or blocks_per_range < 1:
+        raise ValueError(f"fused_topk: n={n}, q={q}, k={k}, blocks_per_range={blocks_per_range} out of range")
+    ranges = -(-nb // blocks_per_range)
+    if mask is not None:
+        _cuda.require("fused_topk mask", mask, dev, torch.int8, (n,))
+    l2 = metric == "l2"
+    qnorms = None
+    if l2:
+        _cuda.require("fused_topk cnorms", cnorms, dev, torch.float32, (n,))
+        qf = queries.float()
+        qnorms = (qf * qf).sum(dim=1)
+    part_v = torch.empty((q, ranges, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q, ranges, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+    fn = lib.pse_fused_topk_bf16 if corpus.dtype == torch.bfloat16 else lib.pse_fused_topk_f32
+    err = fn(
+        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms),
+        _cuda.ptr(cnorms if l2 else None), _cuda.ptr(mask),
+        _cuda.ptr(part_v), _cuda.ptr(part_i), _cuda.ptr(out_v), _cuda.ptr(out_i),
+        n, d, q, int(min(count, n)), k, block_n, int(l2), ranges, blocks_per_range,
+        _cuda.stream(dev),
+    )
+    _cuda.check(err, "fused_topk")
+    fused_topk.launches += 1
+    return out_v, out_i, part_v, part_i
+
+
+fused_topk.launches = 0  # kernel launches (read by chip_smoke.py)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +536,11 @@ def exact_search_plain(
     return _finalize(*plain_topk(score_rows, n, k), metric)
 
 
+def check_impl(impl: str, allowed=IMPLS) -> None:
+    if impl not in allowed:
+        raise ValueError(f"impl must be one of {allowed}, got {impl!r}")
+
+
 def exact_search(
     corpus: torch.Tensor,
     queries: torch.Tensor,
@@ -298,37 +549,45 @@ def exact_search(
     count: Optional[int] = None,
     mask: Optional[torch.Tensor] = None,
     metric: str = "cosine",
+    impl: str = "auto",
     block_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN over ``corpus`` for ``queries`` (``[Q, D]`` or ``[D]``).
 
-    k ≤ 64 runs kernel 1 (:func:`block_topk`) and the phase-B merge;
-    larger k runs :func:`exact_search_plain`.  Rows where ``mask <= 0`` or
-    at or past ``count`` are excluded.  Returns ``(distances [Q, k]
-    float32, indices [Q, k] int32)`` in FAISS conventions."""
+    For k ≤ 64, ``impl`` picks the scan (module docstring): ``"auto"`` and
+    ``"pallas"`` kernel 1 and the phase-B merge, ``"pallas_fast"`` kernel 3
+    and the exact rescore of the k winners, ``"pallas_fused"`` kernel 4,
+    ``"lax"`` :func:`exact_search_plain`; larger k always runs
+    :func:`exact_search_plain`.  Rows where ``mask <= 0`` or at or past
+    ``count`` are excluded.  Returns ``(distances [Q, k] float32, indices
+    [Q, k] int32)`` in FAISS conventions."""
+    check_impl(impl)
     queries = torch.atleast_2d(queries)
     n = corpus.shape[0]
     k = min(k, n) if n else 0
     if n == 0 or k == 0:
         return _empty(queries.shape[0], corpus.device)
-    if k > MAX_KERNEL_K:
+    if impl == "lax" or k > MAX_KERNEL_K:
         return exact_search_plain(
             corpus, queries, k, count=count, mask=mask, metric=metric
         )
     metric = "l2" if metric == "l2" else "ip"
     bn = block_n or DEFAULT_BLOCK_N
+    if impl == "pallas_fast":
+        bn = min(bn, FAST_MAX_BN)
     cnorms = row_sq_norms(corpus) if metric == "l2" else None
     if mask is not None:
         mask = (mask > 0).to(torch.int8)
-    part_v, part_i = block_topk(
-        corpus.contiguous(),
-        queries.to(corpus.dtype).contiguous(),
-        min(k, bn),
-        count=n if count is None else int(count),
-        metric=metric,
-        mask=mask,
-        cnorms=cnorms,
-        block_n=bn,
-    )
-    vals, idx = merge_partials(part_v, part_i, k)
-    return _finalize(vals, idx, metric)
+    corpus = corpus.contiguous()
+    queries = queries.to(corpus.dtype).contiguous()
+    scan = dict(count=n if count is None else int(count), metric=metric, mask=mask,
+                cnorms=cnorms, block_n=bn)
+    if impl == "pallas_fused":
+        vals, idx, _, _ = fused_topk(corpus, queries, k, **scan)
+        return _finalize(vals, idx, metric)
+    if impl == "pallas_fast":
+        part_v, part_i = fast_block_topk(corpus, queries, min(k, bn), **scan)
+        vals, idx = rescore_pool(part_v, part_i, corpus, queries.float(), k, cand=k, metric=metric)
+        return _finalize(vals, idx, metric)
+    part_v, part_i = block_topk(corpus, queries, min(k, bn), **scan)
+    return _finalize(*merge_partials(part_v, part_i, k), metric)

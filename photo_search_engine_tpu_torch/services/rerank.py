@@ -12,7 +12,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from photo_search_engine_tpu.utils.path_utils import normalize_local_path
+from photo_search_engine_tpu_torch.utils.path_utils import normalize_local_path
 from photo_search_engine_tpu_torch.models.hash_embedder import HashEmbedder
 
 

@@ -4,7 +4,7 @@ the season-filtered search then takes the grouped scan).  Index build, a
 text search, a season-filtered search, an image search and an upload
 search return the same route JSON, timing fields dropped and float fields
 within 1e-5.  Then the port's app runs the same flow in a process where
-``import jax`` fails.  The port's own config loader and an index installed
+importing ``jax`` or the JAX package fails.  The port's own config loader and an index installed
 in memory (as ``chip_smoke.py`` serves its large corpus) are wired by the
 same ``initialize_services``."""
 
@@ -167,14 +167,16 @@ def test_route_json_matches_jax_app_ivf(library, monkeypatch, microbatch):
 
 _JAX_BLOCKED = r"""
 import json, os, sys
-sys.modules["jax"] = None  # any import of jax now fails
+# any import of jax or of the JAX package now fails
+sys.modules["jax"] = None
+sys.modules["photo_search_engine_tpu"] = None
 sys.path.insert(0, os.environ["REPO"])
 from tests.torch_parity import run_flow
-from photo_search_engine_tpu.config import load_config
-from photo_search_engine_tpu_torch.api.app import create_app, initialize_services
+from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
 services = initialize_services(load_config())
 out = run_flow(create_app(services).test_client(), os.environ["PHOTO_DIR"])
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+loaded = sorted(m for m in sys.modules if m in ("jax", "photo_search_engine_tpu")
+                or m.startswith(("jax.", "jaxlib", "photo_search_engine_tpu.")))
 print(json.dumps({"device": str(services["device"]), "loaded": loaded,
                   "route": services["vector_index"].last_route,
                   "counts": {k: len(out[k]["results"]) for k in ("text", "season", "image", "upload")}}))
@@ -190,7 +192,8 @@ def _serve_with_jax_absent(library, **extra):
                           capture_output=True, text=True, timeout=240)
     assert done.returncode == 0, done.stderr[-3000:]
     result = json.loads(done.stdout.strip().splitlines()[-1])
-    assert result["device"] == "cpu" and result["loaded"] == ["jax"]  # only the blocking None entry
+    # only the blocking None entries
+    assert result["device"] == "cpu" and result["loaded"] == ["jax", "photo_search_engine_tpu"]
     assert all(n > 0 for n in result["counts"].values()), result
     return result
 

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 kernel 1 (block_topk), kernel 2 (int8_block_topk), their grouped
 variants, kernel 5 (grouped_block_topk) and kernel 6
-(int8_grouped_block_topk), and kernel 7 (ivf_block_topk, the IVF scan).
+(int8_grouped_block_topk), kernel 7 (ivf_block_topk, the IVF scan),
+kernel 3 (fast_block_topk and fast_grouped_block_topk, the packed-key
+scans) and kernel 4 (fused_topk, the fused running top-k).
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; the plain versions they are held to run on the CPU in
@@ -11,10 +13,14 @@ with a card and without jax (this file imports none), run:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: kernels 1, 5 and 7 (float layouts) values within 1e-5 of the
-plain float32 product (summation order only, unit rows); kernels 2 and 6,
-and kernel 7 on an int8 layout, identical (exact int32 dot, the same
-float32 scaling)."""
+Tolerance: kernels 1, 4, 5 and 7 (float layouts) values within 1e-5 of
+the plain float32 product (summation order only, unit rows); kernel 4's
+result identical to kernel 1's (the same scoring loop and tie rule);
+kernels 2 and 6, and kernel 7 on an int8 layout, identical (exact int32
+dot, the same float32 scaling); kernel 3's searches values within 1e-5,
+and an id may differ from the plain version's only where both scores lie
+inside the 2^-12 relative window of the k-th score (score ulps can move a
+packed-key window)."""
 
 import pytest
 import torch
@@ -23,7 +29,7 @@ from photo_search_engine_tpu_torch.ops import grouped_mask as go
 from photo_search_engine_tpu_torch.ops import ivf_scan as io
 from photo_search_engine_tpu_torch.ops import quantized as qo
 from photo_search_engine_tpu_torch.ops import topk as to
-from tests.torch_parity import assert_topk_match
+from tests.torch_parity import assert_topk_match, assert_window_match
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +267,104 @@ def test_ivf_wrapper_checks_its_inputs(gen):
     with pytest.raises(RuntimeError, match="cudaError"):
         io.ivf_block_topk(corpus, queries, probes, row_valid, 5, lrows=128, block_n=65536)
     io.ivf_block_topk(corpus, queries, probes, row_valid, 5, **kw)
+
+
+def _search_pair(module, name, search, sign=1.0):
+    """``search()`` through the kernel ``module.name`` and through its plain
+    version, in kernel space (higher is better)."""
+    before = getattr(module, name).launches
+    got = search()
+    torch.cuda.synchronize()
+    assert getattr(module, name).launches == before + 1
+    kernel = getattr(module, name)
+    setattr(module, name, getattr(module, name + "_plain"))
+    try:
+        ref = search()
+    finally:
+        setattr(module, name, kernel)
+    return (sign * got[0], got[1]), (sign * ref[0], ref[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["ip", "l2", "masked", "empty"])
+@pytest.mark.parametrize("k,q", [(1, 1), (10, 9), (64, 40)])
+def test_fast_search_matches_plain(gen, dtype, variant, k, q):
+    corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
+    metric = "l2" if variant == "l2" else "ip"
+    frac = {"masked": 0.5, "empty": 0.0}.get(variant, 1.0)
+    mask = (torch.rand(3000, generator=gen, device="cuda") < frac).to(torch.int8)
+    kw = dict(count=2900, metric=metric, mask=mask, impl="pallas_fast", block_n=1024)
+    got, ref = _search_pair(to, "fast_block_topk", lambda: to.exact_search(corpus, queries, k, **kw),
+                            -1.0 if metric == "l2" else 1.0)
+    assert_window_match(*got, *ref, tol=1e-5)
+    if variant == "empty":
+        assert (got[1] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [10, 64])
+@pytest.mark.parametrize("m,q", [(1, 1), (3, 9), (8, 128)])
+def test_fast_grouped_search_matches_plain(gen, dtype, k, m, q):
+    corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
+    table, ids = _predicates(gen, m, 3000, q)
+    got, ref = _search_pair(go, "fast_grouped_block_topk", lambda: go.grouped_mask_search(
+        corpus, queries, table, ids, k, count=2900, impl="pallas_fast", block_n=1024))
+    assert_window_match(*got, *ref, tol=1e-5)
+
+
+def test_fast_partials_are_the_plain_quantized_partials(gen):
+    """Where the scores agree bit for bit (an exact product: rows and the
+    query with one nonzero lane), kernel 3's quantized partials are the
+    plain version's, -inf slots and their decoded ids included."""
+    corpus = torch.zeros((3000, 64), device="cuda")
+    corpus[torch.arange(3000), torch.arange(3000) % 64] = torch.rand(3000, generator=gen, device="cuda")
+    corpus[::7] = 0.0
+    queries = torch.zeros((3, 64), device="cuda")
+    queries[:, :3] = torch.eye(3, device="cuda")
+    kw = dict(count=2900, block_n=1024)
+    got = to.fast_block_topk(corpus, queries, 64, **kw)
+    ref = to.fast_block_topk_plain(corpus, queries, 64, **kw)
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32)) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["ip", "l2", "masked", "empty"])
+@pytest.mark.parametrize("k,q,per", [(1, 1, 1), (10, 9, 2), (64, 40, 3), (50, 128, None)])
+def test_fused_topk_matches_plain_and_kernel1(gen, dtype, variant, k, q, per):
+    corpus, queries = _unit(5000, 256, gen, dtype), _unit(q, 256, gen, dtype)
+    metric = "l2" if variant == "l2" else "ip"
+    frac = {"masked": 0.5, "empty": 0.0}.get(variant, 1.0)
+    mask = (torch.rand(5000, generator=gen, device="cuda") < frac).to(torch.int8)
+    kw = dict(count=4900, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+    before = to.fused_topk.launches
+    vals, idx, part_v, part_i = to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw)
+    torch.cuda.synchronize()
+    assert to.fused_topk.launches == before + 1
+    per = per or to.fused_ranges(q, 5, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+    ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
+    assert_topk_match(part_v, part_i, ref[2][..., :k], ref[3][..., :k], tol=1e-5, cut=ref[2][..., k])
+    assert_topk_match(vals, idx, ref[0][..., :k], ref[1][..., :k], tol=1e-5, cut=ref[0][..., k])
+    k1_v, k1_i = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
+    assert torch.equal(vals, k1_v) and torch.equal(idx, k1_i)
+
+
+@pytest.mark.parametrize("impl", ["pallas_fast", "pallas_fused"])
+def test_duplicate_rows_tie_to_the_smallest_row(gen, impl):
+    corpus = _unit(5000, 256, gen, torch.bfloat16)
+    dups = list(range(1000, 1062)) + [3000, 4990]
+    corpus[dups] = corpus[7].clone()
+    _, idx = to.exact_search(corpus, corpus[7:8].clone(), 64, metric="ip", impl=impl)
+    assert idx[0].tolist() == ([7] + dups)[:64]
+
+
+def test_fast_and_fused_wrappers_check_their_inputs(gen):
+    corpus = _unit(100, 64, gen)
+    with pytest.raises(ValueError):
+        to.fast_block_topk(corpus, corpus, 5, count=100, block_n=4096)  # past the packed keys' 2048
+    with pytest.raises(ValueError):
+        to.fused_topk(corpus, corpus, 65, count=100)
+    with pytest.raises(ValueError):
+        to.fused_topk(corpus, corpus.to(torch.bfloat16), 5, count=100)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        to.fused_topk(corpus, corpus, 5, count=100, block_n=65536)
+    to.fused_topk(corpus, corpus, 5, count=100)  # the error is not left behind

@@ -58,6 +58,30 @@ def assert_topk_match(got_v, got_i, ref_v, ref_i, *, tol, descending=True, cut=N
     return float(np.abs(got_v[finite] - ref_v[finite]).max(initial=0.0))
 
 
+def assert_window_match(got_v, got_i, ref_v, ref_i, *, tol, window=2.0 ** -12):
+    """The comparison rule of kernel 3's searches (``[Q, k]``, higher is
+    better) against the same searches on its plain version.  The two score
+    rows in another summation order, and a score's last bits can move it
+    across a packed-key window, so another row may be nominated near the
+    k-th place: ids agree, except where both slots' scores lie inside the
+    ``window`` (relative, plus ``tol``) of the reference's k-th score;
+    values within ``tol`` where the ids agree; empty slots agree.  Returns
+    the largest value error where the ids agree."""
+    got_v, ref_v = _host(got_v).astype(np.float64), _host(ref_v).astype(np.float64)
+    got_i, ref_i = _host(got_i), _host(ref_i)
+    assert got_v.shape == ref_v.shape and got_i.shape == ref_i.shape, (got_v.shape, ref_v.shape)
+    np.testing.assert_array_equal(np.isneginf(got_v), np.isneginf(ref_v))
+    same = got_i == ref_i
+    live = same & np.isfinite(ref_v)
+    np.testing.assert_allclose(got_v[live], ref_v[live], rtol=0, atol=tol)
+    kth = ref_v[..., -1:]
+    with np.errstate(invalid="ignore"):
+        reach = np.abs(kth) * window + tol
+        near = (np.abs(got_v - kth) <= reach) & (np.abs(ref_v - kth) <= reach)
+    assert (same | near).all(), "an id differs outside the packed-key window of the k-th score"
+    return float(np.abs(got_v[live] - ref_v[live]).max(initial=0.0))
+
+
 def _upload_bytes():
     from PIL import Image
 

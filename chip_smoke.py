@@ -4,7 +4,10 @@
 Phases; each prints its results on lines of its own and raises on failure:
 
 1. device  - the card's name and power limit; build the CUDA kernels from
-             photo_search_engine_tpu_torch/csrc with nvcc.
+             photo_search_engine_tpu_torch/csrc with nvcc; the registers
+             and spills of the tensor-core kernels (bf16 kernels 1 and 5)
+             and their HGMMA (wgmma) and UTMALDG (TMA) counts in the SASS,
+             which must not be 0.
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
              their plain PyTorch versions on the card: ip, l2, masked with
              a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
@@ -12,7 +15,11 @@ Phases; each prints its results on lines of its own and raises on failure:
              then kernel 5 (grouped_block_topk) and kernel 6
              (int8_grouped_block_topk), a predicate per query, for M in
              {1, 3, 8} and Q in {1, 9, 33, 128}, with an empty predicate,
-             ids outside [0, M) and duplicate rows; then kernel 7
+             ids outside [0, M) and duplicate rows; then the bfloat16
+             kernels 1 and 5 across their query tiles (Q 1/8/9/32/33/128/
+             256), D 1536 and 1000 on the tensor cores and 1001 on the FMA
+             loop (each launch checked on its loop), k 1/50/64, and an
+             all-masked block; then kernel 7
              (ivf_block_topk, the IVF probed-cluster scan) on float32,
              bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
              (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
@@ -22,8 +29,10 @@ Phases; each prints its results on lines of its own and raises on failure:
              fast_grouped_block_topk, through kernel 5's body) and kernel 4
              (fused_topk, the fused running top-k): the searches through
              them against the same searches on their plain versions, kernel
-             4's range partials and its result against kernel 1's, with an
-             empty predicate or mask, a live count below n and k = 64.
+             4's range partials and its result against kernel 1's (within
+             TOL: kernel 1 sums bf16 on the tensor cores, kernel 4 with
+             fmaf), with an empty predicate or mask, a live count below n
+             and k = 64.
 3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app,
              micro-batcher on, its default) as a subprocess on a PIL photo
              library; then the same app in this process without a keyword
@@ -37,14 +46,17 @@ Phases; each prints its results on lines of its own and raises on failure:
              concurrent image searches (kernels 1 and 2), concurrent
              filtered searches over five predicates (kernels 5 and 6)
              checked against plain per-query searches, a season-filtered
-             /search_photos, the batcher's counters; then the store's own
+             /search_photos, the batcher's counters (kernels 1 and 5 must
+             have run on the tensor cores only); then the store's own
              impl routes: search(impl="pallas_fast") (kernel 3) and
              search(impl="pallas_fused") (kernel 4) at batch 1 and 128,
              top-50, and grouped_search(impl="pallas_fast") (grouped kernel 3)
              at batch 128 with M = 5, checked against kernel 1 and the plain
              versions; and every kernel's time against its plain version
              (CUDA events, after warm-up), its bound and the time of the
-             nearest library composition.
+             nearest library composition, at batch 1, 8 (kernels 1, 5, 6),
+             128 and 256 (kernels 1, 2), with kernel 1's time at k = 1
+             against k = 50.
 5. ivf     - VECTOR_INDEX_TYPE=ivf at 1M x 1536: bfloat16 rows of intrinsic
              dimension 32 made on the card from a seed, served by the app's
              wiring with IVF_NLIST=1024, IVF_NPROBE=64 and the micro-batcher
@@ -203,10 +215,18 @@ def _wrappers() -> dict:
 def reset_launches() -> None:
     for wrapper in _wrappers().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_loop"):
+            wrapper.launches_by_loop = dict.fromkeys(wrapper.launches_by_loop, 0)
 
 
 def read_launches() -> dict:
     return {name: wrapper.launches for name, wrapper in _wrappers().items()}
+
+
+def read_loops() -> dict:
+    """Kernels 1 and 5's launches by scoring loop (tensor cores or FMA)."""
+    return {name: dict(wrapper.launches_by_loop) for name, wrapper in _wrappers().items()
+            if hasattr(wrapper, "launches_by_loop")}
 
 
 def close_batchers(services) -> None:
@@ -261,8 +281,56 @@ def phase_device() -> None:
     info = _cuda.build_info()
     log(f"[device] kernels built in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
-        if any(word in line for word in ("entry function", "registers", "spill", "error")):
+        if any(word in line for word in ("entry function", "registers", "spill", "error", "warning",
+                                         "Performance")):
             log(f"[device] ptxas: {line.strip()}")
+    # the tensor-core kernels (bf16 kernels 1 and 5): registers, spills, and
+    # wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
+    ptxas = _ptxas_by_function(info["log"])
+    sass = _cuda.sass_counts(TC_KERNEL)
+    for name, ops in sorted(sass.items(), key=lambda item: _tc_label(item[0])):
+        regs, stores, loads = ptxas.get(name, ("?", "?", "?"))
+        log(f"[device] {_tc_label(name)}: {regs} registers, {stores}/{loads} bytes spill stores/loads; "
+            f"SASS {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
+    if len(sass) < 4 or any(ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass.values()):
+        raise AssertionError(f"tensor-core kernels without HGMMA or UTMALDG in their SASS: {sass}")
+
+
+TC_KERNEL = "tc_block_topk_kernel"
+
+
+def _tc_label(mangled: str) -> str:
+    """``tc_block_topk_kernel<BQ, stages, grouped, threshold>`` from its mangled name."""
+    import re
+
+    found = re.search(TC_KERNEL + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
+    if not found:
+        return mangled
+    bq, stages, grouped, threshold = found.groups()
+    return (f"{'kernel 5' if grouped == '1' else 'kernel 1'} bf16 tensor cores, BQ {bq}, {stages} stages, "
+            f"{'threshold' if threshold == '1' else 'rounds'} selection")
+
+
+def _ptxas_by_function(build_log: str) -> dict:
+    """``{mangled name: (registers, spill store bytes, spill load bytes)}`` from ``-Xptxas=-v``."""
+    import re
+
+    out, current = {}, None
+    for line in build_log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if found:
+            current = found.group(1)
+            out.setdefault(current, ["?", "?", "?"])
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[current][1:] = [int(spill.group(1)), int(spill.group(2))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[current][0] = int(regs.group(1))
+    return {name: tuple(values) for name, values in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +460,7 @@ def phase_kernels() -> None:
     log(f"[kernels] int8_block_topk: {cases} cases identical to the plain version "
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
     check_grouped_kernels(gen, n, d)
+    check_tensor_core_kernels(gen)
     check_ivf_kernel(gen, d)
     check_fast_kernels(gen, n, d)
     check_fused_kernel(gen, n, d)
@@ -494,6 +563,64 @@ def check_grouped_kernels(gen, n, d) -> None:
                    *qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, 65, **kw), exact=True)
     log("[kernels] grouped: duplicate-row ties at the smallest row under each query's predicate; "
         "empty predicate and ids outside [0, M) give empty slots (f32, bf16; k 1/10/50/64)")
+
+
+def check_tensor_core_kernels(gen) -> None:
+    """The bf16 kernels 1 and 5 across their query tiles and widths: Q in
+    {1, 8, 9, 32, 33, 128, 256}, D in {1536, 1000} (tensor cores) and 1001
+    (the FMA loop, counted apart), k in {1, 50, 64}, a ragged last block, a
+    live count below n; kernel 1 cycling through ip, l2 and masked, kernel
+    5 with ids outside [0, M); then a block whose rows are all masked."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    n, count = 2500, 2400  # blocks of 1024, 1024 and a ragged 452
+    cases = 0
+    for d in (1536, 1000, 1001):
+        corpus = _unit_rows(n, d, gen, torch.bfloat16)
+        cnorms = to.row_sq_norms(corpus)
+        loop = "tensor_core" if d % 8 == 0 else "fma"
+        for i, q in enumerate((1, 8, 9, 32, 33, 128, 256)):
+            queries = _unit_rows(q, d, gen, torch.bfloat16)
+            table, ids = _predicates(gen, 3, n, q)
+            for j, k in enumerate((1, 50, 64)):
+                variant = ("ip", "l2", "masked")[(i + j) % 3]
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.5).to(torch.int8) if variant == "masked" else None
+                kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=cnorms, block_n=1024)
+                before = dict(to.block_topk.launches_by_loop)
+                got = to.block_topk(corpus, queries, k, **kw)
+                torch.cuda.synchronize()
+                if to.block_topk.launches_by_loop[loop] != before[loop] + 1:
+                    raise AssertionError(f"block_topk D={d}: not launched on the {loop} loop")
+                name = f"block_topk bf16 {variant} D={d} q={q} k={k} ({loop})"
+                _ERRORS["block_topk"] = max(_ERRORS["block_topk"], check_topk(
+                    name, *got, *to.exact_block_topk_plain(corpus, queries, k + 1, **kw)))
+                check_scores(name, *got, _plain_scores(corpus, queries, kw["metric"], count, mask))
+                before = dict(go.grouped_block_topk.launches_by_loop)
+                got = go.grouped_block_topk(corpus, queries, table, ids, k, count=count, block_n=1024)
+                torch.cuda.synchronize()
+                if go.grouped_block_topk.launches_by_loop[loop] != before[loop] + 1:
+                    raise AssertionError(f"grouped_block_topk D={d}: not launched on the {loop} loop")
+                ref = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, count=count, block_n=1024)
+                name = f"grouped_block_topk bf16 M=3 D={d} q={q} k={k} ({loop})"
+                _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"], check_topk(name, *got, *ref))
+                check_scores(name, *got, _grouped_plain_scores(corpus, queries, count, table, ids))
+                cases += 2
+    # a block whose rows are all masked out: its slots are empty in every query
+    corpus, queries = _unit_rows(n, 1536, gen, torch.bfloat16), _unit_rows(40, 1536, gen, torch.bfloat16)
+    mask = torch.ones(n, dtype=torch.int8, device=DEVICE)
+    mask[1024:2048] = 0
+    got_v, got_i = to.block_topk(corpus, queries, 50, count=n, mask=mask, block_n=1024)
+    ref = to.exact_block_topk_plain(corpus, queries, 51, count=n, mask=mask, block_n=1024)
+    check_topk("block_topk bf16 all-masked block", got_v, got_i, *ref)
+    if not (torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()):
+        raise AssertionError("block_topk bf16: an all-masked block returned rows")
+    log(f"[kernels] bf16 kernels 1 and 5: {cases} cases over Q 1/8/9/32/33/128/256, D 1536/1000 (tensor "
+        f"cores) and 1001 (FMA loop), k 1/50/64 agree with the plain versions (max |err| "
+        f"{max(_ERRORS['block_topk'], _ERRORS['grouped_block_topk']):.3g}, tol {TOL}); each took its loop; "
+        f"an all-masked block gives empty slots")
 
 
 def check_partials(name, got, plain, k):
@@ -691,8 +818,9 @@ def check_fast_kernels(gen, n, d) -> None:
 
 def check_fused_kernel(gen, n, d) -> None:
     """Kernel 4 against its plain version (range partials and result, by
-    :func:`check_topk`'s rule) and against kernel 1 on the same batch
-    (identical ids and values: the same scores, the same tie rule):
+    :func:`check_topk`'s rule) and against kernel 1 on the same batch by
+    the same rule (bf16 kernel 1 sums on the tensor cores, kernel 4 with
+    fmaf):
     float32 and bfloat16; ip, l2, masked with a live count below n, and an
     empty mask; k 1/10/50/64; 1, 2 and the default blocks per range; then
     duplicate rows."""
@@ -723,11 +851,11 @@ def check_fused_kernel(gen, n, d) -> None:
                     err = max(check_topk(f"{name} (ranges)", got[2], got[3], ref[2], ref[3]),
                               check_topk(name, got[0], got[1], ref[0], ref[1]))
                     check_scores(name, got[0], got[1], _plain_scores(corpus, queries, metric, count, mask))
+                    # kernel 1 scores bf16 on the tensor cores, kernel 4 with fmaf: the
+                    # sums differ in order, so the match is within TOL (cut: the plain (k+1)-th)
                     k1 = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
                     check_topk(f"{name} against kernel 1", got[0], got[1],
-                               torch.nn.functional.pad(k1[0], (0, 1), value=float("-inf")),
-                               torch.nn.functional.pad(k1[1], (0, 1), value=torch.iinfo(torch.int32).max),
-                               exact=True)
+                               torch.cat([k1[0], ref[0][..., k:]], dim=-1), torch.cat([k1[1], ref[1][..., k:]], dim=-1))
                     _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], err)
                     cases += 1
     dups = list(range(1000, 1062)) + [3000, 4990]
@@ -739,7 +867,7 @@ def check_fused_kernel(gen, n, d) -> None:
             if idx[0].tolist() != ([7] + dups)[:k]:
                 raise AssertionError(f"fused duplicate-row ties {str(dtype)[6:]} k={k}: {idx[0].tolist()[:8]}...")
     log(f"[kernels] fused_topk: {cases} cases agree with the plain version, ranges and result (max |err| "
-        f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and are identical to kernel 1's; duplicate-row ties at "
+        f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and with kernel 1's within tol; duplicate-row ties at "
         f"the smallest row")
 
 
@@ -1088,16 +1216,19 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
                     base, "/search_photos", {"query": query, "top_k": 10}), allow_empty=True)
                 log(f"[scale] /search_photos {query!r} (candidate_k 500, plain large-k path, "
                     f"{index.last_route['impl']}): {hits} results in {1e3 * (time.perf_counter() - t):.1f} ms")
-            launches = read_launches()
+            launches, loops = read_launches(), read_loops()
         finally:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[scale] route launches {launches}")
+        log(f"[scale] route launches {launches}; kernels 1 and 5 by scoring loop {loops}")
         for name in _FLAT:
             if launches[name] <= 0:
                 raise AssertionError(f"scale routes never launched {name}")
             _LAUNCHES[name] += launches[name]
+        for name, by_loop in loops.items():  # bf16 rows of width 1536: the tensor cores only
+            if by_loop["fma"] or by_loop["tensor_core"] != launches[name]:
+                raise AssertionError(f"scale routes: {name} launched off the tensor cores: {by_loop}")
         mean = batcher.requests_served / max(batcher.batches_run, 1)
         log(f"[scale] micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run "
             f"{batcher.grouped_batches_run}, requests_served {batcher.requests_served} (mean batch {mean:.2f})")
@@ -1197,10 +1328,12 @@ def scale_impl_routes(store, masks, gen) -> None:
     device = store._device.device
     live = store._device[: store.count]
     for b in (1, 128):
-        want = store.search(queries[b], 50, impl="pallas")
-        for j, what in ((1, "ids"), (0, "values")):
-            if not np.array_equal(got[("pallas_fused", b)][j], want[j]):
-                raise AssertionError(f"scale fused search batch {b}: {what} differ from kernel 1's")
+        # kernel 4 (fmaf) against kernel 1 (tensor cores) at k + 1: the same
+        # rows, values within TOL (the sums differ in order)
+        want = store.search(queries[b], 51, impl="pallas")
+        err = check_topk(f"scale fused search batch {b} against kernel 1",
+                         *(torch.from_numpy(x) for x in (*got[("pallas_fused", b)], *want)))
+        _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], err)
         with plain_scan(to, "fast_block_topk"):
             ref = store.search(queries[b], 50, impl="pallas_fast")
         q16 = torch.from_numpy(queries[b] / np.linalg.norm(queries[b], axis=1, keepdims=True)).to(device).to(torch.bfloat16)
@@ -1215,8 +1348,8 @@ def scale_impl_routes(store, masks, gen) -> None:
     err = check_fast("scale grouped fast search batch 128", *(torch.from_numpy(x).to(device) for x in (*got[("grouped", 128)], *ref)), scores)
     _ERRORS["fast_grouped_block_topk"] = max(_ERRORS["fast_grouped_block_topk"], err)
     del scores, keep
-    log("[scale] impl routes: pallas_fused results identical to kernel 1's; pallas_fast (flat and grouped) "
-        "agree with the same searches on kernel 3's plain version")
+    log("[scale] impl routes: pallas_fused results agree with kernel 1's within tol; pallas_fast (flat and "
+        "grouped) agree with the same searches on kernel 3's plain version")
 
 
 def scale_kernel_times(store, masks, gen) -> None:
@@ -1243,7 +1376,8 @@ def scale_kernel_times(store, masks, gen) -> None:
     k6 = dict(count=rows, block_n=store._i8_block)
     nb, nb8 = -(-cap // store.block_rows), -(-cap // store._i8_block)
     k = 50
-    for batch, names in ((1, ("block_topk", "int8_block_topk", "fast_block_topk", "fused_topk")),
+    for batch, names in ((1, _FLAT + ("fast_block_topk", "fused_topk")),
+                         (8, ("block_topk", "grouped_block_topk", "int8_grouped_block_topk")),
                          (128, _FLAT + _IMPL_ROUTES),
                          (256, ("block_topk", "int8_block_topk"))):
         qb = _unit_rows(batch, dim, gen, torch.float32)
@@ -1314,6 +1448,11 @@ def scale_kernel_times(store, masks, gen) -> None:
                 + f"kernel {ms:.3f} ms, plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{d:.3f}); "
                 f"bound {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB, {ops / 1e12:.3f} T{unit} ops); "
                 f"library {lib_ms:.3f} ms (cuBLAS product + torch.topk)")
+        # kernel 1's time at k = 1 against k = 50: the share of its selection
+        k1_ms = cuda_ms(lambda: runs["block_topk"][0](1), reps=3)
+        k50_ms = _TIMES[("block_topk", batch, k)][0]
+        log(f"[scale] block_topk batch {batch} at {rows}x{dim}: k=1 {k1_ms:.3f} ms, k={k} {k50_ms:.3f} ms: "
+            f"selection of top-{k} adds {k50_ms - k1_ms:.3f} ms ({(k50_ms - k1_ms) / k50_ms:.0%})")
         # the whole search through each impl: kernel 1 + torch merge, kernel 3
         # + merge + rescore, kernel 4 with its merge on the card
         q_host = qb.cpu().numpy()

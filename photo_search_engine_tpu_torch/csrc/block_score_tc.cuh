@@ -1,0 +1,472 @@
+// The bfloat16 scan of kernels 1 and 5 on Hopper's tensor cores
+// (block_topk.cu): TMA loads into a ring of shared-memory stages, one
+// producer warp, two consumer warpgroups that run wgmma on bf16 with f32
+// accumulators, an epilogue into a score tile, and the threshold selection
+// (block_select.cuh, select_pass).
+//
+// Operands.  Corpus rows are wgmma's M side (operand A, K-major: the
+// corpus's own row-major [n, d] layout); the BQ queries of the CTA are its
+// N side (operand B, K-major: the queries' [q, d] layout).  Nothing is
+// transposed.  A corpus box is [kRowTile, kBoxK], a query box [BQ, kBoxK],
+// both 128 bytes wide with the 128-byte swizzle that the wgmma descriptors
+// name; a consumer warpgroup multiplies its 64 rows of a corpus box by the
+// query box in kBoxK / 16 = 4 instructions (m64nBQk16), advancing both
+// descriptors 32 bytes along K inside the swizzle atom.  TMA fills rows past
+// n and columns past d with zeros, so the ragged last block and a ragged D
+// need no code.
+//
+// Passes.  A CTA scores its block of `bn` rows in passes of kPassRows = 512
+// rows.  A pass keeps the scores of its 4 row tiles in registers (BQ / 2
+// floats a tile and thread) and walks D once: for each 64-wide chunk one
+// query box, then the 4 corpus boxes.  So a query box is read once a chunk
+// and pass, not once a row tile: at BQ 32, 16 KB of corpus bring 1 KB of
+// queries instead of 4 KB.  After the pass the epilogue (count, mask,
+// predicate, l2) writes a [BQ, 64 + 512] score tile whose rows start with
+// each query's running top-k of the earlier passes; select_pass replaces
+// that list, or on the last pass writes the block's partials.
+//
+// What bounds it (H100, 1M x 1536 bf16).  At batch <= 32 the corpus read
+// from device memory, 0.92 ms.  Above that the bytes the SMs take in: each
+// query tile of 32 reads the corpus again (from L2), so batch 128 moves 13
+// GB into the SMs, about 1.5 ms at the ~8.7 TB/s they take in (PERF.md),
+// then the selection.  A wider query tile would read less, but the f32
+// score tile of a wider one does not fit beside the ring.
+//
+// Shared memory (smem_bytes).  The ring is kStages corpus boxes (16 KB) and
+// kQueryStages query boxes; the tile is the score rows (pitch kListSlots +
+// kPassRows + kPitchPad floats) and the warps' candidate buffers.  At BQ 32
+// the tile (90,624 bytes) lies over the ring (73,728), which is idle once a
+// pass's loads are used, and the producer waits for the selection before
+// the next pass: 1,024 + 90,624 + 16,384 (lists) + 104 (mbarriers) =
+// 108,136 bytes, two CTAs an SM, so one CTA's selection runs beside the
+// other's loads.  At BQ 8 the tile (34,944) follows the ring (67,584) and
+// the producer streams on: 107,752 bytes, two CTAs an SM.  The limit is
+// 232,448 a CTA.  The pitch pad makes the epilogue's stores conflict-free:
+// the eight rows and four query pairs of a warp's accumulator fragment land
+// on 32 distinct banks.  Two CTAs of 288 threads leave 96 registers a
+// thread: kernel 1 fits, kernel 5 at BQ 32 spills 196 bytes (its predicate
+// rows) and runs within 2 % of kernel 1.
+//
+// Order of the sums.  Every output element sums its products over D in the
+// same order (16-wide steps, chunk after chunk), whatever its row's place
+// in the tile, so duplicate rows score identically and tie exactly.  The
+// order is not the f32 fmaf loop's nor cuBLAS's: the tests compare with a
+// tolerance (max |err| 4.8e-7 at 1536-d unit rows against the f32 product).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums: types only, the library does not link -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "block_select.cuh"
+
+namespace pse {
+namespace tc {
+
+constexpr int kRowTile = 128;      // corpus rows a stage holds: two m64 warpgroups
+constexpr int kBoxK = 64;          // D elements a stage holds: 128 bytes, the swizzle span
+constexpr int kSwizzleBytes = 128;  // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1
+constexpr int kStages = 4;         // corpus stages of the ring of kernels 1 and 5
+constexpr int kSweepStages = 6;    // the deeper ring scripts/torch_kernel_sweep.py also times
+constexpr int kQueryStages = 2;    // query stages: one box serves a pass's row tiles
+constexpr int kPassRows = 512;     // rows a pass keeps in the accumulators
+constexpr int kPassTiles = 4;      // row tiles of a pass
+constexpr int kPitchPad = 4;       // score-tile pitch kListSlots + kPassRows + 4 floats
+constexpr int kAlign = 1024;       // a 128-byte swizzle atom: 8 rows of 128 bytes
+constexpr int kSmallBQ = 8;        // queries a CTA at q <= 8 (m64n8k16)
+constexpr int kLargeBQ = 32;       // queries a CTA above that (m64n32k16)
+constexpr int kConsumers = 256;    // warps 0-7: two consumer warpgroups, then the selection
+constexpr int kThreadsTc = kConsumers + 32;  // and warp 8, the producer
+constexpr int kWgmmaK = 16;        // D elements one wgmma consumes
+static_assert(kPassTiles * kRowTile == kPassRows, "a pass is whole row tiles");
+
+// Shared memory of one CTA, in bytes from the aligned base: the ring
+// (stages corpus boxes, then kQueryStages query boxes), over which a pass's
+// score tile and the warps' candidate buffers are laid once the pass's
+// loads are used; then the running top-k lists and the mbarriers.
+template <int BQ>
+__host__ __device__ constexpr int ring_bytes(int stages) {
+  return stages * kRowTile * kBoxK * 2 + kQueryStages * BQ * kBoxK * 2;
+}
+
+template <int BQ>
+__host__ __device__ constexpr int tile_bytes() {
+  return BQ * (kListSlots + kPassRows + kPitchPad) * 4 + 8 * (kCandidates + kListSlots) * 8;
+}
+
+// At BQ 32 the tile lies over the ring (two CTAs an SM, whose loads and
+// selections overlap); at BQ 8 it has its own memory, so the producer
+// streams on through the tile's selection (also two CTAs an SM).
+template <int BQ>
+__host__ __device__ constexpr bool tile_over_ring() {
+  return BQ > kSmallBQ;
+}
+
+template <int BQ>
+__host__ __device__ constexpr int union_bytes(int stages) {
+  return !tile_over_ring<BQ>()                          ? ring_bytes<BQ>(stages) + tile_bytes<BQ>()
+         : ring_bytes<BQ>(stages) > tile_bytes<BQ>() ? ring_bytes<BQ>(stages)
+                                                       : tile_bytes<BQ>();
+}
+
+template <int BQ>
+__host__ __device__ constexpr size_t smem_bytes(int stages) {
+  return kAlign + union_bytes<BQ>(stages) + BQ * kListSlots * 8 + 8 * (2 * stages + 2 * kQueryStages + 1);
+}
+
+// ---------------------------------------------------------------------------
+// PTX: shared addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.  A wait that
+// never ends (a load that cannot complete) traps after some seconds, so the
+// launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t tries = 0;
+  do {
+    if (++tries == (1u << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One box of `map` at element (x along D, y along rows) into `dst`; its
+// bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                            int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile written by TMA with the 128-byte
+// swizzle, starting on a swizzle atom: rows of 128 bytes, 8-row groups
+// 1024 bytes apart (stride byte offset); the leading byte offset is unused
+// by a swizzled K-major operand.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16, descriptor a) * B^T (BQ x 16, descriptor b): the
+// accumulator fragment of m64nBQk16 is BQ / 2 floats a thread.
+template <int BQ>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The kernel body: scores of queries [q0, q0 + BQ) against rows [row0,
+// row0 + bn) into the score tile, then the block's top-k
+// ---------------------------------------------------------------------------
+
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+__device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
+                                              const CUtensorMap* query_map,
+                                              const float* __restrict__ qnorms,
+                                              const float* __restrict__ cnorms,
+                                              const int8_t* __restrict__ mask,
+                                              const Predicates& pred, float* __restrict__ out_v,
+                                              int* __restrict__ out_i, int n, int d, int q,
+                                              int count, int k, int bn, int l2) {
+  constexpr int kCorpusBox = kRowTile * kBoxK * 2;
+  constexpr int kQueryBox = BQ * kBoxK * 2;
+  constexpr int kPitch = kListSlots + kPassRows + kPitchPad;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  uint8_t* ring = base;                           // corpus stages, then query stages
+  uint8_t* qring = ring + kStagesT * kCorpusBox;
+  // the score tile and the candidates: over the ring once a pass's loads are
+  // used (BQ 32), or after it (BQ 8)
+  uint8_t* tile = tile_over_ring<BQ>() ? base : base + ring_bytes<BQ>(kStagesT);
+  float* scores = reinterpret_cast<float*>(tile);
+  float2* cands = reinterpret_cast<float2*>(tile + BQ * kPitch * 4);
+  float* list_v = reinterpret_cast<float*>(base + union_bytes<BQ>(kStagesT));
+  int* list_i = reinterpret_cast<int*>(list_v + BQ * kListSlots);
+  uint64_t* cfull = reinterpret_cast<uint64_t*>(list_i + BQ * kListSlots);
+  uint64_t* cempty = cfull + kStagesT;
+  uint64_t* qfull = cempty + kStagesT;
+  uint64_t* qempty = qfull + kQueryStages;
+  uint64_t* pass_free = qempty + kQueryStages;  // the consumers are done with a pass's tile
+  const int q0 = blockIdx.x * BQ;
+  const int blk = blockIdx.y;
+  const int row0 = blk * bn;
+  const int ncols = min(bn, n - row0);  // the block's rows
+  const int passes = (ncols + kPassRows - 1) / kPassRows;  // of kPassRows rows, the last ragged
+  const int chunks = (d + kBoxK - 1) / kBoxK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesT; ++s) {
+      mbar_init(&cfull[s], 1);            // the producer's arrive, plus the box's bytes
+      mbar_init(&cempty[s], kConsumers);  // every consumer thread, after its wgmma wait
+    }
+    for (int s = 0; s < kQueryStages; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], kConsumers);
+    }
+    mbar_init(pass_free, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp; the roles never meet again
+    if (threadIdx.x == kConsumers) {
+      int cs = 0, qs = 0;
+      uint32_t cph = 0, qph = 0;
+      for (int p = 0; p < passes; ++p) {
+        if (tile_over_ring<BQ>() && p > 0) mbar_wait(pass_free, (p - 1) & 1);  // the tile is selected
+        const int pass0 = p * kPassRows;
+        const int ptiles = (min(kPassRows, ncols - pass0) + kRowTile - 1) / kRowTile;
+        for (int c = 0; c < chunks; ++c) {
+          mbar_wait(&qempty[qs], qph ^ 1);  // the first pass finds every stage free
+          mbar_expect_tx(&qfull[qs], kQueryBox);  // out-of-bounds zeros count too
+          tma_load_2d(qring + qs * kQueryBox, query_map, &qfull[qs], c * kBoxK, q0);
+          if (++qs == kQueryStages) {
+            qs = 0;
+            qph ^= 1;
+          }
+          for (int t = 0; t < ptiles; ++t) {
+            mbar_wait(&cempty[cs], cph ^ 1);
+            mbar_expect_tx(&cfull[cs], kCorpusBox);
+            tma_load_2d(ring + cs * kCorpusBox, corpus_map, &cfull[cs], c * kBoxK,
+                        row0 + pass0 + t * kRowTile);
+            if (++cs == kStagesT) {
+              cs = 0;
+              cph ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers.  The running top-k of each query starts empty.
+  for (int i = threadIdx.x; i < BQ * kListSlots; i += kConsumers) {
+    list_v[i] = -CUDART_INF_F;
+    list_i[i] = INT_MAX;
+  }
+  // Warpgroup wg scores rows wg * 64 .. wg * 64 + 63 of each row tile.
+  // Fragment of m64nBQk16: element 4 j + 2 h + e of a thread is (row r + 8 h,
+  // query 8 j + qc + e), r = 16 * warp + lane / 4, qc = 2 * (lane % 4).
+  const int wg = threadIdx.x / 128;
+  const int t128 = threadIdx.x % 128;
+  const int frag_row = wg * 64 + (t128 / 32) * 16 + (t128 % 32) / 4;
+  const int qc = 2 * (t128 % 4);
+  int cs = 0, qs = 0;
+  uint32_t cph = 0, qph = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int pass0 = p * kPassRows;
+    const int prows = min(kPassRows, ncols - pass0);
+    const int ptiles = (prows + kRowTile - 1) / kRowTile;
+    float acc[kPassTiles][BQ / 2];
+#pragma unroll
+    for (int t = 0; t < kPassTiles; ++t)
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) acc[t][i] = 0.f;
+    // D chunk by chunk: one query box serves every row tile of the pass
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(&qfull[qs], qph);
+      const uint64_t db = sw128_desc(qring + qs * kQueryBox);
+#pragma unroll
+      for (int t = 0; t < kPassTiles; ++t) {
+        if (t < ptiles) {
+          mbar_wait(&cfull[cs], cph);
+          const uint64_t da = sw128_desc(ring + cs * kCorpusBox + wg * 64 * kBoxK * 2);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBoxK / kWgmmaK; ++kk)  // 32 bytes along K: 2 in 16-byte units
+            Wgmma<BQ>::mma(acc[t], da + 2 * kk, db + 2 * kk);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(acc[t]);
+          mbar_arrive(&cempty[cs]);
+          if (++cs == kStagesT) {
+            cs = 0;
+            cph ^= 1;
+          }
+        }
+      }
+      mbar_arrive(&qempty[qs]);
+      if (++qs == kQueryStages) {
+        qs = 0;
+        qph ^= 1;
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // both warpgroups are done with the ring
+
+    // epilogue: -inf past count / where mask <= 0 / where the query's
+    // predicate drops the row; l2 as in the TPU kernel.  The predicate rows
+    // are looked up here: looked up before the main loop, kernel 5 on the
+    // FMA loop ran 46 % slower than kernel 1 (H100).
+    const int8_t* pred_row[BQ / 4] = {};
+    if constexpr (kGrouped) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gq = q0 + 8 * j + qc + e;
+          const int id = gq < q ? pred.ids[gq] : -1;
+          pred_row[2 * j + e] =
+              (id >= 0 && id < pred.m) ? pred.table + static_cast<size_t>(id) * n : nullptr;
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < kPassTiles; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lp = t * kRowTile + frag_row + 8 * h;  // the row's place in the pass
+        if (lp >= prows) continue;
+        const int col = row0 + pass0 + lp;
+        const bool valid = col < count && (mask == nullptr || mask[col] > 0);
+        const float cn = (l2 && valid) ? cnorms[col] : 0.f;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = 8 * j + qc + e;
+            bool keep = valid;
+            if constexpr (kGrouped)
+              keep = keep && pred_row[2 * j + e] != nullptr && pred_row[2 * j + e][col] > 0;
+            float s = acc[t][4 * j + 2 * h + e];
+            if (l2 && keep) {
+              const float qn = (q0 + ql < q) ? qnorms[q0 + ql] : 0.f;
+              s = -__fsub_rn(__fadd_rn(qn, cn), __fmul_rn(2.f, s));
+            }
+            scores[ql * kPitch + kListSlots + lp] = keep ? s : -CUDART_INF_F;
+          }
+      }
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // the tile is whole
+
+    select_pass<BQ, kThreshold>(scores, kPitch, prows, list_v, list_i, q0, q, blk, gridDim.y,
+                                row0 + pass0, k, p == passes - 1, cands, out_v, out_i);
+    // the producer's next loads write over the tile: order these generic
+    // accesses before them
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(pass_free);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps through cudaGetDriverEntryPoint (no -lcuda)
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A row-major bf16 [rows, d] tensor cut into [box_rows, kBoxK] boxes with
+// the 128-byte swizzle; reads out of bounds fill zeros.  Needs d % 8 == 0
+// (a 16-byte row stride) and a 16-byte-aligned base.
+inline bool make_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBoxK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elems[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
+}  // namespace pse

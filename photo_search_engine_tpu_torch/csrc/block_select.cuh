@@ -13,10 +13,11 @@
 // columns.  Ties therefore go to the smallest row, as lax.top_k does, and
 // the comparison is on exact float32 values (no packed keys).
 //
-// Three variants beside it: select_block_topk_fast, the packed keys of
-// kernel 3 (_extract_block_topk_fast, topk.py:301-342); merge_topk_ids,
-// which carries explicit ids for kernel 4's running top-k; and the
-// merge of sorted lists in fused_topk.cu.
+// Variants beside it: select_pass, the threshold selection with a running
+// top-k of the bf16 kernels 1 and 5 on the tensor cores; select_block_topk_fast,
+// the packed keys of kernel 3 (_extract_block_topk_fast, topk.py:301-342);
+// merge_topk_ids, which carries explicit ids for kernel 4's running top-k;
+// and the merge of sorted lists in fused_topk.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +81,45 @@ __device__ __forceinline__ void lane_best(const float* row, int bn, int lane,
   }
 }
 
+// Top-k of one score row `row` (columns [0, ncols)) by one warp, in k
+// rounds: lane 0 calls emit(slot, value, id_of(column)), or emit(slot,
+// -inf, INT_MAX) for a slot with no valid column.  Ties go to the smallest
+// column.  `row` is consumed.
+template <typename Id, typename Emit>
+__device__ __forceinline__ void select_row_by(float* row, int ncols, int k, Id id_of, Emit emit) {
+  const int lane = threadIdx.x % 32;
+  float bv;
+  int bc;
+  lane_best(row, ncols, lane, bv, bc);
+  for (int slot = 0; slot < k; ++slot) {
+    float wv = bv;
+    int wc = bc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
+      const int oc = __shfl_xor_sync(0xffffffffu, wc, off);
+      if (better(ov, oc, wv, wc)) {
+        wv = ov;
+        wc = oc;
+      }
+    }
+    if (lane == 0) emit(slot, wv, wc == INT_MAX ? INT_MAX : id_of(wc));
+    if (wc != INT_MAX && lane == (wc & 31)) {
+      row[wc] = -CUDART_INF_F;  // eliminate, then rescan this lane only
+      lane_best(row, ncols, lane, bv, bc);
+    }
+  }
+}
+
+// select_row_by with ids col0 + column, written to out_v/out_i[first + slot].
+__device__ __forceinline__ void select_row(float* row, int ncols, int col0, int k, size_t first,
+                                           float* __restrict__ out_v, int* __restrict__ out_i) {
+  select_row_by(row, ncols, k, [=](int c) { return col0 + c; }, [=](int slot, float v, int id) {
+    out_v[first + slot] = v;
+    out_i[first + slot] = id;
+  });
+}
+
 // Top-k of rows 0 .. nrows-1 of the score tile `scores` (row pitch
 // `pitch`, columns [0, ncols)): row ql's slot s goes to
 // out_v/out_i[base(ql) + s], with id col0 + column.  Slots with no valid
@@ -88,36 +128,9 @@ template <typename Base>
 __device__ void select_topk(float* scores, int pitch, int ncols, int nrows, int col0,
                             int k, Base base, float* __restrict__ out_v,
                             int* __restrict__ out_i) {
-  const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
-    float* row = scores + ql * pitch;
-    float bv;
-    int bc;
-    lane_best(row, ncols, lane, bv, bc);
-    const size_t first = base(ql);
-    for (int slot = 0; slot < k; ++slot) {
-      float wv = bv;
-      int wc = bc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, wc, off);
-        if (better(ov, oc, wv, wc)) {
-          wv = ov;
-          wc = oc;
-        }
-      }
-      if (lane == 0) {
-        out_v[first + slot] = wv;
-        out_i[first + slot] = wc == INT_MAX ? INT_MAX : col0 + wc;
-      }
-      if (wc != INT_MAX && lane == (wc & 31)) {
-        row[wc] = -CUDART_INF_F;  // eliminate, then rescan this lane only
-        lane_best(row, ncols, lane, bv, bc);
-      }
-    }
-  }
+  for (int ql = warp; ql < nrows; ql += kWarps)  // warp-uniform
+    select_row(scores + ql * pitch, ncols, col0, k, base(ql), out_v, out_i);
 }
 
 // Top-k of every query row of the [BQ, bn] score tile `scores`, written to
@@ -131,6 +144,144 @@ __device__ void select_block_topk(float* scores, int bn, int q0, int q,
   select_topk(scores, bn, bn, nrows, row0, k,
               [=](int ql) { return (static_cast<size_t>(q0 + ql) * nb + blk) * k; },
               out_v, out_i);
+}
+
+// ---------------------------------------------------------------------------
+// Selection of the tensor-core scan (bf16 kernels 1 and 5,
+// block_score_tc.cuh).  The scan scores a block in passes of rows; a score
+// row of a pass holds the query's running top-k of the earlier passes in its
+// first kListSlots positions (ids from the list, -inf past k) and the pass's
+// rows after them (ids id0 + position - kListSlots).  Ids of equal scores
+// then grow with the position, so ties to the smallest position are ties to
+// the smallest row.
+//
+// Threshold selection.  The k rounds cost 10 shuffles and a rescan each;
+// with the scoring loop on the tensor cores they took most of a block's
+// time at batch 128 (5.19 ms at k = 50 against 1.88 at k = 1, H100).  Here
+// one warp finds a threshold T that at least k of the row's positions
+// reach, keeps only the positions at or above it, and places each kept one
+// by its rank:
+// 1. each lane keeps the maxima of kSubsets disjoint subsets of its
+//    positions (position lane + 32 i goes to subset i % kSubsets): 128
+//    maxima of distinct positions;
+// 2. T is the k-th largest of them (k <= 64 <= 128), so at least k
+//    positions score >= T, and every position of the top-k does; it is
+//    found bit by bit on order-preserving keys, 32 warp sums in registers;
+// 3. the live positions (> -inf) scoring >= T are compacted, with their
+//    ids, into the warp's candidate buffer;
+// 4. each candidate's rank is the number of candidates before it in
+//    (value descending, id ascending) order; rank < k is its slot.
+// The comparison is on exact f32 values.  A row with more than kCandidates
+// candidates (many equal scores at T) takes the k rounds instead.
+// ---------------------------------------------------------------------------
+
+constexpr int kSubsets = 4;       // subset maxima a lane keeps
+constexpr int kListSlots = 64;    // the running top-k at the head of a score row (k <= 64)
+constexpr int kCandidates = 192;  // (value, id) slots of a warp's candidates; the row's result follows
+
+// An order-preserving map of float32 to uint32 (a < b iff key(a) < key(b)
+// for non-NaN values; -inf is the smallest) and its inverse.
+__device__ __forceinline__ uint32_t ordered_key(float v) {
+  const uint32_t bits = __float_as_uint(v);
+  return bits & 0x80000000u ? ~bits : bits | 0x80000000u;
+}
+
+__device__ __forceinline__ float from_ordered_key(uint32_t key) {
+  return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
+}
+
+// One pass's selection for every query row of the score tile (pitch
+// `pitch`, positions [0, kListSlots + prows)): the running list
+// list_v/list_i ([BQ][kListSlots]) is copied into each row's head, and the
+// row's new top-k replaces it, or, on the last pass, goes to
+// out_v/out_i[(q * nb + blk) * k + slot].  kThreshold: the threshold
+// selection, else the k rounds.  `buf` holds kWarps * (kCandidates +
+// kListSlots) pairs.  Kept out of line, as the packed-key selection is.
+template <int BQ, bool kThreshold>
+__device__ __noinline__ void select_pass(float* scores, int pitch, int prows, float* list_v,
+                                         int* list_i, int q0, int q, int blk, int nb, int id0,
+                                         int k, bool last, float2* buf,
+                                         float* __restrict__ out_v, int* __restrict__ out_i) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  float2* cand = buf + warp * (kCandidates + kListSlots);
+  float2* best = cand + kCandidates;  // the row's new top-k: (value, id) by slot
+  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+  const int ncols = kListSlots + prows;
+  for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
+    float* row = scores + ql * pitch;
+    float* lv = list_v + ql * kListSlots;
+    int* li = list_i + ql * kListSlots;
+    for (int s = lane; s < kListSlots; s += 32) row[s] = lv[s];
+    __syncwarp();
+    auto id_of = [=](int c) { return c < kListSlots ? li[c] : id0 + c - kListSlots; };
+    int total = kCandidates + 1;
+    if constexpr (kThreshold) {
+      float m[kSubsets];
+#pragma unroll
+      for (int s = 0; s < kSubsets; ++s) m[s] = -CUDART_INF_F;
+      for (int c0 = 0; c0 < ncols; c0 += 32 * kSubsets)
+#pragma unroll
+        for (int s = 0; s < kSubsets; ++s) {
+          const int c = c0 + 32 * s + lane;
+          if (c < ncols) m[s] = fmaxf(m[s], row[c]);
+        }
+      // T, the k-th largest maximum: the largest key x that at least k of
+      // the maxima reach, built bit by bit from the top
+      uint32_t key[kSubsets];
+#pragma unroll
+      for (int s = 0; s < kSubsets; ++s) key[s] = ordered_key(m[s]);
+      uint32_t prefix = 0;
+      for (int bit = 31; bit >= 0; --bit) {
+        const uint32_t trial = prefix | (1u << bit);
+        int reach = 0;
+#pragma unroll
+        for (int s = 0; s < kSubsets; ++s) reach += key[s] >= trial;
+        if (__reduce_add_sync(0xffffffffu, reach) >= k) prefix = trial;
+      }
+      const float t = from_ordered_key(prefix);
+      total = 0;
+      for (int c0 = 0; c0 < ncols; c0 += 32) {
+        const int c = c0 + lane;
+        const float v = c < ncols ? row[c] : -CUDART_INF_F;
+        const bool take = v >= t && v != -CUDART_INF_F;
+        const unsigned ballot = __ballot_sync(0xffffffffu, take);
+        const int pos = total + __popc(ballot & ((1u << lane) - 1));
+        if (take && pos < kCandidates) cand[pos] = make_float2(v, __int_as_float(id_of(c)));
+        total += __popc(ballot);
+      }
+      __syncwarp();
+    }
+    if (total > kCandidates) {
+      select_row_by(row, ncols, k, id_of,
+                    [=](int slot, float v, int id) { best[slot] = make_float2(v, __int_as_float(id)); });
+    } else {
+      for (int i = lane; i < total; i += 32) {
+        const float2 mine = cand[i];
+        const int id = __float_as_int(mine.y);
+        int rank = 0;
+        for (int j = 0; j < total; ++j) {  // one broadcast read a step
+          const float2 o = cand[j];
+          rank += better(o.x, __float_as_int(o.y), mine.x, id);
+        }
+        if (rank < k) best[rank] = mine;
+      }
+      for (int s = total + lane; s < k; s += 32) best[s] = make_float2(-CUDART_INF_F, __int_as_float(INT_MAX));
+    }
+    __syncwarp();  // every id is read from the list before the list is rewritten
+    const size_t first = (static_cast<size_t>(q0 + ql) * nb + blk) * k;
+    for (int s = lane; s < kListSlots; s += 32) {
+      const float2 b = s < k ? best[s] : make_float2(-CUDART_INF_F, __int_as_float(INT_MAX));
+      if (!last) {
+        lv[s] = b.x;
+        li[s] = __float_as_int(b.y);
+      } else if (s < k) {
+        out_v[first + s] = b.x;
+        out_i[first + s] = __float_as_int(b.y);
+      }
+    }
+    __syncwarp();  // the buffers are free for the next row
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -28,24 +28,40 @@
 // kernel writes; the wrapper rescores the k winners exactly.
 //
 // What bounds it on the H100: at 1M x 1536 bf16 every batch reads the
-// 3.1 GB corpus.  At batch 1 that read is the cost (about 1 ms at
-// 3.35 TB/s).  At batch 256 the product is 2 * 256 * 1M * 1536 = 0.8 TFLOP,
-// which plain FP32 FMAs (67 TFLOP/s peak) cannot do in less than ~12 ms, so
-// this kernel is bound by compute there.
+// 3.1 GB corpus once from device memory: 0.92 ms at 3.35 TB/s.  The product
+// is 2 * q * 1M * 1536 operations: 0.4 TFLOP at batch 128, 0.40 ms at the
+// 989 TFLOP/s of bf16 on the tensor cores, so the bytes bound every batch
+// up to about 300.  The first port's f32 fmaf loop ran at about 10 TFLOP/s
+// and 0.8 TB/s (39.9 ms at batch 128, 3.9 ms at batch 1).
 //
-// What the design does about it: each CTA owns one block of `bn` corpus
-// rows for BQ queries, so every corpus element it stages in shared memory
-// feeds BQ queries (32 at large batch) and the corpus is read from device
-// memory once per query block; query blocks run on blockIdx.x, so CTAs that
-// share a corpus block run together and the re-reads hit L2.  Each thread
-// keeps a TQ x 8 register tile of f32 accumulators (fmaf, IEEE, no TF32,
-// no tensor cores yet; bf16 is widened with __bfloat162float), and D is
-// staged 32 at a time, transposed with an odd pitch so both the staging
-// writes and the FMA reads are free of bank conflicts.  Scores never leave
-// the SM: the epilogue (count, mask, l2) writes them to a [BQ, bn] tile in
-// shared memory, and the selection (block_select.cuh) writes only k
-// partials per query and block.  wgmma, TMA and a pipelined ring of tiles
-// are later work.
+// What the design does about it (bf16, d % 8 == 0: block_score_tc.cuh).
+// One CTA owns one block of `bn` corpus rows for BQ queries (8 at q <= 8,
+// the micro-batcher's batches, else 32); query tiles run on blockIdx.x, so
+// the CTAs of one corpus block run together and its re-reads hit L2.  A
+// producer warp keeps a ring of 4 corpus boxes ([128 rows, 64], 16 KB) and
+// 2 query boxes filled by TMA (128-byte swizzle): 64 KB in flight a CTA,
+// two CTAs an SM, against the 25-30 KB an SM that 3.35 TB/s needs.  Two
+// consumer warpgroups multiply their 64 rows of each corpus box by the
+// query box with wgmma (m64n8k16 / m64n32k16, bf16 inputs, f32
+// accumulators: the TPU kernel's DEFAULT-precision dot) and keep a pass of
+// 512 rows in registers, so a query box serves 4 corpus boxes.  After a
+// pass they apply count, mask, predicate and l2 to the accumulators and
+// store them into a score tile laid over the idle ring (BQ 32); the
+// threshold selection (block_select.cuh, select_pass) keeps the positions
+// at or above the k-th largest of 128 subset maxima and places each by its
+// rank, merging each query's running top-k of the earlier passes: exact
+// f32 comparisons, ties to the smallest row, at a fraction of the cost of
+// k warp rounds.  108 KB of shared memory a CTA at BQ 32, 105 KB at BQ 8.
+// At batch 128 the SMs' intake of corpus re-reads (one per query tile of
+// 32) and the selection remain: 2.15 ms against the 0.93 ms bound (PERF.md).
+//
+// Which loop runs.  bf16 with d % 8 == 0 takes the tensor cores (the
+// wrappers check 16-byte-aligned bases); bf16 with d % 8 != 0, whose rows
+// TMA cannot stride, and every float32 corpus take the FMA loop of
+// block_score.cuh: a TQ x 8 register tile of IEEE fmaf (no TF32: f32 is
+// scored at full precision, as the JAX package's Precision.HIGHEST), D
+// staged 32 at a time.  The wrappers count launches by loop
+// (launches_by_loop).  Kernels 3 and 4 keep the FMA loop for now.
 //
 // Outputs: [Q, NB, k] float32 scores (higher is better; l2 as
 // -(|q|^2 + |c|^2 - 2 q.c)) and int32 global row ids, padded with -inf and
@@ -55,8 +71,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 #include "block_score.cuh"
+#include "block_score_tc.cuh"
 #include "block_select.cuh"
 
 namespace {
@@ -82,6 +100,20 @@ block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
     select_block_topk_fast<BQ>(smem, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
   else
     select_block_topk<BQ>(smem, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
+}
+
+// The bf16 kernels 1 and 5 on the tensor cores (block_score_tc.cuh).
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+__global__ void __launch_bounds__(tc::kThreadsTc, 2)
+tc_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
+                     const __grid_constant__ CUtensorMap query_map,
+                     const float* __restrict__ qnorms, const float* __restrict__ cnorms,
+                     const int8_t* __restrict__ mask, Predicates pred,
+                     float* __restrict__ out_v, int* __restrict__ out_i, int n, int d, int q,
+                     int count, int k, int bn, int l2) {
+  tc::tc_block_topk<BQ, kStagesT, kGrouped, kThreshold>(&corpus_map, &query_map, qnorms, cnorms,
+                                                        mask, pred, out_v, out_i, n, d, q, count,
+                                                        k, bn, l2);
 }
 
 template <typename T, int BQ, bool kGrouped, bool kFast>
@@ -119,6 +151,59 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms,
                                      out_i, n, d, q, count, k, bn, l2, s);
 }
 
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
+                   const void* cnorms, const void* mask, Predicates pred, void* out_v,
+                   void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
+                   cudaStream_t stream) {
+  CUtensorMap corpus_map, query_map;
+  if (!tc::make_map(&corpus_map, corpus, n, d, tc::kRowTile) ||
+      !tc::make_map(&query_map, queries, q, d, BQ))
+    return cudaErrorInvalidValue;
+  const size_t smem = tc::smem_bytes<BQ>(kStagesT);
+  auto kernel = tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  const dim3 grid((q + BQ - 1) / BQ, (n + bn - 1) / bn);
+  kernel<<<grid, tc::kThreadsTc, smem, stream>>>(
+      corpus_map, query_map, static_cast<const float*>(qnorms),
+      static_cast<const float*>(cnorms), static_cast<const int8_t*>(mask), pred,
+      static_cast<float*>(out_v), static_cast<int*>(out_i), n, d, q, count, k, bn, l2);
+  return cudaGetLastError();
+}
+
+template <int kStagesT, bool kGrouped, bool kThreshold>
+int dispatch_tc(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
+                const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d, int q,
+                int count, int k, int bn, int l2, cudaStream_t s) {
+  if (q <= tc::kSmallBQ)
+    return run_tc<tc::kSmallBQ, kStagesT, kGrouped, kThreshold>(
+        corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
+  return run_tc<tc::kLargeBQ, kStagesT, kGrouped, kThreshold>(
+      corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
+}
+
+// bf16 kernels 1 and 5: the tensor cores where TMA can read the rows (a
+// 16-byte row stride, d % 8 == 0, and 16-byte-aligned bases); other
+// widths take the FMA loop, and the wrappers count those launches apart.
+template <bool kGrouped>
+int dispatch_bf16(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
+                  const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d,
+                  int q, int count, int k, int bn, int l2, void* stream) {
+  if (d % 8 != 0)
+    return dispatch<__nv_bfloat16, kGrouped>(corpus, queries, qnorms, cnorms, mask, pred, out_v,
+                                             out_i, n, d, q, count, k, bn, l2, stream);
+  if (reinterpret_cast<uintptr_t>(corpus) % 16 || reinterpret_cast<uintptr_t>(queries) % 16)
+    return cudaErrorMisalignedAddress;
+  return dispatch_tc<tc::kStages, kGrouped, true>(corpus, queries, qnorms, cnorms, mask, pred,
+                                                  out_v, out_i, n, d, q, count, k, bn, l2,
+                                                  static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" int pse_block_topk_f32(const void* corpus, const void* queries,
@@ -135,8 +220,34 @@ extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries,
                                    const void* mask, void* out_v, void* out_i,
                                    int n, int d, int q, int count, int k, int bn,
                                    int l2, void* stream) {
-  return dispatch<__nv_bfloat16, false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{},
-                                        out_v, out_i, n, d, q, count, k, bn, l2, stream);
+  return dispatch_bf16<false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{}, out_v,
+                              out_i, n, d, q, count, k, bn, l2, stream);
+}
+
+// Kernel 1, bf16, on the tensor cores at a chosen ring depth (2, 4 or 6
+// stages) and selection (0: the k rounds, 1: the threshold), for
+// scripts/torch_kernel_sweep.py; needs d % 8 == 0.
+extern "C" int pse_block_topk_bf16_geometry(const void* corpus, const void* queries,
+                                            const void* qnorms, const void* cnorms,
+                                            const void* mask, void* out_v, void* out_i, int n,
+                                            int d, int q, int count, int k, int bn, int l2,
+                                            int stages, int threshold, void* stream) {
+  using pse::tc::kStages;
+  using pse::tc::kSweepStages;
+  if (d % 8 != 0 || reinterpret_cast<uintptr_t>(corpus) % 16 ||
+      reinterpret_cast<uintptr_t>(queries) % 16)
+    return cudaErrorInvalidValue;
+  auto run = [&](auto launch) {
+    return launch(corpus, queries, qnorms, cnorms, mask, pse::Predicates{}, out_v, out_i, n, d, q,
+                  count, k, bn, l2, static_cast<cudaStream_t>(stream));
+  };
+  if (stages == kStages)
+    return threshold ? run(dispatch_tc<kStages, false, true>) : run(dispatch_tc<kStages, false, false>);
+  if (stages == kSweepStages)
+    return threshold ? run(dispatch_tc<kSweepStages, false, true>)
+                     : run(dispatch_tc<kSweepStages, false, false>);
+  if (stages == 2 && threshold) return run(dispatch_tc<2, false, true>);
+  return cudaErrorInvalidValue;
 }
 
 // Kernel 5: table is [m][n] int8, ids [q] int32 (see Predicates).
@@ -155,9 +266,9 @@ extern "C" int pse_grouped_block_topk_bf16(const void* corpus, const void* queri
                                            void* out_v, void* out_i, int n, int d,
                                            int q, int count, int k, int bn, int m,
                                            void* stream) {
-  return dispatch<__nv_bfloat16, true>(corpus, queries, nullptr, nullptr, nullptr,
-                                       pse::make_predicates(table, ids, m), out_v, out_i, n,
-                                       d, q, count, k, bn, 0, stream);
+  return dispatch_bf16<true>(corpus, queries, nullptr, nullptr, nullptr,
+                             pse::make_predicates(table, ids, m), out_v, out_i, n, d, q, count,
+                             k, bn, 0, stream);
 }
 
 // Kernel 3: kernel 1 with packed-key selection; the outputs hold the

@@ -39,6 +39,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pse_block_topk_f32": (7, 7),
     "pse_block_topk_bf16": (7, 7),
+    "pse_block_topk_bf16_geometry": (7, 9),
     "pse_int8_block_topk": (8, 7),
     "pse_grouped_block_topk_f32": (6, 7),
     "pse_grouped_block_topk_bf16": (6, 7),
@@ -65,15 +66,16 @@ def _sources():
     )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str = "nvcc") -> str:
+    """A CUDA toolkit program: on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = os.path.join(home, "bin", "nvcc")
+    candidate = os.path.join(home, "bin", name)
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    raise RuntimeError(f"{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
 def _build() -> str:
@@ -93,7 +95,7 @@ def _build() -> str:
         return out_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp_path = f"{out_path}.{os.getpid()}.tmp"
-    nvcc = _nvcc()
+    nvcc = _tool()
     started = time.perf_counter()
     compiles = []
     for source in (s for s in sources if s.endswith(".cu")):
@@ -133,7 +135,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         lib = _state.get("lib")
         if lib is None:
-            lib = ctypes.CDLL(_build())
+            _state["path"] = _build()
+            lib = ctypes.CDLL(_state["path"])
             for name, (n_ptr, n_int) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
@@ -151,6 +154,29 @@ def build_info() -> Dict[str, object]:
         "seconds": float(_state.get("build_seconds", 0.0)),
         "log": str(_state.get("build_log", "")),
     }
+
+
+def sass_counts(pattern: str, opcodes=("HGMMA", "UTMALDG")) -> Dict[str, Dict[str, int]]:
+    """How many of each opcode the SASS of every compiled kernel whose
+    mangled name contains ``pattern`` holds (``cuobjdump -sass`` of the
+    built library): ``HGMMA`` is wgmma, ``UTMALDG`` a TMA load."""
+    import re
+
+    library()
+    dump = subprocess.run([_tool("cuobjdump"), "-sass", str(_state["path"])], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in dump.splitlines():
+        found = re.match(r"\s*Function : (\S+)", line)
+        if found:
+            current = found.group(1) if pattern in found.group(1) else None
+            if current:
+                counts[current] = dict.fromkeys(opcodes, 0)
+        elif current:
+            for op in opcodes:
+                counts[current][op] += op in line
+    return counts
 
 
 def ptr(tensor) -> Optional[int]:
@@ -179,6 +205,23 @@ def require(what: str, tensor, device, dtype, shape) -> None:
             f"{what}: expected a contiguous {dtype} tensor of shape {tuple(shape)} "
             f"on {device}, got {tensor.dtype} {tuple(tensor.shape)} on {tensor.device}"
         )
+
+
+def require_aligned(what: str, tensor, alignment: int = 16) -> None:
+    """Raise unless ``tensor`` starts on an ``alignment``-byte boundary
+    (TMA reads bf16 rows from 16-byte-aligned bases only)."""
+    if tensor.data_ptr() % alignment:
+        raise ValueError(f"{what}: the tensor must start on a {alignment}-byte boundary, "
+                         f"got address {tensor.data_ptr():#x}")
+
+
+def header_constants(name: str) -> Dict[str, int]:
+    """The ``constexpr int kName = value;`` constants of the header
+    ``csrc/<name>``: the tile geometry the kernels compile with."""
+    import re
+
+    with open(os.path.join(SRC_DIR, name)) as f:
+        return {key: int(value) for key, value in re.findall(r"constexpr int (k\w+) = (\d+);", f.read())}
 
 
 def check(error: int, what: str) -> None:

@@ -57,6 +57,7 @@ from photo_search_engine_tpu_torch.ops.topk import (
     plain_topk,
     rescore_pool,
     score_chunk,
+    scoring_loop,
 )
 
 _MASK_BUCKET_MIN = 2
@@ -162,6 +163,9 @@ def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, c
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
     _cuda.require(f"{name} mask_table", mask_table, dev, torch.int8, (m, n))
     _cuda.require(f"{name} mask_ids", mask_ids, dev, torch.int32, (q,))
+    if not fast and corpus.dtype == torch.bfloat16:
+        _cuda.require_aligned(f"{name} corpus", corpus)
+        _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
         raise ValueError(f"{name}: n={n}, q={q}, k={k} outside the kernel's range")
     if fast and block_n > FAST_MAX_BN:
@@ -196,10 +200,11 @@ def grouped_block_topk(
     under its own predicate row.
 
     ``corpus`` ``[N, D]`` and ``queries`` ``[Q, D]`` are float32 or
-    bfloat16 (the same dtype); ``mask_table`` is int8 ``[M, N]`` and
-    ``mask_ids`` int32 ``[Q]``.  Outputs as in
-    :func:`grouped_block_topk_plain`.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    bfloat16 (the same dtype; bfloat16 on 16-byte-aligned bases);
+    ``mask_table`` is int8 ``[M, N]`` and ``mask_ids`` int32 ``[Q]``.
+    Outputs as in :func:`grouped_block_topk_plain`.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (its scoring loop
+    as ``topk.scoring_loop`` says) or raises."""
     if corpus.device.type == "cpu":
         return grouped_block_topk_plain(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
@@ -207,10 +212,12 @@ def grouped_block_topk(
     out = _launch_grouped_scan("grouped_block_topk", False, corpus, queries, mask_table, mask_ids, k,
                                count, block_n)
     grouped_block_topk.launches += 1
+    grouped_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
     return out
 
 
 grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+grouped_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
 
 
 def fast_grouped_block_topk(

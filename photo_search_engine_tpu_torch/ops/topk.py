@@ -228,6 +228,29 @@ def fast_block_topk_plain(corpus, queries, k, *, count, metric="ip", mask=None, 
                                   cnorms=cnorms, block_n=block_n, fast=True)
 
 
+def scoring_loop(corpus: torch.Tensor) -> str:
+    """Which scoring loop kernels 1 and 5 run on ``corpus`` (the C entry
+    points' dispatch by shape): ``"tensor_core"`` (wgmma fed by TMA,
+    ``csrc/block_score_tc.cuh``) for bfloat16 rows whose byte stride TMA
+    takes (D % 8 == 0), ``"fma"`` (``csrc/block_score.cuh``) otherwise."""
+    return "tensor_core" if corpus.dtype == torch.bfloat16 and corpus.shape[1] % 8 == 0 else "fma"
+
+
+def tc_shared_bytes(bq: int, stages: int) -> int:
+    """Shared memory of one tensor-core CTA (``tc::smem_bytes`` in
+    ``csrc/block_score_tc.cuh``, from the constants of that header and of
+    ``block_select.cuh``): alignment slack, the ring of corpus and query
+    boxes and a pass's score tile and candidate buffers (at BQ 32 laid over
+    the ring), the running top-k lists, the mbarriers.  It does not depend
+    on block_n."""
+    c = {**_cuda.header_constants("block_select.cuh"), **_cuda.header_constants("block_score_tc.cuh")}
+    ring = stages * c["kRowTile"] * c["kBoxK"] * 2 + c["kQueryStages"] * bq * c["kBoxK"] * 2
+    tile = (bq * (c["kListSlots"] + c["kPassRows"] + c["kPitchPad"]) * 4
+            + 8 * (c["kCandidates"] + c["kListSlots"]) * 8)
+    over = max(ring, tile) if bq > c["kSmallBQ"] else ring + tile  # the tile over the ring at BQ 32
+    return c["kAlign"] + over + bq * c["kListSlots"] * 8 + 8 * (2 * stages + 2 * c["kQueryStages"] + 1)
+
+
 def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnorms, block_n):
     """Checks and launch of kernel 1 (``fast``: kernel 3) on CUDA tensors."""
     if corpus.device.type != "cuda":
@@ -237,6 +260,9 @@ def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnor
     (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
     _cuda.require(f"{name} corpus", corpus, dev, corpus.dtype, (n, d))
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
+    if not fast and corpus.dtype == torch.bfloat16:
+        _cuda.require_aligned(f"{name} corpus", corpus)
+        _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
         raise ValueError(f"{name}: n={n}, q={q}, k={k} outside the kernel's range")
     if fast and block_n > FAST_MAX_BN:
@@ -280,10 +306,11 @@ def block_topk(
     """Kernel 1: per-block top-k of ``queries`` over ``corpus``.
 
     ``corpus`` ``[N, D]`` and ``queries`` ``[Q, D]`` are float32 or
-    bfloat16 (the same dtype); ``mask`` is int8 ``[N]``; ``cnorms`` is the
-    float32 ``[N]`` row norms that ``metric="l2"`` needs.  Outputs as in
-    :func:`exact_block_topk_plain`.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises."""
+    bfloat16 (the same dtype; bfloat16 on 16-byte-aligned bases); ``mask``
+    is int8 ``[N]``; ``cnorms`` is the float32 ``[N]`` row norms that
+    ``metric="l2"`` needs.  Outputs as in :func:`exact_block_topk_plain`.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (its scoring loop as :func:`scoring_loop` says) or raises."""
     if corpus.device.type == "cpu":
         return exact_block_topk_plain(
             corpus, queries, k, count=count, metric=metric, mask=mask,
@@ -291,10 +318,12 @@ def block_topk(
         )
     out = _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n)
     block_topk.launches += 1
+    block_topk.launches_by_loop[scoring_loop(corpus)] += 1
     return out
 
 
 block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
 
 
 def fast_block_topk(

@@ -375,3 +375,59 @@ def test_every_entry_point_has_its_ctypes_signature():
             for name in re.findall(rf"^{macro}\((pse_\w+),", text, re.M):
                 found[name] = counts(args)
     assert found == _cuda._SIGNATURES
+
+
+_SM_SHARED_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
+_SM_SHARED = 233472  # an SM's shared memory; each resident CTA also reserves 1 KB
+
+
+@pytest.mark.parametrize("which", ["small", "large"])
+def test_tensor_core_tiles_fit_one_sm_and_follow_the_tma_box_rules(which):
+    """The tile constants of ``csrc/block_score_tc.cuh`` (bf16 kernels 1 and
+    5), parsed from the headers as the kernels compile them: every
+    instantiation's shared memory fits a CTA, and two CTAs share an SM, as
+    the launch bounds promise; the TMA boxes are
+    128 bytes wide with the 128-byte swizzle and at most 256 elements along
+    each dimension; every box starts on a swizzle atom; a pass is whole row
+    tiles; the running top-k holds the largest k."""
+    c = _cuda.header_constants("block_score_tc.cuh")
+    s = _cuda.header_constants("block_select.cuh")
+    bq = c["kSmallBQ"] if which == "small" else c["kLargeBQ"]
+    assert ttopk.kernel_block_q(c["kSmallBQ"]) == c["kSmallBQ"]
+    assert ttopk.kernel_block_q(c["kSmallBQ"] + 1) == c["kLargeBQ"]
+    # boxes: [kRowTile, kBoxK] of the corpus, [BQ, kBoxK] of the queries
+    assert c["kBoxK"] * 2 == c["kSwizzleBytes"] == 128
+    for rows in (c["kRowTile"], bq):
+        assert 0 < rows <= 256 and rows % 8 == 0  # a box dimension; wgmma N (8..256, step 8)
+    assert c["kBoxK"] <= 256 and c["kBoxK"] % c["kWgmmaK"] == 0
+    assert c["kRowTile"] == 64 * (c["kConsumers"] // 128)  # one m64 tile per consumer warpgroup
+    assert c["kPassTiles"] * c["kRowTile"] == c["kPassRows"]
+    assert c["kRowTile"] * c["kBoxK"] * 2 % c["kAlign"] == 0 and bq * c["kBoxK"] * 2 % 1024 == 0
+    assert s["kListSlots"] >= ttopk.MAX_KERNEL_K and 32 * s["kSubsets"] >= ttopk.MAX_KERNEL_K
+    assert s["kThreads"] == c["kConsumers"]
+    # shared memory: the header's formula, as the Python mirror computes it
+    with open(os.path.join(_cuda.SRC_DIR, "block_score_tc.cuh")) as f:
+        header = f.read()
+    assert re.search(r"return kAlign \+ union_bytes<BQ>\(stages\) \+ BQ \* kListSlots \* 8 \+ "
+                     r"8 \* \(2 \* stages \+ 2 \* kQueryStages \+ 1\);", header)
+    assert re.search(r"return BQ \* \(kListSlots \+ kPassRows \+ kPitchPad\) \* 4 \+ "
+                     r"8 \* \(kCandidates \+ kListSlots\) \* 8;", header)
+    for stages in (2, c["kStages"], c["kSweepStages"]):
+        assert ttopk.tc_shared_bytes(bq, stages) <= _SM_SHARED_LIMIT
+    assert 2 * (ttopk.tc_shared_bytes(bq, c["kStages"]) + 1024) <= _SM_SHARED  # __launch_bounds__(288, 2)
+
+
+def test_scoring_loop_and_alignment_rules():
+    """bf16 rows whose byte stride TMA takes (D % 8 == 0) go to the tensor
+    cores, every other corpus to the FMA loop; a bf16 base off a 16-byte
+    boundary is refused before any launch."""
+    assert ttopk.scoring_loop(torch.zeros((4, 1536), dtype=torch.bfloat16)) == "tensor_core"
+    assert ttopk.scoring_loop(torch.zeros((4, 1000), dtype=torch.bfloat16)) == "tensor_core"
+    assert ttopk.scoring_loop(torch.zeros((4, 1001), dtype=torch.bfloat16)) == "fma"
+    assert ttopk.scoring_loop(torch.zeros((4, 1536), dtype=torch.float32)) == "fma"
+    rows = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    _cuda.require_aligned("rows", rows[:256].view(4, 64))
+    with pytest.raises(ValueError, match="16-byte"):
+        _cuda.require_aligned("rows", rows[4:260].view(4, 64))
+    assert ttopk.block_topk.launches_by_loop.keys() == tg.grouped_block_topk.launches_by_loop.keys() == {
+        "tensor_core", "fma"}

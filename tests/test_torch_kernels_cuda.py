@@ -15,7 +15,8 @@ with a card and without jax (this file imports none), run:
 
 Tolerance: kernels 1, 4, 5 and 7 (float layouts) values within 1e-5 of
 the plain float32 product (summation order only, unit rows); kernel 4's
-result identical to kernel 1's (the same scoring loop and tie rule);
+result within 1e-5 of kernel 1's (bf16 kernel 1 sums on the tensor cores,
+kernel 4 with fmaf: another order);
 kernels 2 and 6, and kernel 7 on an int8 layout, identical (exact int32
 dot, the same float32 scaling); kernel 3's searches values within 1e-5,
 and an id may differ from the plain version's only where both scores lie
@@ -344,8 +345,10 @@ def test_fused_topk_matches_plain_and_kernel1(gen, dtype, variant, k, q, per):
     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
     assert_topk_match(part_v, part_i, ref[2][..., :k], ref[3][..., :k], tol=1e-5, cut=ref[2][..., k])
     assert_topk_match(vals, idx, ref[0][..., :k], ref[1][..., :k], tol=1e-5, cut=ref[0][..., k])
+    # bf16 kernel 1 sums on the tensor cores and kernel 4 with fmaf: the same
+    # rows within the tolerance, not the same bits
     k1_v, k1_i = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
-    assert torch.equal(vals, k1_v) and torch.equal(idx, k1_i)
+    assert_topk_match(vals, idx, k1_v, k1_i, tol=1e-5, cut=ref[0][..., k])
 
 
 @pytest.mark.parametrize("impl", ["pallas_fast", "pallas_fused"])
@@ -368,3 +371,124 @@ def test_fast_and_fused_wrappers_check_their_inputs(gen):
     with pytest.raises(RuntimeError, match="cudaError"):
         to.fused_topk(corpus, corpus, 5, count=100, block_n=65536)
     to.fused_topk(corpus, corpus, 5, count=100)  # the error is not left behind
+
+
+# ---------------------------------------------------------------------------
+# bf16 kernels 1 and 5 on the tensor cores (csrc/block_score_tc.cuh)
+# ---------------------------------------------------------------------------
+
+_TC_Q = [1, 8, 9, 32, 33, 128, 256]  # across both query tiles (8 and 32) and their edges
+
+
+def _loop_launch(wrapper, loop, call):
+    """``call()`` launches ``wrapper`` once, on the scoring loop ``loop``."""
+    before = dict(wrapper.launches_by_loop)
+    out = call()
+    torch.cuda.synchronize()
+    after = wrapper.launches_by_loop
+    assert after[loop] == before[loop] + 1 and sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1000, 1001])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_bf16_block_topk_across_tiles_and_widths(gen, q, d, k):
+    """Ragged last block, count below n, and by turns ip, l2 and masked;
+    D = 1001 (rows TMA cannot stride) takes the FMA loop."""
+    n, count = 2500, 2400
+    corpus, queries = _unit(n, d, gen, torch.bfloat16), _unit(q, d, gen, torch.bfloat16)
+    variant = ("ip", "l2", "masked")[(_TC_Q.index(q) + k) % 3]
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.int8) if variant == "masked" else None
+    kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=to.row_sq_norms(corpus),
+              block_n=1024)
+    loop = "tensor_core" if d % 8 == 0 else "fma"
+    assert to.scoring_loop(corpus) == loop
+    got_v, got_i = _loop_launch(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
+    ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
+    assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1000, 1001])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_bf16_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
+    """Kernel 5 with an empty predicate row and ids outside [0, M)."""
+    n, count = 2500, 2400
+    corpus, queries = _unit(n, d, gen, torch.bfloat16), _unit(q, d, gen, torch.bfloat16)
+    table, ids = _predicates(gen, 3, n, q)
+    kw = dict(count=count, block_n=1024)
+    loop = "tensor_core" if d % 8 == 0 else "fma"
+    got_v, got_i = _loop_launch(go.grouped_block_topk, loop,
+                                lambda: go.grouped_block_topk(corpus, queries, table, ids, k, **kw))
+    ref_v, ref_i = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
+    assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
+
+
+@pytest.mark.parametrize("q", [3, 40])
+def test_bf16_all_masked_block_gives_empty_slots(gen, q):
+    corpus, queries = _unit(3000, 1536, gen, torch.bfloat16), _unit(q, 1536, gen, torch.bfloat16)
+    mask = torch.ones(3000, dtype=torch.int8, device="cuda")
+    mask[1024:2048] = 0
+    got_v, got_i = to.block_topk(corpus, queries, 50, count=3000, mask=mask, block_n=1024)
+    ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, 51, count=3000, mask=mask, block_n=1024)
+    assert_topk_match(got_v, got_i, ref_v[..., :50], ref_i[..., :50], tol=1e-5, cut=ref_v[..., 50])
+    assert torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()
+
+
+@pytest.mark.parametrize("d", [1536, 1000])
+@pytest.mark.parametrize("q", [1, 33])
+def test_bf16_duplicate_rows_across_a_block_edge_tie_exactly(gen, d, q):
+    """Copies of the query row on both sides of a block edge and in the
+    ragged block score the same bits on the tensor cores, so the smallest
+    rows win, in both kernels."""
+    corpus = _unit(5000, d, gen, torch.bfloat16)
+    dups = list(range(1000, 1062)) + [3000, 4990]
+    corpus[dups] = corpus[7].clone()
+    queries = corpus[7:8].repeat(q, 1)
+    _, idx = to.exact_search(corpus, queries, 64, metric="ip")
+    assert (idx == torch.tensor(([7] + dups)[:64], device="cuda", dtype=idx.dtype)).all()
+    table = torch.ones((1, 5000), dtype=torch.int8, device="cuda")
+    ids = torch.zeros(q, dtype=torch.int32, device="cuda")
+    _, idx = go.grouped_mask_search(corpus, queries, table, ids, 64)
+    assert (idx == torch.tensor(([7] + dups)[:64], device="cuda", dtype=idx.dtype)).all()
+    part_v, part_i = to.block_topk(corpus, queries, 64, count=5000, block_n=1024)
+    assert (part_v[:, 0, 0] == part_v[:, 1, 0]).all()  # the copies in blocks 0 and 1: the same bits
+
+
+@pytest.mark.parametrize("q", [1, 40])
+def test_bf16_many_equal_scores_take_the_rounds_and_tie_exactly(gen, q):
+    """A block whose 700 rows all score the same has more candidates at the
+    threshold than a warp's buffer holds: its selection takes the k rounds,
+    and the smallest rows still win, in both passes of the block."""
+    corpus = _unit(3000, 256, gen, torch.bfloat16)
+    corpus[1024:1724] = corpus[5].clone()
+    queries = corpus[5:6].repeat(q, 1)
+    got_v, got_i = to.block_topk(corpus, queries, 64, count=3000, block_n=1024)
+    ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, 64, count=3000, block_n=1024)
+    assert got_i[:, 1].tolist() == [list(range(1024, 1088))] * q
+    assert torch.equal(got_v[:, 1], got_v[:, 1, :1].expand(q, 64))  # the copies score the same bits
+    assert_topk_match(got_v[:, 1], got_i[:, 1], ref_v[:, 1], ref_i[:, 1], tol=1e-5)
+
+
+def test_bf16_wrappers_refuse_misaligned_rows(gen):
+    corpus = _unit(101, 64, gen, torch.bfloat16)
+    shifted = corpus.view(-1)[4:4 + 6400].view(100, 64)  # contiguous, 8 bytes past an aligned base
+    with pytest.raises(ValueError, match="16-byte"):
+        to.block_topk(shifted, corpus[:3], 5, count=100)
+    table = torch.ones((1, 100), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        go.grouped_block_topk(corpus[:100], corpus.view(-1)[4:4 + 192].view(3, 64), table,
+                              torch.zeros(3, dtype=torch.int32, device="cuda"), 5, count=100)
+
+
+def test_tensor_core_kernels_run_wgmma_and_tma():
+    """The SASS of every bf16 kernel 1 and 5 instantiation on the tensor
+    cores holds wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the CUDA toolkit: the kernels are built there")
+    from photo_search_engine_tpu_torch.ops import _cuda
+
+    counts = _cuda.sass_counts("tc_block_topk_kernel")
+    assert len(counts) >= 4, counts  # kernels 1 and 5 at BQ 8 and 32
+    assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()), counts

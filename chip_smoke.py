@@ -5,9 +5,10 @@ Phases; each prints its results on lines of its own and raises on failure:
 
 1. device  - the card's name and power limit; build the CUDA kernels from
              photo_search_engine_tpu_torch/csrc with nvcc; the registers
-             and spills of the tensor-core kernels (bf16 kernels 1 and 5)
-             and their HGMMA (wgmma) and UTMALDG (TMA) counts in the SASS,
-             which must not be 0.
+             and spills of the tensor-core kernels (bf16 kernels 1 and 5,
+             int8 kernels 2 and 6) and their HGMMA (bf16 wgmma), IGMMA
+             (int8 wgmma) and UTMALDG (TMA) counts in the SASS, which must
+             not be 0.
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
              their plain PyTorch versions on the card: ip, l2, masked with
              a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
@@ -19,7 +20,10 @@ Phases; each prints its results on lines of its own and raises on failure:
              kernels 1 and 5 across their query tiles (Q 1/8/9/32/33/128/
              256), D 1536 and 1000 on the tensor cores and 1001 on the FMA
              loop (each launch checked on its loop), k 1/50/64, and an
-             all-masked block; then kernel 7
+             all-masked block; then the int8 kernels 2 and 6 the same way,
+             identical to their plain versions: D 1536 and 1008 on the
+             tensor cores and 1000 on the __dp4a loop, ip, l2 and masked, an
+             all-masked block and duplicate rows; then kernel 7
              (ivf_block_topk, the IVF probed-cluster scan) on float32,
              bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
              (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
@@ -46,17 +50,21 @@ Phases; each prints its results on lines of its own and raises on failure:
              concurrent image searches (kernels 1 and 2), concurrent
              filtered searches over five predicates (kernels 5 and 6)
              checked against plain per-query searches, a season-filtered
-             /search_photos, the batcher's counters (kernels 1 and 5 must
-             have run on the tensor cores only); then the store's own
+             /search_photos, the batcher's counters (kernels 1, 2, 5 and 6
+             must have run on the tensor cores only); then the store's own
              impl routes: search(impl="pallas_fast") (kernel 3) and
              search(impl="pallas_fused") (kernel 4) at batch 1 and 128,
              top-50, and grouped_search(impl="pallas_fast") (grouped kernel 3)
              at batch 128 with M = 5, checked against kernel 1 and the plain
              versions; and every kernel's time against its plain version
              (CUDA events, after warm-up), its bound and the time of the
-             nearest library composition, at batch 1, 8 (kernels 1, 5, 6),
-             128 and 256 (kernels 1, 2), with kernel 1's time at k = 1
-             against k = 50.
+             nearest library composition, at batch 1, 8 (kernels 1, 2, 5,
+             6), 128 and 256 (kernels 1, 2, 6), with kernels 1 and 2 at
+             k = 1 against k = 50 (every timed launch of 1, 2, 5 and 6 on
+             the tensor cores); merge_partials and rescore_pool timed
+             apart; store.search host to host through impl auto (bf16) and
+             int8 and the impl routes; the int8 tier's recall@10 and @50
+             against the exact scan.
 5. ivf     - VECTOR_INDEX_TYPE=ivf at 1M x 1536: bfloat16 rows of intrinsic
              dimension 32 made on the card from a seed, served by the app's
              wiring with IVF_NLIST=1024, IVF_NPROBE=64 and the micro-batcher
@@ -67,7 +75,9 @@ Phases; each prints its results on lines of its own and raises on failure:
              ivf_masked route; each result is held against the same search
              with kernel 7's plain version under the same probes; recall@10
              against the flat exact scan (kernel 1); kernel 7's times against
-             its plain version at batch 1 and 128, top-50.
+             its plain version and the library composition (gathered probed
+             clusters, cuBLAS or torch._int_mm, torch.topk; chunked at batch
+             128) at batch 1 and 128, top-50.
 
 The launch counters are set to 0 before the route runs of phases 3, 4 and
 5 (and before the store's impl routes in phase 4) and read after every
@@ -224,7 +234,8 @@ def read_launches() -> dict:
 
 
 def read_loops() -> dict:
-    """Kernels 1 and 5's launches by scoring loop (tensor cores or FMA)."""
+    """Kernels 1, 2, 5 and 6's launches by scoring loop (tensor cores, or
+    the FMA / __dp4a loop)."""
     return {name: dict(wrapper.launches_by_loop) for name, wrapper in _wrappers().items()
             if hasattr(wrapper, "launches_by_loop")}
 
@@ -284,31 +295,41 @@ def phase_device() -> None:
         if any(word in line for word in ("entry function", "registers", "spill", "error", "warning",
                                          "Performance")):
             log(f"[device] ptxas: {line.strip()}")
-    # the tensor-core kernels (bf16 kernels 1 and 5): registers, spills, and
-    # wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
+    # the tensor-core kernels (bf16 kernels 1 and 5, int8 kernels 2 and 6):
+    # registers, spills, and wgmma (HGMMA bf16, IGMMA int8) and TMA (UTMALDG)
+    # instructions in their SASS
     ptxas = _ptxas_by_function(info["log"])
     sass = _cuda.sass_counts(TC_KERNEL)
-    for name, ops in sorted(sass.items(), key=lambda item: _tc_label(item[0])):
+    sass8 = _cuda.sass_counts(TC_INT8_KERNEL)
+    for name, ops in sorted({**sass, **sass8}.items(), key=lambda item: _tc_label(item[0])):
         regs, stores, loads = ptxas.get(name, ("?", "?", "?"))
         log(f"[device] {_tc_label(name)}: {regs} registers, {stores}/{loads} bytes spill stores/loads; "
-            f"SASS {ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
+            f"SASS {ops['HGMMA']} HGMMA, {ops['IGMMA']} IGMMA, {ops['UTMALDG']} UTMALDG")
     if len(sass) < 4 or any(ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass.values()):
-        raise AssertionError(f"tensor-core kernels without HGMMA or UTMALDG in their SASS: {sass}")
+        raise AssertionError(f"bf16 tensor-core kernels without HGMMA or UTMALDG in their SASS: {sass}")
+    if len(sass8) < 4 or any(ops["IGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass8.values()):
+        raise AssertionError(f"int8 tensor-core kernels without IGMMA or UTMALDG in their SASS: {sass8}")
 
 
 TC_KERNEL = "tc_block_topk_kernel"
+TC_INT8_KERNEL = "tc_int8_block_topk_kernel"
 
 
 def _tc_label(mangled: str) -> str:
-    """``tc_block_topk_kernel<BQ, stages, grouped, threshold>`` from its mangled name."""
+    """``tc_block_topk_kernel<BQ, stages, grouped, threshold>`` or
+    ``tc_int8_block_topk_kernel<BQ, grouped>`` from its mangled name."""
     import re
 
     found = re.search(TC_KERNEL + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
-    if not found:
-        return mangled
-    bq, stages, grouped, threshold = found.groups()
-    return (f"{'kernel 5' if grouped == '1' else 'kernel 1'} bf16 tensor cores, BQ {bq}, {stages} stages, "
-            f"{'threshold' if threshold == '1' else 'rounds'} selection")
+    if found:
+        bq, stages, grouped, threshold = found.groups()
+        return (f"{'kernel 5' if grouped == '1' else 'kernel 1'} bf16 tensor cores, BQ {bq}, {stages} stages, "
+                f"{'threshold' if threshold == '1' else 'rounds'} selection")
+    found = re.search(TC_INT8_KERNEL + r"ILi(\d+)ELb([01])E", mangled)
+    if found:
+        bq, grouped = found.groups()
+        return f"{'kernel 6' if grouped == '1' else 'kernel 2'} int8 tensor cores, BQ {bq}, 4 stages, threshold selection"
+    return mangled
 
 
 def _ptxas_by_function(build_log: str) -> dict:
@@ -461,6 +482,7 @@ def phase_kernels() -> None:
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
     check_grouped_kernels(gen, n, d)
     check_tensor_core_kernels(gen)
+    check_int8_tensor_core_kernels(gen)
     check_ivf_kernel(gen, d)
     check_fast_kernels(gen, n, d)
     check_fused_kernel(gen, n, d)
@@ -621,6 +643,85 @@ def check_tensor_core_kernels(gen) -> None:
         f"cores) and 1001 (FMA loop), k 1/50/64 agree with the plain versions (max |err| "
         f"{max(_ERRORS['block_topk'], _ERRORS['grouped_block_topk']):.3g}, tol {TOL}); each took its loop; "
         f"an all-masked block gives empty slots")
+
+
+def check_int8_tensor_core_kernels(gen) -> None:
+    """The int8 kernels 2 and 6 across their query tiles and widths, each
+    result identical to the plain version: Q in {1, 8, 9, 32, 33, 128, 256},
+    D in {1536, 1008} (tensor cores; 1008 ends in a ragged 128-byte chunk)
+    and 1000 (the __dp4a loop, counted apart), k in {1, 50, 64}, blocks of
+    2048 rows and a ragged last one, a live count below n; kernel 2 cycling
+    through ip, l2 and masked, kernel 6 with an empty predicate and ids
+    outside [0, M); then an all-masked block, and duplicate rows across a
+    block edge and in the ragged block."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    n, count, bn = 5000, 4900, 2048  # blocks of 2048, 2048 and a ragged 904
+    cases = 0
+    for d in (1536, 1008, 1000):
+        ref_rows = _unit_rows(n, d, gen, torch.bfloat16)
+        c8, cs = qo.quantize_rows(ref_rows)
+        cnorms = to.row_sq_norms(ref_rows)
+        loop = qo.int8_scoring_loop(d)
+        for i, q in enumerate((1, 8, 9, 32, 33, 128, 256)):
+            q8, qs = qo.quantize_rows(_unit_rows(q, d, gen, torch.float32))
+            table, ids = _predicates(gen, 3, n, q)
+            for j, k in enumerate((1, 50, 64)):
+                variant = ("ip", "l2", "masked")[(i + j) % 3]
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.5).to(torch.int8) if variant == "masked" else None
+                kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=cnorms, block_n=bn)
+                for wrapper, call, plain in (
+                        (qo.int8_block_topk, lambda kk: qo.int8_block_topk(c8, cs, q8, qs, kk, **kw),
+                         lambda kk: qo.int8_block_topk_plain(c8, cs, q8, qs, kk, **kw)),
+                        (qo.int8_grouped_block_topk,
+                         lambda kk: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, kk, count=count, block_n=bn),
+                         lambda kk: qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, kk, count=count,
+                                                                    block_n=bn))):
+                    name = wrapper.__name__
+                    before = dict(wrapper.launches_by_loop)
+                    got = call(k)
+                    torch.cuda.synchronize()
+                    if wrapper.launches_by_loop[loop] != before[loop] + 1:
+                        raise AssertionError(f"{name} D={d}: not launched on the {loop} loop")
+                    label = f"{name} {variant if name == 'int8_block_topk' else 'M=3'} D={d} q={q} k={k} ({loop})"
+                    _ERRORS[name] = max(_ERRORS[name], check_topk(label, *got, *plain(k + 1), exact=True))
+                    cases += 1
+    # a block whose rows are all masked out: its slots are empty in every query
+    ref_rows = _unit_rows(n, 1536, gen, torch.bfloat16)
+    c8, cs = qo.quantize_rows(ref_rows)
+    q8, qs = qo.quantize_rows(_unit_rows(40, 1536, gen, torch.float32))
+    mask = torch.ones(n, dtype=torch.int8, device=DEVICE)
+    mask[bn:2 * bn] = 0
+    got_v, got_i = qo.int8_block_topk(c8, cs, q8, qs, 50, count=n, mask=mask, block_n=bn)
+    check_topk("int8_block_topk all-masked block", got_v, got_i,
+               *qo.int8_block_topk_plain(c8, cs, q8, qs, 51, count=n, mask=mask, block_n=bn), exact=True)
+    if not (torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()):
+        raise AssertionError("int8_block_topk: an all-masked block returned rows")
+    # duplicate rows across the block edge at 2048 and in the ragged block
+    # score the same bits: ties come out at the smallest rows, in both kernels
+    dups = list(range(2016, 2077)) + [4100, 4990]  # with row 7, 64 rows
+    ref_rows[dups] = ref_rows[7].clone()
+    c8, cs = qo.quantize_rows(ref_rows)
+    for q in (1, 33):
+        q8, qs = qo.quantize_rows(ref_rows[7:8].float().repeat(q, 1))
+        got = qo.int8_block_topk(c8, cs, q8, qs, 64, count=n, block_n=bn)
+        check_topk(f"int8_block_topk duplicates q={q}", *got,
+                   *qo.int8_block_topk_plain(c8, cs, q8, qs, 65, count=n, block_n=bn), exact=True)
+        merged = to.merge_partials(*got, 64)[1]
+        if merged[0].tolist() != ([7] + dups)[:64]:
+            raise AssertionError(f"int8 duplicate-row ties q={q}: {merged[0].tolist()[:8]}...")
+        table = torch.ones((1, n), dtype=torch.int8, device=DEVICE)
+        ids = torch.zeros(q, dtype=torch.int32, device=DEVICE)
+        got = qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, 64, count=n, block_n=bn)
+        if to.merge_partials(*got, 64)[1][0].tolist() != ([7] + dups)[:64]:
+            raise AssertionError(f"int8 grouped duplicate-row ties q={q}")
+    log(f"[kernels] int8 kernels 2 and 6: {cases} cases over Q 1/8/9/32/33/128/256, D 1536/1008 (tensor "
+        f"cores) and 1000 (__dp4a loop), k 1/50/64 identical to the plain versions (max |err| "
+        f"{max(_ERRORS['int8_block_topk'], _ERRORS['int8_grouped_block_topk']):.3g}); each took its loop; an "
+        f"all-masked block gives empty slots; duplicate rows across a block edge tie to the smallest row")
 
 
 def check_partials(name, got, plain, k):
@@ -1221,13 +1322,13 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[scale] route launches {launches}; kernels 1 and 5 by scoring loop {loops}")
+        log(f"[scale] route launches {launches}; kernels 1, 2, 5 and 6 by scoring loop {loops}")
         for name in _FLAT:
             if launches[name] <= 0:
                 raise AssertionError(f"scale routes never launched {name}")
             _LAUNCHES[name] += launches[name]
-        for name, by_loop in loops.items():  # bf16 rows of width 1536: the tensor cores only
-            if by_loop["fma"] or by_loop["tensor_core"] != launches[name]:
+        for name, by_loop in loops.items():  # rows of width 1536: the tensor cores only
+            if by_loop["tensor_core"] != launches[name]:
                 raise AssertionError(f"scale routes: {name} launched off the tensor cores: {by_loop}")
         mean = batcher.requests_served / max(batcher.batches_run, 1)
         log(f"[scale] micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run "
@@ -1376,10 +1477,11 @@ def scale_kernel_times(store, masks, gen) -> None:
     k6 = dict(count=rows, block_n=store._i8_block)
     nb, nb8 = -(-cap // store.block_rows), -(-cap // store._i8_block)
     k = 50
+    off_tc = _off_tensor_cores()
     for batch, names in ((1, _FLAT + ("fast_block_topk", "fused_topk")),
-                         (8, ("block_topk", "grouped_block_topk", "int8_grouped_block_topk")),
+                         (8, _FLAT),
                          (128, _FLAT + _IMPL_ROUTES),
-                         (256, ("block_topk", "int8_block_topk"))):
+                         (256, ("block_topk", "int8_block_topk", "int8_grouped_block_topk"))):
         qb = _unit_rows(batch, dim, gen, torch.float32)
         qb16 = qb.to(torch.bfloat16)
         q_i8, qs = qo.quantize_rows(qb)
@@ -1448,18 +1550,52 @@ def scale_kernel_times(store, masks, gen) -> None:
                 + f"kernel {ms:.3f} ms, plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{d:.3f}); "
                 f"bound {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB, {ops / 1e12:.3f} T{unit} ops); "
                 f"library {lib_ms:.3f} ms (cuBLAS product + torch.topk)")
-        # kernel 1's time at k = 1 against k = 50: the share of its selection
-        k1_ms = cuda_ms(lambda: runs["block_topk"][0](1), reps=3)
-        k50_ms = _TIMES[("block_topk", batch, k)][0]
-        log(f"[scale] block_topk batch {batch} at {rows}x{dim}: k=1 {k1_ms:.3f} ms, k={k} {k50_ms:.3f} ms: "
-            f"selection of top-{k} adds {k50_ms - k1_ms:.3f} ms ({(k50_ms - k1_ms) / k50_ms:.0%})")
-        # the whole search through each impl: kernel 1 + torch merge, kernel 3
-        # + merge + rescore, kernel 4 with its merge on the card
+        # kernels 1 and 2 at k = 1 against k = 50: the share of their selection
+        for name in ("block_topk", "int8_block_topk"):
+            k1_ms = cuda_ms(lambda: runs[name][0](1), reps=3)
+            k50_ms = _TIMES[(name, batch, k)][0]
+            log(f"[scale] {name} batch {batch} at {rows}x{dim}: k=1 {k1_ms:.3f} ms, k={k} {k50_ms:.3f} ms: "
+                f"selection of top-{k} adds {k50_ms - k1_ms:.3f} ms ({(k50_ms - k1_ms) / k50_ms:.0%})")
+        if batch <= 128:
+            # what the searches spend after the scan: phase B (kernel 1's
+            # partials merged by a stable sort) and the int8 tier's merge to
+            # its pool of 2k and exact rescore (rescore_pool)
+            part1 = runs["block_topk"][0](k)
+            part2 = runs["int8_block_topk"][0](k)
+            merge_ms = cuda_ms(lambda: to.merge_partials(*part1, k), reps=3)
+            pool_ms = cuda_ms(lambda: to.rescore_pool(*part2, store._device, qb, k, cand=2 * k, metric="ip"), reps=3)
+            log(f"[scale] batch {batch} top-{k} after the scan: merge_partials of kernel 1's [{batch}, {nb}, {k}] "
+                f"partials {merge_ms:.3f} ms; rescore_pool of kernel 2's [{batch}, {nb8}, {k}] partials (pool "
+                f"{2 * k}, exact bf16 rows) {pool_ms:.3f} ms")
+        # the whole search through each impl, host to host: kernel 1 + torch
+        # merge (auto), the int8 tier (kernel 2 + rescore_pool), kernel 3 +
+        # merge + rescore, kernel 4 with its merge on the card
         q_host = qb.cpu().numpy()
         times = {impl: cuda_ms(lambda impl=impl: store.search(q_host, k, impl=impl), reps=3)
-                 for impl in ("pallas", "pallas_fast", "pallas_fused")}
+                 for impl in ("auto", "int8", "pallas_fast", "pallas_fused")}
         log(f"[scale] store.search batch {batch} top-{k}, host to host: "
-            + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items()))
+            + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items())
+            + f"; int8 against auto {times['int8'] / times['auto']:.3f}x")
+    if _off_tensor_cores() != off_tc:
+        raise AssertionError(f"scale times: a kernel 1, 2, 5 or 6 launch left the tensor cores: {read_loops()}")
+    log("[scale] every timed launch of kernels 1, 2, 5 and 6 ran on the tensor cores")
+    # the int8 tier's recall against the exact scan (kernel 1), 128 random
+    # unit queries: on unit rows of no structure the neighbours' scores lie
+    # close together, the hard case for a quantized nomination
+    q_host = _unit_rows(128, dim, gen, torch.float32).cpu().numpy()
+    recall = {}
+    for kk in (10, 50):
+        got = store.search(q_host, kk, impl="int8")[1]
+        want = store.search(q_host, kk, impl="auto")[1]
+        recall[kk] = float(np.mean([len(set(g.tolist()) & set(w.tolist())) / kk for g, w in zip(got, want)]))
+    log(f"[scale] int8 tier against the exact scan, 128 random queries at {rows}x{dim}: recall@10 "
+        f"{recall[10]:.4f} (k 10: kloc 10, pool 32), recall@50 {recall[50]:.4f} (k 50: kloc 50, pool 100)")
+
+
+def _off_tensor_cores() -> dict:
+    """Launches of the scoring loops other than the tensor cores, by kernel."""
+    return {name: sum(n for loop, n in by_loop.items() if loop != "tensor_core")
+            for name, by_loop in read_loops().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1637,23 +1773,14 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
             moved = (probed * ivf.capacity * (dim * args[0].element_size() + 1) + nbytes(*args[1:3])
                      + pairs * -(-ivf.capacity // 256) * kk * 8)  # rows and slot flags, queries, probes, partials
             gflop = 2 * pairs * ivf.capacity * dim / 1e9
-            library = None
-            if quantized != "1" and batch == 1:  # the gathered clusters of batch 128 would not fit
-                layout = ivf._corpus.view(ivf.nlist, ivf.capacity, dim)
-                valid = ivf._row_valid.view(ivf.nlist, ivf.capacity)
-
-                def library():
-                    rows_ = layout[probes[0].long()].reshape(-1, dim)
-                    scores = torch.where(valid[probes[0].long()].reshape(-1) > 0, rows_ @ qb[0], float("-inf"))
-                    return torch.topk(scores.float(), 50)
-
+            library, lib_label = _ivf_library(ivf, probes, qb, quantized == "1")
             ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
                 (name, batch, 50), kernel, plain, library, moved, gflop * 1e9,
                 "int8" if quantized == "1" else "bf16", reps=5)
             groups, _, _, bq = io_.probe_groups(probes.cpu().numpy(), ivf.nlist)
             fill = f"{groups.shape[0]} groups of up to {bq} queries, {pairs / (groups.shape[0] * bq):.0%} full"
             gbytes = pairs * ivf.capacity * dim * args[0].element_size() / 1e9  # probed rows, counted per pair
-            lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms (gather, cuBLAS product, torch.topk)"
+            lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms ({lib_label})"
             log(f"[ivf] {name} batch {batch} top-50 (nprobe 64, {pairs} probe pairs in {fill}: {gbytes:.2f} GB of probed "
                 f"rows, {gflop:.1f} GFLOP) at {rows}x{dim}: agrees with the plain version (max |err| {err:.3g}); "
                 f"kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' rows, {gflop / ms:.2f} TFLOP/s), "
@@ -1664,6 +1791,51 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
         del index, services, ivf, batcher
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _ivf_library(ivf, probes, qb, int8: bool, chunk: int = 8):
+    """Kernel 7's nearest library composition, a yardstick timed here and
+    never called by the port: each query's probed clusters gathered, a
+    cuBLAS product (int8: ``torch._int_mm`` with the query padded past 16
+    rows, then the query and row scales), -inf on padding slots, then
+    ``torch.topk``.  The gathered rows of a whole batch would not fit at
+    once, so a batch goes in chunks of ``chunk`` queries (int8: one query a
+    product), whose times are summed ("chunked").  Returns the callable and
+    its label."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+
+    nq, dim = qb.shape
+    pr = probes.long()
+    valid = ivf._row_valid.view(ivf.nlist, ivf.capacity)
+    label = ("gather, torch._int_mm, scales, torch.topk" if int8 else "gather, cuBLAS product, torch.topk") + (
+        f"; chunked, {1 if int8 else chunk} queries a chunk" if nq > 1 else "")
+    if int8:
+        layout = ivf._corpus_i8.view(ivf.nlist, ivf.capacity, dim)
+        cscales = ivf._cscales.view(ivf.nlist, ivf.capacity)
+        q8, qs = io_.quantize_ivf_queries(qb.float())
+        qpad = torch.zeros((nq, 32, dim), dtype=torch.int8, device=qb.device)
+        qpad[:, 0] = q8
+
+        def one(i):
+            acc = torch._int_mm(qpad[i], layout[pr[i]].reshape(-1, dim).T)[0]
+            scores = acc.float() * qs[i] * cscales[pr[i]].reshape(-1)
+            return torch.topk(torch.where(valid[pr[i]].reshape(-1) > 0, scores, float("-inf")), 50)
+
+        return (lambda: [one(i) for i in range(nq)]), label
+    layout = ivf._corpus.view(ivf.nlist, ivf.capacity, dim)
+
+    def chunks():
+        out = []
+        for s in range(0, nq, chunk):
+            p = pr[s:s + chunk]
+            scores = torch.bmm(layout[p].reshape(p.shape[0], -1, dim), qb[s:s + chunk, :, None])[..., 0]
+            out.append(torch.topk(torch.where(valid[p].reshape(p.shape[0], -1) > 0, scores.float(),
+                                              float("-inf")), 50))
+        return out
+
+    return chunks, label
 
 
 # ---------------------------------------------------------------------------

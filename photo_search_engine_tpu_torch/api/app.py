@@ -45,7 +45,8 @@ from photo_search_engine_tpu_torch.models.hash_embedder import HashingEmbeddingS
 from photo_search_engine_tpu_torch.services.embedding import DeviceTextRerankService
 from photo_search_engine_tpu_torch.services.rerank import LocalVisualRerankService
 
-_ONLINE = "ROADMAP.md, queue 3: online embedding and rerank services"
+_ONLINE = 'ROADMAP.md, "Modules still to port": online services'
+_MESH = 'ROADMAP.md, "Modules still to port": mesh, multi-host and sharded saves'
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -65,9 +66,9 @@ def _check_ported(config: Dict[str, Any]) -> None:
     ):
         raise _not_ported("the API-backed visual rerank", _ONLINE)
     if int(config.get("MESH_DEVICES") or 0) != 0:
-        raise _not_ported("MESH_DEVICES != 0", "ROADMAP.md, queue 3: mesh and multi-host")
+        raise _not_ported("MESH_DEVICES != 0", _MESH)
     if config.get("DIST_COORDINATOR"):
-        raise _not_ported("DIST_* multi-host serving", "ROADMAP.md, queue 3: mesh and multi-host")
+        raise _not_ported("DIST_* multi-host serving", _MESH)
 
 
 def load_config(overrides: Optional[Dict[str, str]] = None) -> Dict[str, Any]:

@@ -75,7 +75,8 @@ class VectorIndex:
         if int(mesh_devices or 0) != 0:
             raise NotImplementedError(
                 "mesh_devices != 0 is not ported yet; the PyTorch port serves "
-                "one device (ROADMAP.md, queue 3: mesh, multi-host, sharded saves)"
+                'one device (ROADMAP.md, "Modules still to port": mesh, multi-host '
+                'and sharded saves)'
             )
         self.mesh_devices = 0
         self.device = device

@@ -1,38 +1,46 @@
-// The bfloat16 scan of kernels 1 and 5 on Hopper's tensor cores
-// (block_topk.cu): TMA loads into a ring of shared-memory stages, one
-// producer warp, two consumer warpgroups that run wgmma on bf16 with f32
-// accumulators, an epilogue into a score tile, and the threshold selection
-// (block_select.cuh, select_pass).
+// The tensor-core scan of kernels 1 and 5 (bf16, block_topk.cu) and of
+// kernels 2 and 6 (int8, int8_block_topk.cu): TMA loads into a ring of
+// shared-memory stages, one producer warp, two consumer warpgroups that run
+// wgmma (bf16 with f32 accumulators, or s8 with s32 accumulators), an
+// epilogue into a score tile, and the threshold selection (block_select.cuh,
+// select_pass).  The operand trait (Bf16, S8) supplies what differs: the
+// element size and tensor-map type, the wgmma instruction and its
+// accumulator, and the epilogue's score; the ring, the producer, the passes
+// and the selection are one copy.
 //
 // Operands.  Corpus rows are wgmma's M side (operand A, K-major: the
 // corpus's own row-major [n, d] layout); the BQ queries of the CTA are its
 // N side (operand B, K-major: the queries' [q, d] layout).  Nothing is
-// transposed.  A corpus box is [kRowTile, kBoxK], a query box [BQ, kBoxK],
-// both 128 bytes wide with the 128-byte swizzle that the wgmma descriptors
-// name; a consumer warpgroup multiplies its 64 rows of a corpus box by the
-// query box in kBoxK / 16 = 4 instructions (m64nBQk16), advancing both
-// descriptors 32 bytes along K inside the swizzle atom.  TMA fills rows past
-// n and columns past d with zeros, so the ragged last block and a ragged D
-// need no code.
+// transposed, which 8-bit wgmma could not do anyway (K-major only).  A
+// corpus box is [kRowTile, kBoxK], a query box [BQ, kBoxK], both 128 bytes
+// wide (kBoxK 64 bf16 or 128 int8) with the 128-byte swizzle that the wgmma
+// descriptors name; a consumer warpgroup multiplies its 64 rows of a corpus
+// box by the query box in 128 / 32 = 4 instructions (m64nBQk16 bf16,
+// m64nBQk32 s8: 32 bytes of K each), advancing both descriptors 32 bytes
+// along K inside the swizzle atom.  TMA fills rows past n and columns past d
+// with zeros, so the ragged last block and a ragged D need no code.
 //
 // Passes.  A CTA scores its block of `bn` rows in passes of kPassRows = 512
 // rows.  A pass keeps the scores of its 4 row tiles in registers (BQ / 2
-// floats a tile and thread) and walks D once: for each 64-wide chunk one
-// query box, then the 4 corpus boxes.  So a query box is read once a chunk
-// and pass, not once a row tile: at BQ 32, 16 KB of corpus bring 1 KB of
-// queries instead of 4 KB.  After the pass the epilogue (count, mask,
-// predicate, l2) writes a [BQ, 64 + 512] score tile whose rows start with
-// each query's running top-k of the earlier passes; select_pass replaces
-// that list, or on the last pass writes the block's partials.
+// accumulators a tile and thread) and walks D once: for each 128-byte chunk
+// one query box, then the 4 corpus boxes.  So a query box is read once a
+// chunk and pass, not once a row tile: at BQ 32, 16 KB of corpus bring 1 KB
+// of queries instead of 4 KB.  After the pass the epilogue (count, mask,
+// predicate, the operand's score) writes a [BQ, 64 + 512] f32 score tile
+// whose rows start with each query's running top-k of the earlier passes;
+// select_pass replaces that list, or on the last pass writes the block's
+// partials.
 //
-// What bounds it (H100, 1M x 1536 bf16).  At batch <= 32 the corpus read
-// from device memory, 0.92 ms.  Above that the bytes the SMs take in: each
-// query tile of 32 reads the corpus again (from L2), so batch 128 moves 13
-// GB into the SMs, about 1.5 ms at the ~8.7 TB/s they take in (PERF.md),
-// then the selection.  A wider query tile would read less, but the f32
-// score tile of a wider one does not fit beside the ring.
+// What bounds it (H100, 1M x 1536).  At batch <= 32 the corpus read from
+// device memory: 0.92 ms bf16, 0.46 ms int8.  Above that the bytes the SMs
+// take in: each query tile of 32 reads the corpus again (from L2), so bf16
+// batch 128 moves 13 GB into the SMs, about 1.5 ms at the ~8.7 TB/s they
+// take in (PERF.md), then the selection; int8 half of that.  A wider query
+// tile would read less, but the f32 score tile of a wider one does not fit
+// beside the ring.
 //
-// Shared memory (smem_bytes).  The ring is kStages corpus boxes (16 KB) and
+// Shared memory (smem_bytes; the same for both operands, whose boxes have
+// the same bytes).  The ring is kStages corpus boxes (16 KB) and
 // kQueryStages query boxes; the tile is the score rows (pitch kListSlots +
 // kPassRows + kPitchPad floats) and the warps' candidate buffers.  At BQ 32
 // the tile (90,624 bytes) lies over the ring (73,728), which is idle once a
@@ -44,14 +52,19 @@
 // 232,448 a CTA.  The pitch pad makes the epilogue's stores conflict-free:
 // the eight rows and four query pairs of a warp's accumulator fragment land
 // on 32 distinct banks.  Two CTAs of 288 threads leave 96 registers a
-// thread: kernel 1 fits, kernel 5 at BQ 32 spills 196 bytes (its predicate
-// rows) and runs within 2 % of kernel 1.
+// thread: kernels 1 and 2 fit; at BQ 32 kernel 5 spills 84 bytes and kernel
+// 6 384 (their predicate rows), and each runs within 2 % of its flat
+// sibling (H100, PERF.md).  The grouped kernels score inner products only;
+// at BQ 32 their epilogue compiles the l2 term out (see use_l2).
 //
-// Order of the sums.  Every output element sums its products over D in the
-// same order (16-wide steps, chunk after chunk), whatever its row's place
-// in the tile, so duplicate rows score identically and tie exactly.  The
-// order is not the f32 fmaf loop's nor cuBLAS's: the tests compare with a
-// tolerance (max |err| 4.8e-7 at 1536-d unit rows against the f32 product).
+// Order of the sums.  bf16: every output element sums its products over D
+// in the same order (16-wide steps, chunk after chunk), whatever its row's
+// place in the tile, so duplicate rows score identically and tie exactly.
+// The order is not the f32 fmaf loop's nor cuBLAS's: the tests compare with
+// a tolerance (max |err| 4.8e-7 at 1536-d unit rows against the f32
+// product).  s8: the s32 sum is exact (|sum| <= 127^2 * d < 2^31 for d <
+// 133,000), so the order does not matter and kernels 2 and 6 equal their
+// plain versions bit for bit.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, the library does not link -lcuda
@@ -65,20 +78,19 @@ namespace pse {
 namespace tc {
 
 constexpr int kRowTile = 128;      // corpus rows a stage holds: two m64 warpgroups
-constexpr int kBoxK = 64;          // D elements a stage holds: 128 bytes, the swizzle span
-constexpr int kSwizzleBytes = 128;  // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1
-constexpr int kStages = 4;         // corpus stages of the ring of kernels 1 and 5
+constexpr int kSwizzleBytes = 128;  // a box's width in bytes: CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1
+constexpr int kStages = 4;         // corpus stages of the ring of kernels 1, 2, 5 and 6
 constexpr int kSweepStages = 6;    // the deeper ring scripts/torch_kernel_sweep.py also times
 constexpr int kQueryStages = 2;    // query stages: one box serves a pass's row tiles
 constexpr int kPassRows = 512;     // rows a pass keeps in the accumulators
 constexpr int kPassTiles = 4;      // row tiles of a pass
 constexpr int kPitchPad = 4;       // score-tile pitch kListSlots + kPassRows + 4 floats
 constexpr int kAlign = 1024;       // a 128-byte swizzle atom: 8 rows of 128 bytes
-constexpr int kSmallBQ = 8;        // queries a CTA at q <= 8 (m64n8k16)
-constexpr int kLargeBQ = 32;       // queries a CTA above that (m64n32k16)
+constexpr int kSmallBQ = 8;        // queries a CTA at q <= 8 (m64n8k16 / m64n8k32)
+constexpr int kLargeBQ = 32;       // queries a CTA above that (m64n32k16 / m64n32k32)
 constexpr int kConsumers = 256;    // warps 0-7: two consumer warpgroups, then the selection
 constexpr int kThreadsTc = kConsumers + 32;  // and warp 8, the producer
-constexpr int kWgmmaK = 16;        // D elements one wgmma consumes
+constexpr int kWgmmaKBytes = 32;   // bytes of D one wgmma consumes (k16 bf16, k32 s8)
 static_assert(kPassTiles * kRowTile == kPassRows, "a pass is whole row tiles");
 
 // Shared memory of one CTA, in bytes from the aligned base: the ring
@@ -87,7 +99,7 @@ static_assert(kPassTiles * kRowTile == kPassRows, "a pass is whole row tiles");
 // loads are used; then the running top-k lists and the mbarriers.
 template <int BQ>
 __host__ __device__ constexpr int ring_bytes(int stages) {
-  return stages * kRowTile * kBoxK * 2 + kQueryStages * BQ * kBoxK * 2;
+  return stages * kRowTile * kSwizzleBytes + kQueryStages * BQ * kSwizzleBytes;
 }
 
 template <int BQ>
@@ -193,7 +205,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A (64 x 16, descriptor a) * B^T (BQ x 16, descriptor b): the
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// bf16: d += A (64 x 16, descriptor a) * B^T (BQ x 16, descriptor b): the
 // accumulator fragment of m64nBQk16 is BQ / 2 floats a thread.
 template <int BQ>
 struct Wgmma;
@@ -231,22 +249,125 @@ struct Wgmma<32> {
   }
 };
 
+// s8: d += A (64 x 32, descriptor a) * B^T (BQ x 32, descriptor b), exact in
+// s32.  The integer form takes the scale-d predicate only: no scale or
+// transpose immediates (8-bit operands are K-major).  Its fragment has the
+// f32 fragment's layout: BQ / 2 ints a thread.
+template <int BQ>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<8> {
+  __device__ __forceinline__ static void mma(int (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3}, %4, %5, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  __device__ __forceinline__ static void mma(int (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+          "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Operand traits: what the bf16 and the int8 scans do differently
+// ---------------------------------------------------------------------------
+
+// bf16 (kernels 1 and 5): f32 accumulators; the score is the product, or
+// for l2 -(|q|^2 + |c|^2 - 2 q.c), as in the TPU kernel.
+struct Bf16 {
+  using Acc = float;
+  static constexpr int kBytes = 2;
+  static constexpr int kBoxK = kSwizzleBytes / kBytes;  // 64 elements a box row
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  template <int BQ>
+  using Mma = Wgmma<BQ>;
+  struct Scales {
+    const float* qnorms;  // [q], read for l2
+    const float* cnorms;  // [n], read for l2
+  };
+  struct Row {
+    float cn;
+  };
+  __device__ __forceinline__ static Row row(const Scales& s, int col, bool valid, int l2) {
+    return Row{(l2 && valid) ? s.cnorms[col] : 0.f};
+  }
+  // The score of (row, query gq) from its accumulator; `l2` is false for a
+  // row the epilogue drops.
+  __device__ __forceinline__ static float score(float acc, const Scales& s, const Row& r, int gq, int q,
+                                                bool l2) {
+    if (!l2) return acc;
+    const float qn = gq < q ? s.qnorms[gq] : 0.f;
+    return -__fsub_rn(__fadd_rn(qn, r.cn), __fmul_rn(2.f, acc));
+  }
+};
+
+// int8 (kernels 2 and 6): s32 accumulators; the score is the TPU kernel's
+// (float(acc) * qscale) * cscale, in that order, or for l2 2 s - |c|^2 (the
+// query norm is constant per query).
+struct S8 {
+  using Acc = int;
+  static constexpr int kBytes = 1;
+  static constexpr int kBoxK = kSwizzleBytes / kBytes;  // 128 elements a box row
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // bytes: TMA only copies them
+  template <int BQ>
+  using Mma = WgmmaS8<BQ>;
+  struct Scales {
+    const float* qscales;  // [q]
+    const float* cscales;  // [n]
+    const float* cnorms;   // [n] full-precision row norms, read for l2
+  };
+  struct Row {
+    float cs, cn;
+  };
+  __device__ __forceinline__ static Row row(const Scales& s, int col, bool valid, int l2) {
+    return Row{valid ? s.cscales[col] : 0.f, (l2 && valid) ? s.cnorms[col] : 0.f};
+  }
+  __device__ __forceinline__ static float score(int acc, const Scales& s, const Row& r, int gq, int q,
+                                                bool l2) {
+    const float qs = gq < q ? s.qscales[gq] : 0.f;
+    const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), qs), r.cs);
+    return l2 ? __fsub_rn(__fmul_rn(2.f, v), r.cn) : v;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // The kernel body: scores of queries [q0, q0 + BQ) against rows [row0,
 // row0 + bn) into the score tile, then the block's top-k
 // ---------------------------------------------------------------------------
 
-template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold>
 __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
                                               const CUtensorMap* query_map,
-                                              const float* __restrict__ qnorms,
-                                              const float* __restrict__ cnorms,
+                                              const typename Op::Scales& scales,
                                               const int8_t* __restrict__ mask,
                                               const Predicates& pred, float* __restrict__ out_v,
                                               int* __restrict__ out_i, int n, int d, int q,
                                               int count, int k, int bn, int l2) {
-  constexpr int kCorpusBox = kRowTile * kBoxK * 2;
-  constexpr int kQueryBox = BQ * kBoxK * 2;
+  using Acc = typename Op::Acc;
+  constexpr int kBoxK = Op::kBoxK;
+  constexpr int kCorpusBox = kRowTile * kSwizzleBytes;
+  constexpr int kQueryBox = BQ * kSwizzleBytes;
   constexpr int kPitch = kListSlots + kPassRows + kPitchPad;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
@@ -323,7 +444,7 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     list_i[i] = INT_MAX;
   }
   // Warpgroup wg scores rows wg * 64 .. wg * 64 + 63 of each row tile.
-  // Fragment of m64nBQk16: element 4 j + 2 h + e of a thread is (row r + 8 h,
+  // Fragment of m64nBQk16 / k32: element 4 j + 2 h + e of a thread is (row r + 8 h,
   // query 8 j + qc + e), r = 16 * warp + lane / 4, qc = 2 * (lane % 4).
   const int wg = threadIdx.x / 128;
   const int t128 = threadIdx.x % 128;
@@ -335,11 +456,11 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     const int pass0 = p * kPassRows;
     const int prows = min(kPassRows, ncols - pass0);
     const int ptiles = (prows + kRowTile - 1) / kRowTile;
-    float acc[kPassTiles][BQ / 2];
+    Acc acc[kPassTiles][BQ / 2];
 #pragma unroll
     for (int t = 0; t < kPassTiles; ++t)
 #pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) acc[t][i] = 0.f;
+      for (int i = 0; i < BQ / 2; ++i) acc[t][i] = Acc(0);
     // D chunk by chunk: one query box serves every row tile of the pass
     for (int c = 0; c < chunks; ++c) {
       mbar_wait(&qfull[qs], qph);
@@ -348,11 +469,11 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
       for (int t = 0; t < kPassTiles; ++t) {
         if (t < ptiles) {
           mbar_wait(&cfull[cs], cph);
-          const uint64_t da = sw128_desc(ring + cs * kCorpusBox + wg * 64 * kBoxK * 2);
+          const uint64_t da = sw128_desc(ring + cs * kCorpusBox + wg * 64 * kSwizzleBytes);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kBoxK / kWgmmaK; ++kk)  // 32 bytes along K: 2 in 16-byte units
-            Wgmma<BQ>::mma(acc[t], da + 2 * kk, db + 2 * kk);
+          for (int kk = 0; kk < kSwizzleBytes / kWgmmaKBytes; ++kk)  // 32 bytes along K: 2 in 16-byte units
+            Op::template Mma<BQ>::mma(acc[t], da + 2 * kk, db + 2 * kk);
           wgmma_commit();
           wgmma_wait_all();
           fence_acc(acc[t]);
@@ -372,9 +493,14 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // both warpgroups are done with the ring
 
     // epilogue: -inf past count / where mask <= 0 / where the query's
-    // predicate drops the row; l2 as in the TPU kernel.  The predicate rows
+    // predicate drops the row; the operand's score elsewhere.  The predicate rows
     // are looked up here: looked up before the main loop, kernel 5 on the
     // FMA loop ran 46 % slower than kernel 1 (H100).
+    // The grouped kernels score inner products only (their entry points
+    // pass l2 = 0).  At BQ 32 the l2 term is compiled out of them: kernel
+    // 5 spills 84 bytes instead of 196.  At BQ 8 it stays in: without it
+    // ptxas gives kernel 5 one register more (H100 build, PERF.md).
+    const int use_l2 = (kGrouped && BQ > kSmallBQ) ? 0 : l2;
     const int8_t* pred_row[BQ / 4] = {};
     if constexpr (kGrouped) {
 #pragma unroll
@@ -395,7 +521,7 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
         if (lp >= prows) continue;
         const int col = row0 + pass0 + lp;
         const bool valid = col < count && (mask == nullptr || mask[col] > 0);
-        const float cn = (l2 && valid) ? cnorms[col] : 0.f;
+        const typename Op::Row rterms = Op::row(scales, col, valid, use_l2);
 #pragma unroll
         for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -404,11 +530,7 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
             bool keep = valid;
             if constexpr (kGrouped)
               keep = keep && pred_row[2 * j + e] != nullptr && pred_row[2 * j + e][col] > 0;
-            float s = acc[t][4 * j + 2 * h + e];
-            if (l2 && keep) {
-              const float qn = (q0 + ql < q) ? qnorms[q0 + ql] : 0.f;
-              s = -__fsub_rn(__fadd_rn(qn, cn), __fmul_rn(2.f, s));
-            }
+            const float s = Op::score(acc[t][4 * j + 2 * h + e], scales, rterms, q0 + ql, q, use_l2 && keep);
             scores[ql * kPitch + kListSlots + lp] = keep ? s : -CUDART_INF_F;
           }
       }
@@ -452,17 +574,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 [rows, d] tensor cut into [box_rows, kBoxK] boxes with
-// the 128-byte swizzle; reads out of bounds fill zeros.  Needs d % 8 == 0
-// (a 16-byte row stride) and a 16-byte-aligned base.
+// A row-major [rows, d] tensor of the operand's type cut into [box_rows,
+// Op::kBoxK] boxes (128 bytes wide) with the 128-byte swizzle; reads out of
+// bounds fill zeros.  Needs a 16-byte row stride (d % 8 == 0 bf16, d % 16 ==
+// 0 int8) and a 16-byte-aligned base.
+template <typename Op>
 inline bool make_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBoxK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * Op::kBytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(Op::kBoxK), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elems[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+  return encode(map, Op::kMapType, 2, const_cast<void*>(base), dims, strides,
                 box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -111,9 +111,9 @@ tc_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
                      const int8_t* __restrict__ mask, Predicates pred,
                      float* __restrict__ out_v, int* __restrict__ out_i, int n, int d, int q,
                      int count, int k, int bn, int l2) {
-  tc::tc_block_topk<BQ, kStagesT, kGrouped, kThreshold>(&corpus_map, &query_map, qnorms, cnorms,
-                                                        mask, pred, out_v, out_i, n, d, q, count,
-                                                        k, bn, l2);
+  tc::tc_block_topk<tc::Bf16, BQ, kStagesT, kGrouped, kThreshold>(
+      &corpus_map, &query_map, tc::Bf16::Scales{qnorms, cnorms}, mask, pred, out_v, out_i, n, d, q,
+      count, k, bn, l2);
 }
 
 template <typename T, int BQ, bool kGrouped, bool kFast>
@@ -157,8 +157,8 @@ cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
                    void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
                    cudaStream_t stream) {
   CUtensorMap corpus_map, query_map;
-  if (!tc::make_map(&corpus_map, corpus, n, d, tc::kRowTile) ||
-      !tc::make_map(&query_map, queries, q, d, BQ))
+  if (!tc::make_map<tc::Bf16>(&corpus_map, corpus, n, d, tc::kRowTile) ||
+      !tc::make_map<tc::Bf16>(&query_map, queries, q, d, BQ))
     return cudaErrorInvalidValue;
   const size_t smem = tc::smem_bytes<BQ>(kStagesT);
   auto kernel = tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold>;

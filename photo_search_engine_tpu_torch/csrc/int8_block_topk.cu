@@ -13,18 +13,38 @@
 // and the exact rescore stay in the wrapper (ops/quantized.py).
 //
 // What bounds it on the H100: the int8 shadow of a 1M x 1536 corpus is
-// 1.5 GB, half the bf16 bytes, so at batch 1 the read costs about 0.5 ms.
-// At batch 256 the product is 2 * 256 * 1M * 1536 = 0.8 TOP; __dp4a does
-// four multiply-adds per instruction, so this kernel is bound by the
-// integer pipe there, ahead of the memory.
+// 1.54 GB, half the bf16 bytes, so every batch up to 32 costs at least its
+// read, 0.46 ms at 3.35 TB/s.  The product, 2 * 256 * 1M * 1536 = 0.8 TOP
+// at batch 256, is 0.4 ms at the 1,979 TOP/s of the int8 tensor cores, so
+// the bytes bound every batch; above 32 queries what the SMs take in (the
+// corpus once per query tile of 32, from L2) and the selection come next.
+// The first port's __dp4a loop (4 multiply-adds an instruction, nothing in
+// flight while it ran, query tiles of 16) took 1.35 ms at batch 1 and 27.1
+// ms at batch 128; this design takes 0.58 and 1.60 ms (H100, PERF.md).
 //
-// What the design does about it: the same CTA shape as kernel 1 (one block
-// of `bn` rows for BQ queries, query blocks on blockIdx.x so a corpus block
-// is re-read from L2), with D staged as int8x4 words and an exact int32
-// dot by __dp4a.  The int32 sum becomes f32 and is scaled by the query
-// scale, then the row scale ((acc * qs) * cs, the TPU order); l2 orders
-// by 2s - |c|^2 (the query norm is constant per query).  Invalid rows
-// (past count, mask <= 0) are -inf.
+// What the design does about it (d % 16 == 0: block_score_tc.cuh with the
+// S8 operand).  Kernel 1's tensor-core scan, unchanged but for the operand:
+// a producer warp keeps a ring of 4 corpus boxes ([128 rows, 128 bytes], 16
+// KB) and 2 query boxes filled by TMA (128-byte swizzle); two consumer
+// warpgroups multiply their 64 rows of each corpus box by the query box
+// with wgmma m64n8k32 / m64n32k32 s8 x s8 -> s32 (exact, so the result is
+// bit-identical to the plain version) and keep a pass of 512 rows in
+// registers.  The epilogue turns each s32 sum into the TPU kernel's score,
+// (float(acc) * qscale) * cscale, then 2 s - |c|^2 for l2 (the query norm
+// is constant per query), -inf past count, where mask <= 0 or where the
+// query's predicate drops the row; the threshold selection (block_select.cuh,
+// select_pass) keeps each query's running top-k over the passes.  BQ 8 at
+// q <= 8 (the micro-batcher's batches), else 32: 107,752 and 108,136 bytes
+// of shared memory a CTA, two CTAs an SM.  A 2048-row block (the JAX
+// default_block_n_int8 at D 1536) is 4 passes, so the nomination pool and
+// its guard stay the JAX package's.
+//
+// Which loop runs.  TMA needs a 16-byte row stride, 16 int8 elements: the
+// tensor cores take d % 16 == 0 on 16-byte-aligned bases (the wrappers
+// check them and raise); other widths with d % 4 == 0 take the __dp4a loop
+// below (BQ 8, D staged as int8x4 words, an exact int32 dot by __dp4a, a
+// [BQ, bn] score tile and the k warp rounds of select_block_topk), and the
+// wrappers count those launches apart (launches_by_loop).
 //
 // Selection: the per-block top-kloc is chosen on exact f32 values with
 // ties to the smallest row (block_select.cuh), not with the TPU's packed
@@ -33,18 +53,20 @@
 // exact f32 order only inside a +-2^-13 relative window, so the two can
 // nominate different rows only among near-ties of the quantized score.
 //
-// Requires D % 4 == 0 (rows are read as int8x4 words; the wrapper checks).
 // Outputs: [Q, NB, k] float32 quantized scores and int32 global row ids,
 // padded with -inf and INT_MAX.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
+#include "block_score_tc.cuh"
 #include "block_select.cuh"
 
 namespace {
 
 using namespace pse;
 
+// The __dp4a loop (d % 16 != 0).
 template <int BQ, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 int8_block_topk_kernel(const int* __restrict__ corpus,   // [n][d/4] int8x4
@@ -159,17 +181,64 @@ cudaError_t run(const void* corpus, const void* queries, const void* qscales,
   return cudaGetLastError();
 }
 
+// Kernels 2 and 6 on the tensor cores (block_score_tc.cuh, the S8 operand).
+template <int BQ, bool kGrouped>
+__global__ void __launch_bounds__(tc::kThreadsTc, 2)
+tc_int8_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
+                          const __grid_constant__ CUtensorMap query_map,
+                          const float* __restrict__ qscales, const float* __restrict__ cscales,
+                          const float* __restrict__ cnorms, const int8_t* __restrict__ mask,
+                          Predicates pred, float* __restrict__ out_v, int* __restrict__ out_i, int n,
+                          int d, int q, int count, int k, int bn, int l2) {
+  tc::tc_block_topk<tc::S8, BQ, tc::kStages, kGrouped, true>(
+      &corpus_map, &query_map, tc::S8::Scales{qscales, cscales, cnorms}, mask, pred, out_v, out_i, n,
+      d, q, count, k, bn, l2);
+}
+
+template <int BQ, bool kGrouped>
+cudaError_t run_tc(const void* corpus, const void* queries, const void* qscales,
+                   const void* cscales, const void* cnorms, const void* mask, Predicates pred,
+                   void* out_v, void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
+                   cudaStream_t stream) {
+  CUtensorMap corpus_map, query_map;
+  if (!tc::make_map<tc::S8>(&corpus_map, corpus, n, d, tc::kRowTile) ||
+      !tc::make_map<tc::S8>(&query_map, queries, q, d, BQ))
+    return cudaErrorInvalidValue;
+  const size_t smem = tc::smem_bytes<BQ>(tc::kStages);
+  auto kernel = tc_int8_block_topk_kernel<BQ, kGrouped>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  const dim3 grid((q + BQ - 1) / BQ, (n + bn - 1) / bn);
+  kernel<<<grid, tc::kThreadsTc, smem, stream>>>(
+      corpus_map, query_map, static_cast<const float*>(qscales), static_cast<const float*>(cscales),
+      static_cast<const float*>(cnorms), static_cast<const int8_t*>(mask), pred,
+      static_cast<float*>(out_v), static_cast<int*>(out_i), n, d, q, count, k, bn, l2);
+  return cudaGetLastError();
+}
+
+// The tensor cores where TMA can read the rows (a 16-byte row stride, d %
+// 16 == 0, and 16-byte-aligned bases); other widths take the __dp4a loop at
+// BQ 8, and the wrappers count those launches apart.
 template <bool kGrouped>
 int dispatch(const void* corpus, const void* queries, const void* qscales,
              const void* cscales, const void* cnorms, const void* mask,
              Predicates pred, void* out_v, void* out_i, int n, int d, int q,
              int count, int k, int bn, int l2, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (q <= 8)
+  if (d % 16 != 0)
     return run<8, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred, out_v,
                             out_i, n, d, q, count, k, bn, l2, s);
-  return run<16, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred, out_v,
-                           out_i, n, d, q, count, k, bn, l2, s);
+  if (reinterpret_cast<uintptr_t>(corpus) % 16 || reinterpret_cast<uintptr_t>(queries) % 16)
+    return cudaErrorMisalignedAddress;
+  if (q <= tc::kSmallBQ)
+    return run_tc<tc::kSmallBQ, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred,
+                                          out_v, out_i, n, d, q, count, k, bn, l2, s);
+  return run_tc<tc::kLargeBQ, kGrouped>(corpus, queries, qscales, cscales, cnorms, mask, pred,
+                                        out_v, out_i, n, d, q, count, k, bn, l2, s);
 }
 
 }  // namespace

@@ -156,10 +156,11 @@ def build_info() -> Dict[str, object]:
     }
 
 
-def sass_counts(pattern: str, opcodes=("HGMMA", "UTMALDG")) -> Dict[str, Dict[str, int]]:
+def sass_counts(pattern: str, opcodes=("HGMMA", "IGMMA", "UTMALDG")) -> Dict[str, Dict[str, int]]:
     """How many of each opcode the SASS of every compiled kernel whose
     mangled name contains ``pattern`` holds (``cuobjdump -sass`` of the
-    built library): ``HGMMA`` is wgmma, ``UTMALDG`` a TMA load."""
+    built library): ``HGMMA`` is a bf16 wgmma, ``IGMMA`` an int8 wgmma,
+    ``UTMALDG`` a TMA load."""
     import re
 
     library()
@@ -209,7 +210,7 @@ def require(what: str, tensor, device, dtype, shape) -> None:
 
 def require_aligned(what: str, tensor, alignment: int = 16) -> None:
     """Raise unless ``tensor`` starts on an ``alignment``-byte boundary
-    (TMA reads bf16 rows from 16-byte-aligned bases only)."""
+    (TMA reads rows from 16-byte-aligned bases only)."""
     if tensor.data_ptr() % alignment:
         raise ValueError(f"{what}: the tensor must start on a {alignment}-byte boundary, "
                          f"got address {tensor.data_ptr():#x}")

@@ -4,7 +4,8 @@ Counterpart of ``photo_search_engine_tpu/ops/quantized.py``.  The int8
 shadow corpus only nominates candidates; exactness comes from rescoring
 them against the full-precision rows:
 
-    int8 scan, per-block top-kloc   (kernel 2, csrc/int8_block_topk.cu)
+    int8 scan, per-block top-kloc   (kernel 2, csrc/int8_block_topk.cu:
+                                     s8 wgmma on the tensor cores)
       → merge to the top-``cand`` pool (stable sort, quantized order)
         → gather the pool's rows at full precision
           → exact float32 dot, exact order, top-k
@@ -46,8 +47,9 @@ INT8_BLOCK_N = 2048  # widest kernel-2 block (the JAX packed-key bound)
 
 def resolve_store_quantized(value) -> bool:
     """``STORE_QUANTIZED`` → bool.  ``"auto"`` is False: the int8 tier is
-    the TPU serving default, but on CUDA it stays off until an A/B on the
-    H100 shows it wins (ROADMAP queue 1)."""
+    the TPU serving default, but on CUDA it stays off until the benchmark
+    and recall on realistic embeddings show it wins (ROADMAP.md, "Modules
+    still to port": tools, the SPA contract and a benchmark)."""
     if isinstance(value, bool):
         return value
     if value is None:
@@ -85,6 +87,44 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # Kernel 2: int8 per-block top-k (csrc/int8_block_topk.cu) and its plain version
 # ---------------------------------------------------------------------------
+
+
+def int8_scoring_loop(dim: int) -> str:
+    """Which scoring loop kernels 2 and 6 run at width ``dim`` (the C entry
+    points' dispatch): ``"tensor_core"`` (s8 wgmma fed by TMA,
+    ``csrc/block_score_tc.cuh``) where TMA takes the row stride (D % 16 ==
+    0), ``"dp4a"`` (int8x4 words) for the other widths with D % 4 == 0;
+    any other width raises."""
+    if dim % 16 == 0:
+        return "tensor_core"
+    if dim % 4 == 0:
+        return "dp4a"
+    raise ValueError(f"int8 scan: rows are read as int8x4 words; D={dim} must be a multiple of 4")
+
+
+def _int8_launch_checks(name, corpus_i8, scales, q_i8, qs, k, block_n):
+    """Checks of kernels 2 and 6 on CUDA tensors: ``(n, d, q, device,
+    scoring loop)``.  The tensor cores read 16-byte-aligned bases only, the
+    __dp4a loop 4-byte-aligned ones."""
+    if corpus_i8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {corpus_i8.device}")
+    if corpus_i8.ndim != 2:
+        raise ValueError(f"{name}: corpus must be [N, D], got {tuple(corpus_i8.shape)}")
+    (n, d), nq, dev = corpus_i8.shape, q_i8.shape[0], corpus_i8.device
+    _cuda.require(f"{name} corpus", corpus_i8, dev, torch.int8, (n, d))
+    _cuda.require(f"{name} queries", q_i8, dev, torch.int8, (nq, d))
+    _cuda.require(f"{name} scales", scales, dev, torch.float32, (n,))
+    _cuda.require(f"{name} query scales", qs, dev, torch.float32, (nq,))
+    loop = int8_scoring_loop(d)
+    if loop == "tensor_core":
+        _cuda.require_aligned(f"{name} corpus", corpus_i8)
+        _cuda.require_aligned(f"{name} queries", q_i8)
+    else:
+        _cuda.require_aligned(f"{name} corpus", corpus_i8, 4)
+        _cuda.require_aligned(f"{name} queries", q_i8, 4)
+    if n == 0 or nq == 0 or not 1 <= k <= min(INT8_MAX_K, block_n):
+        raise ValueError(f"{name}: n={n}, q={nq}, k={k} outside the kernel's range")
+    return n, d, nq, dev, loop
 
 
 def int8_block_topk_plain(
@@ -141,28 +181,18 @@ def int8_block_topk(
     """Kernel 2: per-block top-k of int8 queries over the int8 corpus.
 
     ``corpus_i8`` ``[N, D]`` and ``q_i8`` ``[Q, D]`` int8 with ``D % 4 ==
-    0``; ``scales`` ``[N]`` and ``qs`` ``[Q]`` float32; ``mask`` int8
-    ``[N]``; ``cnorms`` float32 ``[N]`` for l2.  Outputs as in
-    :func:`int8_block_topk_plain`.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises."""
+    0`` (D % 16 == 0 on 16-byte-aligned bases: the tensor cores);
+    ``scales`` ``[N]`` and ``qs`` ``[Q]`` float32; ``mask`` int8 ``[N]``;
+    ``cnorms`` float32 ``[N]`` for l2.  Outputs as in
+    :func:`int8_block_topk_plain`.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (its scoring loop as
+    :func:`int8_scoring_loop` says) or raises."""
     if corpus_i8.device.type == "cpu":
         return int8_block_topk_plain(
             corpus_i8, scales, q_i8, qs, k, count=count, metric=metric,
             mask=mask, cnorms=cnorms, block_n=block_n,
         )
-    if corpus_i8.device.type != "cuda":
-        raise ValueError(f"int8_block_topk: unsupported device {corpus_i8.device}")
-    if corpus_i8.ndim != 2:
-        raise ValueError(f"int8_block_topk: corpus must be [N, D], got {tuple(corpus_i8.shape)}")
-    (n, d), nq, dev = corpus_i8.shape, q_i8.shape[0], corpus_i8.device
-    _cuda.require("int8_block_topk corpus", corpus_i8, dev, torch.int8, (n, d))
-    _cuda.require("int8_block_topk queries", q_i8, dev, torch.int8, (nq, d))
-    _cuda.require("int8_block_topk scales", scales, dev, torch.float32, (n,))
-    _cuda.require("int8_block_topk query scales", qs, dev, torch.float32, (nq,))
-    if d % 4 or corpus_i8.data_ptr() % 4 or q_i8.data_ptr() % 4:
-        raise ValueError(f"int8_block_topk: rows are read as int8x4 words; D={d} and the data must align to 4")
-    if n == 0 or nq == 0 or not 1 <= k <= min(INT8_MAX_K, block_n):
-        raise ValueError(f"int8_block_topk: n={n}, q={nq}, k={k} outside the kernel's range")
+    n, d, nq, dev, loop = _int8_launch_checks("int8_block_topk", corpus_i8, scales, q_i8, qs, k, block_n)
     nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
     if mask is not None:
         _cuda.require("int8_block_topk mask", mask, dev, torch.int8, (n,))
@@ -180,10 +210,12 @@ def int8_block_topk(
     )
     _cuda.check(err, "int8_block_topk")
     int8_block_topk.launches += 1
+    int8_block_topk.launches_by_loop[loop] += 1
     return out_v, out_i
 
 
 int8_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+int8_block_topk.launches_by_loop = {"tensor_core": 0, "dp4a": 0}  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +269,10 @@ def int8_grouped_block_topk(
         return int8_grouped_block_topk_plain(
             corpus_i8, scales, q_i8, qs, mask_table, mask_ids, k, count=count, block_n=block_n,
         )
-    if corpus_i8.device.type != "cuda":
-        raise ValueError(f"int8_grouped_block_topk: unsupported device {corpus_i8.device}")
-    if corpus_i8.ndim != 2:
-        raise ValueError(f"int8_grouped_block_topk: corpus must be [N, D], got {tuple(corpus_i8.shape)}")
-    (n, d), nq, dev = corpus_i8.shape, q_i8.shape[0], corpus_i8.device
+    n, d, nq, dev, loop = _int8_launch_checks("int8_grouped_block_topk", corpus_i8, scales, q_i8, qs, k, block_n)
     m = mask_table.shape[0]
-    _cuda.require("int8_grouped_block_topk corpus", corpus_i8, dev, torch.int8, (n, d))
-    _cuda.require("int8_grouped_block_topk queries", q_i8, dev, torch.int8, (nq, d))
-    _cuda.require("int8_grouped_block_topk scales", scales, dev, torch.float32, (n,))
-    _cuda.require("int8_grouped_block_topk query scales", qs, dev, torch.float32, (nq,))
     _cuda.require("int8_grouped_block_topk mask_table", mask_table, dev, torch.int8, (m, n))
     _cuda.require("int8_grouped_block_topk mask_ids", mask_ids, dev, torch.int32, (nq,))
-    if d % 4 or corpus_i8.data_ptr() % 4 or q_i8.data_ptr() % 4:
-        raise ValueError(f"int8_grouped_block_topk: rows are read as int8x4 words; D={d} and the data must align to 4")
-    if n == 0 or nq == 0 or not 1 <= k <= min(INT8_MAX_K, block_n):
-        raise ValueError(f"int8_grouped_block_topk: n={n}, q={nq}, k={k} outside the kernel's range")
     nb = -(-n // block_n)  # a block_n the kernel cannot fit comes back as a CUDA error
     out_v = torch.empty((nq, nb, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, nb, k), dtype=torch.int32, device=dev)
@@ -264,10 +284,12 @@ def int8_grouped_block_topk(
     )
     _cuda.check(err, "int8_grouped_block_topk")
     int8_grouped_block_topk.launches += 1
+    int8_grouped_block_topk.launches_by_loop[loop] += 1
     return out_v, out_i
 
 
 int8_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+int8_grouped_block_topk.launches_by_loop = {"tensor_core": 0, "dp4a": 0}  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------

@@ -242,9 +242,10 @@ def tc_shared_bytes(bq: int, stages: int) -> int:
     ``block_select.cuh``): alignment slack, the ring of corpus and query
     boxes and a pass's score tile and candidate buffers (at BQ 32 laid over
     the ring), the running top-k lists, the mbarriers.  It does not depend
-    on block_n."""
+    on block_n, nor on the operand (bf16 kernels 1 and 5, int8 kernels 2
+    and 6): a box row is 128 bytes of either."""
     c = {**_cuda.header_constants("block_select.cuh"), **_cuda.header_constants("block_score_tc.cuh")}
-    ring = stages * c["kRowTile"] * c["kBoxK"] * 2 + c["kQueryStages"] * bq * c["kBoxK"] * 2
+    ring = stages * c["kRowTile"] * c["kSwizzleBytes"] + c["kQueryStages"] * bq * c["kSwizzleBytes"]
     tile = (bq * (c["kListSlots"] + c["kPassRows"] + c["kPitchPad"]) * 4
             + 8 * (c["kCandidates"] + c["kListSlots"]) * 8)
     over = max(ring, tile) if bq > c["kSmallBQ"] else ring + tile  # the tile over the ring at BQ 32

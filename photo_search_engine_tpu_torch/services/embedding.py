@@ -3,7 +3,8 @@
 Counterpart of ``DeviceTextRerankService`` and ``_candidate_documents`` in
 ``photo_search_engine_tpu/services/embedding.py`` (that module imports the
 JAX hashing embedder).  The OpenAI-compatible embedding and rerank
-backends are not ported yet (ROADMAP.md, queue 3: online services).
+backends are not ported yet (ROADMAP.md, "Modules still to port": online
+services).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Counterpart of ``LocalVisualRerankService`` and ``merge_with_unprocessed``
 in ``photo_search_engine_tpu/services/rerank.py`` (that module imports the
 JAX hashing embedder).  The LLM-backed visual rerank is not ported yet
-(ROADMAP.md, queue 3: online services).
+(ROADMAP.md, "Modules still to port": online services).
 """
 
 from __future__ import annotations

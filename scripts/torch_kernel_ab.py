@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""The flat scan kernels of one checkout of the PyTorch port, timed on one
+CUDA card, for comparing two checkouts on the same card in one run.
+
+Kernels 1 and 5 (bf16, block_n 1024) and kernels 2 and 6 (int8 shadow,
+block_n 2048) at 1M x 1536 unit rows made on the card from a seed, top-50,
+batches 1, 8, 128 and 256; kernels 5 and 6 over five predicates keeping
+50 / 25 / 5 / 0.1 / 0 % of the rows; kernels 1 and 2 also at k = 1.  Times
+are CUDA events over 10 calls after one warm-up.  Prints one JSON line
+with the card's name and power limit and the checkout it timed.
+
+Run from the repository root; ``--root`` names the directory that holds
+the ``photo_search_engine_tpu_torch`` package to time (default: this
+checkout), for example an unpacked ``git archive`` of the parent commit:
+
+    python3 scripts/torch_kernel_ab.py --root /path/to/parent
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROWS, DIM, K, SEED = 1_000_000, 1536, 50, 20261016
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=REPO, help="directory holding the photo_search_engine_tpu_torch to time")
+    parser.add_argument("--batches", default="1,8,128,256")
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    if not to.__file__.startswith(root):
+        raise RuntimeError(f"imported {to.__file__}, not the checkout under {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+    def ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def unit(n, gen):
+        x = torch.randn((n, DIM), generator=gen, device="cuda")
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    corpus = torch.empty((ROWS, DIM), dtype=torch.bfloat16, device="cuda")
+    for start in range(0, ROWS, 131072):
+        corpus[start:start + 131072] = unit(min(131072, ROWS - start), gen).to(torch.bfloat16)
+    c8, cs = qo.quantize_rows(corpus)
+    table = torch.stack([torch.rand(ROWS, generator=gen, device="cuda") < f
+                         for f in (0.5, 0.25, 0.05, 0.001, 0.0)]).to(torch.int8)
+    times = {}
+    for batch in (int(b) for b in args.batches.split(",")):
+        queries = unit(batch, gen)
+        q16 = queries.to(torch.bfloat16)
+        q8, qs = qo.quantize_rows(queries)
+        ids = (torch.arange(batch, device="cuda") % table.shape[0]).to(torch.int32)
+        runs = {
+            "block_topk": lambda k: to.block_topk(corpus, q16, k, count=ROWS, block_n=1024),
+            "grouped_block_topk": lambda k: go.grouped_block_topk(corpus, q16, table, ids, k, count=ROWS,
+                                                                  block_n=1024),
+            "int8_block_topk": lambda k: qo.int8_block_topk(c8, cs, q8, qs, k, count=ROWS, block_n=2048),
+            "int8_grouped_block_topk": lambda k: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k,
+                                                                            count=ROWS, block_n=2048),
+        }
+        for name, run in runs.items():
+            times[f"{name} batch {batch}"] = ms(lambda: run(K))
+            if name in ("block_topk", "int8_block_topk"):
+                times[f"{name} batch {batch} k=1"] = ms(lambda: run(1))
+    print(json.dumps({"card": card, "root": root, "rows": ROWS, "dim": DIM, "top_k": K,
+                      "ms": {key: round(value, 4) for key, value in times.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

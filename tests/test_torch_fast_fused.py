@@ -395,14 +395,15 @@ def test_tensor_core_tiles_fit_one_sm_and_follow_the_tma_box_rules(which):
     bq = c["kSmallBQ"] if which == "small" else c["kLargeBQ"]
     assert ttopk.kernel_block_q(c["kSmallBQ"]) == c["kSmallBQ"]
     assert ttopk.kernel_block_q(c["kSmallBQ"] + 1) == c["kLargeBQ"]
-    # boxes: [kRowTile, kBoxK] of the corpus, [BQ, kBoxK] of the queries
-    assert c["kBoxK"] * 2 == c["kSwizzleBytes"] == 128
+    # boxes: [kRowTile, 64] bf16 of the corpus, [BQ, 64] of the queries: 128 bytes wide
+    box_k = c["kSwizzleBytes"] // 2
+    assert c["kSwizzleBytes"] == 128
     for rows in (c["kRowTile"], bq):
         assert 0 < rows <= 256 and rows % 8 == 0  # a box dimension; wgmma N (8..256, step 8)
-    assert c["kBoxK"] <= 256 and c["kBoxK"] % c["kWgmmaK"] == 0
+    assert box_k <= 256 and c["kSwizzleBytes"] % c["kWgmmaKBytes"] == 0 and c["kWgmmaKBytes"] == 16 * 2
     assert c["kRowTile"] == 64 * (c["kConsumers"] // 128)  # one m64 tile per consumer warpgroup
     assert c["kPassTiles"] * c["kRowTile"] == c["kPassRows"]
-    assert c["kRowTile"] * c["kBoxK"] * 2 % c["kAlign"] == 0 and bq * c["kBoxK"] * 2 % 1024 == 0
+    assert c["kRowTile"] * c["kSwizzleBytes"] % c["kAlign"] == 0 and bq * c["kSwizzleBytes"] % 1024 == 0
     assert s["kListSlots"] >= ttopk.MAX_KERNEL_K and 32 * s["kSubsets"] >= ttopk.MAX_KERNEL_K
     assert s["kThreads"] == c["kConsumers"]
     # shared memory: the header's formula, as the Python mirror computes it

@@ -93,7 +93,9 @@ def test_wrappers_check_their_inputs(gen):
     # a score tile past the shared memory of one SM: the C entry returns the error
     with pytest.raises(RuntimeError, match="cudaError"):
         to.block_topk(corpus, corpus, 5, count=100, block_n=65536)
-    c8, cs = qo.quantize_rows(corpus)
+    # (int8: the __dp4a loop's score tile grows with block_n; the tensor
+    # cores' tile does not)
+    c8, cs = qo.quantize_rows(_unit(100, 68, gen))
     with pytest.raises(RuntimeError, match="cudaError"):
         qo.int8_block_topk(c8, cs, c8, cs, 5, count=100, block_n=65536)
     # the error is not left behind for the next launch to report
@@ -480,6 +482,112 @@ def test_bf16_wrappers_refuse_misaligned_rows(gen):
     with pytest.raises(ValueError, match="16-byte"):
         go.grouped_block_topk(corpus[:100], corpus.view(-1)[4:4 + 192].view(3, 64), table,
                               torch.zeros(3, dtype=torch.int32, device="cuda"), 5, count=100)
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels 2 and 6 on the tensor cores (s8 wgmma, block_score_tc.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _int8_inputs(gen, n, d, q):
+    ref_rows = _unit(n, d, gen, torch.bfloat16)
+    c8, cs = qo.quantize_rows(ref_rows)
+    q8, qs = qo.quantize_rows(_unit(q, d, gen))
+    return ref_rows, c8, cs, q8, qs
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1008, 1000])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_int8_block_topk_across_tiles_and_widths(gen, q, d, k):
+    """Identical to the plain version: blocks of 2048 and a ragged one,
+    count below n, by turns ip, l2 and masked; D = 1008 ends in a ragged
+    128-byte chunk, D = 1000 (rows TMA cannot stride) takes the __dp4a loop."""
+    n, count = 5000, 4900
+    ref_rows, c8, cs, q8, qs = _int8_inputs(gen, n, d, q)
+    variant = ("ip", "l2", "masked")[(_TC_Q.index(q) + k) % 3]
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.int8) if variant == "masked" else None
+    kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask,
+              cnorms=to.row_sq_norms(ref_rows), block_n=2048)
+    loop = qo.int8_scoring_loop(d)
+    assert loop == ("tensor_core" if d % 16 == 0 else "dp4a")
+    got = _loop_launch(qo.int8_block_topk, loop, lambda: qo.int8_block_topk(c8, cs, q8, qs, k, **kw))
+    assert_topk_match(*got, *qo.int8_block_topk_plain(c8, cs, q8, qs, k, **kw), tol=0.0, exact=True)
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1008, 1000])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_int8_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
+    """Kernel 6 with an empty predicate row and ids outside [0, M)."""
+    n, count = 5000, 4900
+    _, c8, cs, q8, qs = _int8_inputs(gen, n, d, q)
+    table, ids = _predicates(gen, 3, n, q)
+    kw = dict(count=count, block_n=2048)
+    got = _loop_launch(qo.int8_grouped_block_topk, qo.int8_scoring_loop(d),
+                       lambda: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k, **kw))
+    ref = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, k, **kw)
+    assert_topk_match(*got, *ref, tol=0.0, exact=True)
+
+
+@pytest.mark.parametrize("q", [3, 40])
+def test_int8_all_masked_block_gives_empty_slots(gen, q):
+    _, c8, cs, q8, qs = _int8_inputs(gen, 5000, 1536, q)
+    mask = torch.ones(5000, dtype=torch.int8, device="cuda")
+    mask[2048:4096] = 0
+    got_v, got_i = qo.int8_block_topk(c8, cs, q8, qs, 50, count=5000, mask=mask, block_n=2048)
+    ref = qo.int8_block_topk_plain(c8, cs, q8, qs, 50, count=5000, mask=mask, block_n=2048)
+    assert_topk_match(got_v, got_i, *ref, tol=0.0, exact=True)
+    assert torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()
+
+
+@pytest.mark.parametrize("d", [1536, 1008])
+@pytest.mark.parametrize("q", [1, 33])
+def test_int8_duplicate_rows_across_a_block_edge_tie_exactly(gen, d, q):
+    """Copies of the query row on both sides of the block edge at 2048 and
+    in the ragged block score the same bits (an exact int32 sum), so the
+    smallest rows win, in both kernels."""
+    ref_rows = _unit(5000, d, gen, torch.bfloat16)
+    dups = list(range(2016, 2077)) + [4100, 4990]  # with row 7, 64 rows
+    ref_rows[dups] = ref_rows[7].clone()
+    c8, cs = qo.quantize_rows(ref_rows)
+    q8, qs = qo.quantize_rows(ref_rows[7:8].float().repeat(q, 1))
+    want = torch.tensor([7] + dups, device="cuda", dtype=torch.int32)
+    got = qo.int8_block_topk(c8, cs, q8, qs, 64, count=5000, block_n=2048)
+    assert_topk_match(*got, *qo.int8_block_topk_plain(c8, cs, q8, qs, 64, count=5000, block_n=2048),
+                      tol=0.0, exact=True)
+    assert (to.merge_partials(*got, 64)[1] == want).all()
+    assert (got[0][:, 0, 0] == got[0][:, 1, 0]).all()  # the copies in blocks 0 and 1: the same bits
+    table = torch.ones((1, 5000), dtype=torch.int8, device="cuda")
+    ids = torch.zeros(q, dtype=torch.int32, device="cuda")
+    got = qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, 64, count=5000, block_n=2048)
+    assert (to.merge_partials(*got, 64)[1] == want).all()
+
+
+def test_int8_wrappers_refuse_misaligned_rows_and_other_widths(gen):
+    c8, cs = qo.quantize_rows(_unit(101, 64, gen))
+    shifted = c8.view(-1)[8:8 + 6400].view(100, 64)  # contiguous, 8 bytes past an aligned base
+    with pytest.raises(ValueError, match="16-byte"):
+        qo.int8_block_topk(shifted, cs[:100], c8[:3], cs[:3], 5, count=100)
+    table = torch.ones((1, 100), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        qo.int8_grouped_block_topk(c8[:100], cs[:100], c8.view(-1)[8:8 + 192].view(3, 64), cs[:3], table,
+                                   torch.zeros(3, dtype=torch.int32, device="cuda"), 5, count=100)
+    c8, cs = qo.quantize_rows(_unit(100, 1001, gen))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        qo.int8_block_topk(c8, cs, c8, cs, 5, count=100)
+
+
+def test_int8_tensor_core_kernels_run_igmma_and_tma():
+    """The SASS of every int8 kernel 2 and 6 instantiation on the tensor
+    cores holds int8 wgmma (IGMMA) and TMA loads (UTMALDG)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the CUDA toolkit: the kernels are built there")
+    from photo_search_engine_tpu_torch.ops import _cuda
+
+    counts = _cuda.sass_counts("tc_int8_block_topk_kernel")
+    assert len(counts) >= 4, counts  # kernels 2 and 6 at BQ 8 and 32
+    assert all(c["IGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()), counts
 
 
 def test_tensor_core_kernels_run_wgmma_and_tma():

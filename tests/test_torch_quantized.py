@@ -17,6 +17,9 @@ rescore) runs the cases of ``tests/test_quantized.py::GroupedInt8Test``
 beside JAX ``grouped_int8_search`` (Pallas interpret mode), with the same
 comparison."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +27,9 @@ import torch
 import jax.numpy as jnp
 
 from photo_search_engine_tpu.ops import quantized as jq
+from photo_search_engine_tpu_torch.ops import _cuda
 from photo_search_engine_tpu_torch.ops import quantized as tq
+from photo_search_engine_tpu_torch.ops import topk as ttopk
 from tests.torch_parity import unit_rows
 
 K = 10
@@ -260,6 +265,59 @@ def test_grouped_block_partials_plain_equal_masked_kernel2_plain():
     ref = tq.int8_block_topk(c8, cs, q8, qs, 7, count=2500, mask=torch.from_numpy(table[2, :3000]), block_n=2048)
     assert tuple(got[0].shape) == (6, 2, 7)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# -- kernels 2 and 6 on the card: which loop, and the tile they compile with --
+
+
+@pytest.mark.parametrize("dim,loop", [(1536, "tensor_core"), (1008, "tensor_core"), (256, "tensor_core"),
+                                      (1000, "dp4a"), (68, "dp4a"), (1001, None), (66, None)])
+def test_int8_scoring_loop_rule(dim, loop):
+    """Rows whose byte stride TMA takes (D % 16 == 0) go to the s8 wgmma
+    scan, other widths with D % 4 == 0 to the __dp4a loop, and any other
+    width is refused; the C dispatch tests the same remainders."""
+    if loop is None:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            tq.int8_scoring_loop(dim)
+    else:
+        assert tq.int8_scoring_loop(dim) == loop
+    with open(os.path.join(_cuda.SRC_DIR, "int8_block_topk.cu")) as f:
+        source = f.read()
+    assert "if (d % 16 != 0)\n    return run<8, kGrouped>(" in source
+
+
+def test_int8_launches_by_loop_keys():
+    assert tq.int8_block_topk.launches_by_loop.keys() == {"tensor_core", "dp4a"}
+    assert tq.int8_grouped_block_topk.launches_by_loop.keys() == {"tensor_core", "dp4a"}
+
+
+@pytest.mark.parametrize("bq_name", ["kSmallBQ", "kLargeBQ"])
+def test_int8_tensor_core_tiles_fit_two_ctas_an_sm(bq_name):
+    """The int8 instantiations of ``block_score_tc.cuh`` (the S8 operand),
+    parsed from the headers as the kernels compile them: a box row is 128
+    int8 (the 128-byte swizzle, at most 256 elements), one m64nBQk32 takes
+    32 bytes of K, and the shared memory, the same bytes as bf16's, fits a
+    CTA with two CTAs an SM, as ``__launch_bounds__(kThreadsTc, 2)`` says."""
+    c = _cuda.header_constants("block_score_tc.cuh")
+    with open(os.path.join(_cuda.SRC_DIR, "block_score_tc.cuh")) as f:
+        header = f.read()
+    s8 = re.search(r"struct S8 \{(.*?)\n\};", header, re.S).group(1)
+    assert "static constexpr int kBytes = 1;" in s8
+    assert "static constexpr int kBoxK = kSwizzleBytes / kBytes;" in s8
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in s8 and "using Acc = int;" in s8
+    bq = c[bq_name]
+    box_k = c["kSwizzleBytes"] // 1
+    assert box_k == 128 and box_k % c["kWgmmaKBytes"] == 0 and c["kWgmmaKBytes"] == 32  # k32 of s8
+    assert bq % 8 == 0 and 8 <= bq <= 256  # wgmma N of s8: 8, 16, 24, 32, 48, ...
+    assert re.search(rf"wgmma\.mma_async\.sync\.aligned\.m64n{bq}k32\.s32\.s8\.s8", header)
+    assert bq * box_k % c["kAlign"] == 0  # each query box starts on a swizzle atom
+    smem = ttopk.tc_shared_bytes(bq, c["kStages"])
+    assert smem == {8: 107752, 32: 108136}[bq]
+    assert smem <= 232448 and 2 * (smem + 1024) <= 233472
+    with open(os.path.join(_cuda.SRC_DIR, "int8_block_topk.cu")) as f:
+        source = f.read()
+    assert re.search(r"__launch_bounds__\(tc::kThreadsTc, 2\)\ntc_int8_block_topk_kernel", source)
+    assert "tc::smem_bytes<BQ>(tc::kStages)" in source
 
 
 def test_resolve_store_quantized():

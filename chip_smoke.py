@@ -5,10 +5,11 @@ Phases; each prints its results on lines of its own and raises on failure:
 
 1. device  - the card's name and power limit; build the CUDA kernels from
              photo_search_engine_tpu_torch/csrc with nvcc; the registers
-             and spills of the tensor-core kernels (bf16 kernels 1 and 5,
-             int8 kernels 2 and 6) and their HGMMA (bf16 wgmma), IGMMA
-             (int8 wgmma) and UTMALDG (TMA) counts in the SASS, which must
-             not be 0.
+             and spills of the tensor-core kernels (bf16 kernels 1, 3 and
+             5, kernel 1 also for kernel 4's ranges; int8 kernels 2 and 6)
+             and their HGMMA (bf16 wgmma),
+             IGMMA (int8 wgmma) and UTMALDG (TMA) counts in the SASS, which
+             must not be 0.
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
              their plain PyTorch versions on the card: ip, l2, masked with
              a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
@@ -32,11 +33,14 @@ Phases; each prints its results on lines of its own and raises on failure:
              kernel 3 (fast_block_topk, the packed-key scan, and
              fast_grouped_block_topk, through kernel 5's body) and kernel 4
              (fused_topk, the fused running top-k): the searches through
-             them against the same searches on their plain versions, kernel
-             4's range partials and its result against kernel 1's (within
-             TOL: kernel 1 sums bf16 on the tensor cores, kernel 4 with
-             fmaf), with an empty predicate or mask, a live count below n
-             and k = 64.
+             them against the same searches on their plain versions, with
+             an empty predicate or mask, a live count below n and k = 64,
+             each launch on its loop (bf16 the tensor cores, f32 the FMA
+             loop); kernel 3's bf16 partials bit for bit against the plain
+             version's on exact products, flat and grouped, a last block
+             shorter than k included; kernel 4's range partials and result
+             bit for bit against kernel 1's partials merged by range and
+             by merge_partials.
 3. app     - the entry point (python -m photo_search_engine_tpu_torch.api.app,
              micro-batcher on, its default) as a subprocess on a PIL photo
              library; then the same app in this process without a keyword
@@ -55,14 +59,14 @@ Phases; each prints its results on lines of its own and raises on failure:
              impl routes: search(impl="pallas_fast") (kernel 3) and
              search(impl="pallas_fused") (kernel 4) at batch 1 and 128,
              top-50, and grouped_search(impl="pallas_fast") (grouped kernel 3)
-             at batch 128 with M = 5, checked against kernel 1 and the plain
-             versions; and every kernel's time against its plain version
-             (CUDA events, after warm-up), its bound and the time of the
-             nearest library composition, at batch 1, 8 (kernels 1, 2, 5,
-             6), 128 and 256 (kernels 1, 2, 6), with kernels 1 and 2 at
-             k = 1 against k = 50 (every timed launch of 1, 2, 5 and 6 on
-             the tensor cores); merge_partials and rescore_pool timed
-             apart; store.search host to host through impl auto (bf16) and
+             at batch 128 with M = 5, on the tensor cores, kernel 4's
+             results identical to kernel 1's and kernel 3's checked against
+             its plain version; and every kernel's time against its plain
+             version (CUDA events, after warm-up), its bound and the time of
+             the nearest library composition, at batch 1, 8 (kernels 1-6),
+             128 and 256 (kernels 1, 2, 3, 4 and 6), with kernels 1, 2 and 3
+             at k = 1 against k = 50 (every timed launch of 1-6 on the
+             tensor cores); merge_partials and rescore_pool timed apart; store.search host to host through impl auto (bf16) and
              int8 and the impl routes; the int8 tier's recall@10 and @50
              against the exact scan.
 5. ivf     - VECTOR_INDEX_TYPE=ivf at 1M x 1536: bfloat16 rows of intrinsic
@@ -97,7 +101,6 @@ Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import io
 import json
@@ -234,8 +237,8 @@ def read_launches() -> dict:
 
 
 def read_loops() -> dict:
-    """Kernels 1, 2, 5 and 6's launches by scoring loop (tensor cores, or
-    the FMA / __dp4a loop)."""
+    """Kernels 1-6's launches by scoring loop (tensor cores, or the FMA /
+    __dp4a loop)."""
     return {name: dict(wrapper.launches_by_loop) for name, wrapper in _wrappers().items()
             if hasattr(wrapper, "launches_by_loop")}
 
@@ -295,9 +298,10 @@ def phase_device() -> None:
         if any(word in line for word in ("entry function", "registers", "spill", "error", "warning",
                                          "Performance")):
             log(f"[device] ptxas: {line.strip()}")
-    # the tensor-core kernels (bf16 kernels 1 and 5, int8 kernels 2 and 6):
-    # registers, spills, and wgmma (HGMMA bf16, IGMMA int8) and TMA (UTMALDG)
-    # instructions in their SASS
+    # the tensor-core kernels (bf16 kernels 1, 3 and 5, whose kernel 1 also
+    # scans kernel 4's ranges; int8 kernels 2 and 6): registers, spills, and
+    # wgmma (HGMMA bf16, IGMMA int8) and TMA (UTMALDG) instructions in their
+    # SASS
     ptxas = _ptxas_by_function(info["log"])
     sass = _cuda.sass_counts(TC_KERNEL)
     sass8 = _cuda.sass_counts(TC_INT8_KERNEL)
@@ -305,7 +309,12 @@ def phase_device() -> None:
         regs, stores, loads = ptxas.get(name, ("?", "?", "?"))
         log(f"[device] {_tc_label(name)}: {regs} registers, {stores}/{loads} bytes spill stores/loads; "
             f"SASS {ops['HGMMA']} HGMMA, {ops['IGMMA']} IGMMA, {ops['UTMALDG']} UTMALDG")
-    if len(sass) < 4 or any(ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass.values()):
+    labels = {_tc_label(name) for name in sass}
+    for kernel in ("kernel 1", "kernel 3", "kernel 3 grouped", "kernel 5"):
+        for bq in (8, 32):
+            if not any(label.startswith(f"{kernel} bf16") and f"BQ {bq}," in label for label in labels):
+                raise AssertionError(f"no tensor-core instantiation of {kernel} at BQ {bq}: {sorted(labels)}")
+    if any(ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass.values()):
         raise AssertionError(f"bf16 tensor-core kernels without HGMMA or UTMALDG in their SASS: {sass}")
     if len(sass8) < 4 or any(ops["IGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass8.values()):
         raise AssertionError(f"int8 tensor-core kernels without IGMMA or UTMALDG in their SASS: {sass8}")
@@ -316,15 +325,20 @@ TC_INT8_KERNEL = "tc_int8_block_topk_kernel"
 
 
 def _tc_label(mangled: str) -> str:
-    """``tc_block_topk_kernel<BQ, stages, grouped, threshold>`` or
-    ``tc_int8_block_topk_kernel<BQ, grouped>`` from its mangled name."""
+    """``tc_block_topk_kernel<BQ, stages, grouped, threshold, keys>`` or
+    ``tc_int8_block_topk_kernel<BQ, grouped>`` from its mangled name.  bf16
+    kernel 4 launches kernel 1's threshold instantiation over its ranges
+    (fused_topk.cu), so that one is named for both."""
     import re
 
-    found = re.search(TC_KERNEL + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
+    found = re.search(TC_KERNEL + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E", mangled)
     if found:
-        bq, stages, grouped, threshold = found.groups()
-        return (f"{'kernel 5' if grouped == '1' else 'kernel 1'} bf16 tensor cores, BQ {bq}, {stages} stages, "
-                f"{'threshold' if threshold == '1' else 'rounds'} selection")
+        bq, stages, grouped, threshold, keys = found.groups()
+        kernel = {("0", "0"): "kernel 1", ("1", "0"): "kernel 5", ("0", "1"): "kernel 3",
+                  ("1", "1"): "kernel 3 grouped"}[(grouped, keys)]
+        selection = "packed-key" if keys == "1" else "threshold" if threshold == "1" else "rounds"
+        fused = " (also kernel 4's ranges)" if (grouped, threshold, keys, stages) == ("0", "1", "0", "4") else ""
+        return f"{kernel} bf16 tensor cores, BQ {bq}, {stages} stages, {selection} selection{fused}"
     found = re.search(TC_INT8_KERNEL + r"ILi(\d+)ELb([01])E", mangled)
     if found:
         bq, grouped = found.groups()
@@ -825,18 +839,6 @@ def check_ivf_kernel(gen, d) -> None:
         "probed clusters are all masked out gets empty slots (f32, bf16)")
 
 
-@contextlib.contextmanager
-def plain_scan(module, name: str):
-    """Inside, ``module.name`` is its plain version (``name + "_plain"``):
-    the search around the scan (probes, merge, rescore) runs the same code."""
-    kernel = getattr(module, name)
-    setattr(module, name, getattr(module, name + "_plain"))
-    try:
-        yield
-    finally:
-        setattr(module, name, kernel)
-
-
 def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
     """A search through kernel 3 (``[Q, k]``, higher is better) against the
     same search on kernel 3's plain version, by the rule of the CPU tests
@@ -854,19 +856,65 @@ def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
     return err
 
 
-def check_fast_kernels(gen, n, d) -> None:
-    """Kernel 3 through exact_search(impl="pallas_fast") and grouped kernel 3
-    through grouped_mask_search(impl="pallas_fast"), against the same
-    searches on their plain versions (:func:`check_fast`): float32 and
-    bfloat16; ip, l2 and masked with a live count below n; an empty
-    predicate and ids outside [0, M); k 1/10/50/64; then duplicate rows."""
+def check_fast_partials(gen) -> None:
+    """bf16 kernel 3 on the tensor cores, flat and grouped, on exact products
+    (rows with one nonzero bf16 lane, queries with one 1.0 lane, many equal
+    scores): quantized partials bit for bit against the plain version's, ip
+    and l2, masked rows, a live count, and a last block of 40 rows, shorter
+    than k = 64, whose slots past its rows hold its -inf lanes."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, launch_on_loop
+
+    n, k, cases = 2 * 1024 + 40, 64, 0
+    corpus = torch.zeros((n, 64), device=DEVICE)
+    corpus[torch.arange(n), torch.arange(n) % 64] = torch.rand(n, generator=gen, device=DEVICE)
+    corpus[::7] = 0.0
+    corpus = corpus.to(torch.bfloat16)
+    mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.8).to(torch.int8)
+    for q in (3, 40):
+        queries = torch.zeros((q, 64), device=DEVICE)
+        queries[torch.arange(q), torch.arange(q) % 3] = 1.0
+        queries = queries.to(torch.bfloat16)
+        for metric in ("ip", "l2"):
+            kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+            got = launch_on_loop(to.fast_block_topk, "tensor_core", lambda: to.fast_block_topk(corpus, queries, k, **kw))
+            assert_same_bits(f"fast_block_topk exact products {metric} q={q}", got,
+                             to.fast_block_topk_plain(corpus, queries, k, **kw))
+            tail = 2048 + torch.arange(40, 64, device=DEVICE, dtype=torch.int32)
+            if not ((got[1][:, 2, 40:] == tail).all() and torch.isneginf(got[0][:, 2, 40:]).all()):
+                raise AssertionError("fast_block_topk: the short last block's slots are not its -inf lanes")
+            cases += 1
+        table, ids = _predicates(gen, 3, n, q)
+        kw = dict(count=n - 10, block_n=1024)
+        got = launch_on_loop(go.fast_grouped_block_topk, "tensor_core",
+                             lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
+        assert_same_bits(f"fast_grouped_block_topk exact products q={q}", got,
+                         go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
+        cases += 1
+    log(f"[kernels] fast_block_topk / fast_grouped_block_topk bf16 on the tensor cores: {cases} cases of exact "
+        f"products bit for bit with the plain partials (ip, l2, masked, a last block shorter than k)")
+
+
+def check_fast_kernels(gen, n, d) -> None:
+    """Kernel 3 through exact_search(impl="pallas_fast") and grouped kernel 3
+    through grouped_mask_search(impl="pallas_fast"), against the same
+    searches on their plain versions (:func:`check_fast`), each launch on
+    its loop (bf16 the tensor cores, f32 the FMA loop): float32 and
+    bfloat16; ip, l2 and masked with a live count below n; an empty
+    predicate and ids outside [0, M); k 1/10/50/64; then duplicate rows and
+    the bit-for-bit partials of :func:`check_fast_partials`."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import launch_on_loop, plain_scan
 
     cases = {"fast_block_topk": 0, "fast_grouped_block_topk": 0}
     for dtype in (torch.float32, torch.bfloat16):
+        loop = "tensor_core" if dtype == torch.bfloat16 else "fma"
         corpus = _unit_rows(n, d, gen, dtype)
         for variant in ("ip", "l2", "masked", "empty"):
             metric = "l2" if variant == "l2" else "ip"
@@ -878,8 +926,7 @@ def check_fast_kernels(gen, n, d) -> None:
             for k, q in ((1, 1), (10, 9), (50, 40), (64, 128)):
                 queries = _unit_rows(q, d, gen, dtype)
                 kw = dict(count=count, mask=mask, metric=metric, impl="pallas_fast", block_n=1024)
-                got = to.exact_search(corpus, queries, k, **kw)
-                torch.cuda.synchronize()
+                got = launch_on_loop(to.fast_block_topk, loop, lambda: to.exact_search(corpus, queries, k, **kw))
                 with plain_scan(to, "fast_block_topk"):
                     ref = to.exact_search(corpus, queries, k, **kw)
                 name = f"fast_block_topk {str(dtype)[6:]} {variant} k={k} q={q}"
@@ -894,8 +941,8 @@ def check_fast_kernels(gen, n, d) -> None:
                 table, ids = _predicates(gen, m, n, q)
                 scores = _grouped_plain_scores(corpus, queries, count, table, ids)
                 for k in (10, 64):
-                    got = go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")
-                    torch.cuda.synchronize()
+                    got = launch_on_loop(go.fast_grouped_block_topk, loop, lambda: go.grouped_mask_search(
+                        corpus, queries, table, ids, k, count=count, impl="pallas_fast"))
                     with plain_scan(go, "fast_grouped_block_topk"):
                         ref = go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")
                     name = f"fast_grouped_block_topk {str(dtype)[6:]} M={m} q={q} k={k}"
@@ -914,25 +961,30 @@ def check_fast_kernels(gen, n, d) -> None:
     log(f"[kernels] fast_block_topk: {cases['fast_block_topk']} searches, fast_grouped_block_topk: "
         f"{cases['fast_grouped_block_topk']} searches agree with their plain versions (ids within the "
         f"2^-12 window of the k-th score; max |err| {_ERRORS['fast_block_topk']:.3g} / "
-        f"{_ERRORS['fast_grouped_block_topk']:.3g}, tol {TOL}); duplicate-row ties at the smallest row")
+        f"{_ERRORS['fast_grouped_block_topk']:.3g}, tol {TOL}; bf16 on the tensor cores, f32 on the FMA "
+        f"loop); duplicate-row ties at the smallest row")
+    check_fast_partials(gen)
 
 
 def check_fused_kernel(gen, n, d) -> None:
     """Kernel 4 against its plain version (range partials and result, by
-    :func:`check_topk`'s rule) and against kernel 1 on the same batch by
-    the same rule (bf16 kernel 1 sums on the tensor cores, kernel 4 with
-    fmaf):
-    float32 and bfloat16; ip, l2, masked with a live count below n, and an
+    :func:`check_topk`'s rule) and bit for bit against kernel 1 on the same
+    batch, its partials merged by range (range_partials) and over ranges
+    (merge_partials): kernel 4 scores with kernel 1's loop (bf16 the tensor
+    cores, f32 fmaf) and selects exactly.  float32 and bfloat16, each
+    launch on its loop; ip, l2, masked with a live count below n, and an
     empty mask; k 1/10/50/64; 1, 2 and the default blocks per range; then
     duplicate rows."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, launch_on_loop
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     nb = -(-n // 1024)
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
+        loop = "tensor_core" if dtype == torch.bfloat16 else "fma"
         corpus = _unit_rows(n, d, gen, dtype)
         cnorms = to.row_sq_norms(corpus)
         for variant in ("ip", "l2", "masked", "empty"):
@@ -944,19 +996,17 @@ def check_fused_kernel(gen, n, d) -> None:
             for k, q in ((1, 1), (10, 9), (50, 40), (64, 128)):
                 queries = _unit_rows(q, d, gen, dtype)
                 kw = dict(count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=1024)
-                for per in (1, 2, to.fused_ranges(q, nb, sms)[1]):
-                    got = to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw)
-                    torch.cuda.synchronize()
+                for per in (1, 2, to.fused_ranges(q, nb, sms, loop=loop)[1]):
+                    got = launch_on_loop(to.fused_topk, loop,
+                                         lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
                     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
                     name = f"fused_topk {str(dtype)[6:]} {variant} k={k} q={q} blocks/range={per}"
                     err = max(check_topk(f"{name} (ranges)", got[2], got[3], ref[2], ref[3]),
                               check_topk(name, got[0], got[1], ref[0], ref[1]))
                     check_scores(name, got[0], got[1], _plain_scores(corpus, queries, metric, count, mask))
-                    # kernel 1 scores bf16 on the tensor cores, kernel 4 with fmaf: the
-                    # sums differ in order, so the match is within TOL (cut: the plain (k+1)-th)
-                    k1 = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
-                    check_topk(f"{name} against kernel 1", got[0], got[1],
-                               torch.cat([k1[0], ref[0][..., k:]], dim=-1), torch.cat([k1[1], ref[1][..., k:]], dim=-1))
+                    k1 = to.block_topk(corpus, queries, k, **kw)
+                    assert_same_bits(f"{name} ranges against kernel 1's", got[2:], to.range_partials(*k1, per, k))
+                    assert_same_bits(f"{name} against kernel 1", got[:2], to.merge_partials(*k1, k))
                     _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], err)
                     cases += 1
     dups = list(range(1000, 1062)) + [3000, 4990]
@@ -968,8 +1018,8 @@ def check_fused_kernel(gen, n, d) -> None:
             if idx[0].tolist() != ([7] + dups)[:k]:
                 raise AssertionError(f"fused duplicate-row ties {str(dtype)[6:]} k={k}: {idx[0].tolist()[:8]}...")
     log(f"[kernels] fused_topk: {cases} cases agree with the plain version, ranges and result (max |err| "
-        f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and with kernel 1's within tol; duplicate-row ties at "
-        f"the smallest row")
+        f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and are kernel 1's partials merged, bit for bit (bf16 on "
+        f"the tensor cores, f32 on the FMA loop); duplicate-row ties at the smallest row")
 
 
 # ---------------------------------------------------------------------------
@@ -1402,14 +1452,16 @@ def scale_impl_routes(store, masks, gen) -> None:
     """Kernels 3 and 4 through the store's impl values, as a caller asks for
     them: search(impl="pallas_fast") and search(impl="pallas_fused") at
     batch 1 and 128, top-50, and grouped_search(impl="pallas_fast") at batch
-    128 over the five predicates.  Kernel 4's results must equal kernel 1's
-    (impl="pallas"); kernel 3's are held against the same searches on its
-    plain version (:func:`check_fast`)."""
+    128 over the five predicates, every launch on the tensor cores.  Kernel
+    4's results must be kernel 1's (impl="pallas"), bit for bit; kernel 3's
+    are held against the same searches on its plain version
+    (:func:`check_fast`)."""
     import numpy as np
     import torch
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, plain_scan
 
     dim = store.dimension
     queries = {b: _unit_rows(b, dim, gen, torch.float32).cpu().numpy() for b in (1, 128)}
@@ -1418,23 +1470,24 @@ def scale_impl_routes(store, masks, gen) -> None:
     reset_launches()
     got = {(impl, b): store.search(queries[b], 50, impl=impl) for b in (1, 128) for impl in ("pallas_fast", "pallas_fused")}
     got[("grouped", 128)] = store.grouped_search(queries[128], 50, table, ids, impl="pallas_fast")
-    launches = read_launches()
+    launches, loops = read_launches(), read_loops()
     log(f"[scale] store impl routes (pallas_fast, pallas_fused at batch 1 and 128; grouped pallas_fast at "
-        f"batch 128, M={len(masks)}): launches {launches}")
+        f"batch 128, M={len(masks)}): launches {launches}; by scoring loop {loops}")
     for name in _IMPL_ROUTES:
         if launches[name] <= 0:
             raise AssertionError(f"the store's impl routes never launched {name}")
+        if loops[name]["tensor_core"] != launches[name]:
+            raise AssertionError(f"the store's impl routes launched {name} off the tensor cores: {loops[name]}")
         _LAUNCHES[name] += launches[name]
 
     device = store._device.device
     live = store._device[: store.count]
     for b in (1, 128):
-        # kernel 4 (fmaf) against kernel 1 (tensor cores) at k + 1: the same
-        # rows, values within TOL (the sums differ in order)
-        want = store.search(queries[b], 51, impl="pallas")
-        err = check_topk(f"scale fused search batch {b} against kernel 1",
-                         *(torch.from_numpy(x) for x in (*got[("pallas_fused", b)], *want)))
-        _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], err)
+        # kernel 4 and kernel 1 score on the same tensor-core loop: identical
+        want = store.search(queries[b], 50, impl="pallas")
+        assert_same_bits(f"scale fused search batch {b} against kernel 1",
+                         tuple(torch.from_numpy(x) for x in got[("pallas_fused", b)]),
+                         tuple(torch.from_numpy(x) for x in want))
         with plain_scan(to, "fast_block_topk"):
             ref = store.search(queries[b], 50, impl="pallas_fast")
         q16 = torch.from_numpy(queries[b] / np.linalg.norm(queries[b], axis=1, keepdims=True)).to(device).to(torch.bfloat16)
@@ -1449,14 +1502,15 @@ def scale_impl_routes(store, masks, gen) -> None:
     err = check_fast("scale grouped fast search batch 128", *(torch.from_numpy(x).to(device) for x in (*got[("grouped", 128)], *ref)), scores)
     _ERRORS["fast_grouped_block_topk"] = max(_ERRORS["fast_grouped_block_topk"], err)
     del scores, keep
-    log("[scale] impl routes: pallas_fused results agree with kernel 1's within tol; pallas_fast (flat and "
-        "grouped) agree with the same searches on kernel 3's plain version")
+    log("[scale] impl routes, on the tensor cores: pallas_fused results identical to kernel 1's; pallas_fast "
+        "(flat and grouped) agree with the same searches on kernel 3's plain version")
 
 
 def scale_kernel_times(store, masks, gen) -> None:
     """Every flat kernel against its plain version at the main-path shapes
     (kernel 3's partials are quantized: its searches were held against the
-    plain version in scale_impl_routes), then its time (CUDA events; plain,
+    plain version in scale_impl_routes; kernel 4 is also held bit for bit
+    to kernel 1's partials merged), then its time (CUDA events; plain,
     kernel, kernel, plain), its bound and the time of the nearest library
     composition (cuBLAS product, then torch.topk over the [Q, N] scores)."""
     import numpy as np
@@ -1465,6 +1519,7 @@ def scale_kernel_times(store, masks, gen) -> None:
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits
 
     device, (cap, dim) = store._device.device, store._device.shape
     rows = store.count
@@ -1478,15 +1533,15 @@ def scale_kernel_times(store, masks, gen) -> None:
     nb, nb8 = -(-cap // store.block_rows), -(-cap // store._i8_block)
     k = 50
     off_tc = _off_tensor_cores()
-    for batch, names in ((1, _FLAT + ("fast_block_topk", "fused_topk")),
-                         (8, _FLAT),
+    for batch, names in ((1, _FLAT + _IMPL_ROUTES),
+                         (8, _FLAT + _IMPL_ROUTES),
                          (128, _FLAT + _IMPL_ROUTES),
-                         (256, ("block_topk", "int8_block_topk", "int8_grouped_block_topk"))):
+                         (256, ("block_topk", "int8_block_topk", "int8_grouped_block_topk") + _IMPL_ROUTES)):
         qb = _unit_rows(batch, dim, gen, torch.float32)
         qb16 = qb.to(torch.bfloat16)
         q_i8, qs = qo.quantize_rows(qb)
         ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
-        per = to.fused_ranges(batch, nb, sms, block_n=store.block_rows, k=k)[1]
+        per = to.fused_ranges(batch, nb, sms, block_n=store.block_rows, k=k, loop=to.scoring_loop(store._device))[1]
         ranges = -(-nb // per)
         # the int8 product through cuBLAS wants more than 16 rows
         qpad = torch.zeros((max(32, -(-batch // 8) * 8), dim), dtype=torch.int8, device=device)
@@ -1534,24 +1589,30 @@ def scale_kernel_times(store, masks, gen) -> None:
                 lambda: torch.topk(torch.where(keep(), int8_scores(), float("-inf")), k),
                 i8_in + nbytes(table, ids) + batch * nb8 * k * 8, flops, "int8"),
         }
+        k1_partials = runs["block_topk"][0](k)
         for name in names:
             kernel, plain, library, moved, ops, unit = runs[name]
             err = 0.0
             if not name.startswith("fast"):
-                err = check_topk(f"scale {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1),
+                got = kernel(k)
+                err = check_topk(f"scale {name} batch {batch} top-{k}", *got, *plain(k + 1),
                                  exact=name.startswith("int8"))
                 _ERRORS[name] = max(_ERRORS[name], err)
+                if name == "fused_topk":  # and kernel 1's partials merged, bit for bit
+                    assert_same_bits(f"scale fused_topk batch {batch} top-{k} against kernel 1", got,
+                                     to.merge_partials(*k1_partials, k))
             ms, pms, bound, by, lib_ms, (a, b, c, d) = time_kernel(
                 (name, batch, k), lambda: kernel(k), lambda: plain(k), library, moved, ops, unit)
             extra = f", M={len(masks)}" if "grouped" in name else ""
             extra += f", {ranges} ranges of {per} blocks" if name == "fused_topk" else ""
-            log(f"[scale] {name} batch {batch} top-{k}{extra} at {rows}x{dim}: "
-                + ("" if name.startswith("fast") else f"agrees with the plain version (max |err| {err:.3g}); ")
+            agree = "" if name.startswith("fast") else f"agrees with the plain version (max |err| {err:.3g}); "
+            agree += "identical to kernel 1 + merge_partials; " if name == "fused_topk" else ""
+            log(f"[scale] {name} batch {batch} top-{k}{extra} at {rows}x{dim}: " + agree
                 + f"kernel {ms:.3f} ms, plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{d:.3f}); "
                 f"bound {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB, {ops / 1e12:.3f} T{unit} ops); "
                 f"library {lib_ms:.3f} ms (cuBLAS product + torch.topk)")
-        # kernels 1 and 2 at k = 1 against k = 50: the share of their selection
-        for name in ("block_topk", "int8_block_topk"):
+        # kernels 1, 2 and 3 at k = 1 against k = 50: the share of their selection
+        for name in ("block_topk", "int8_block_topk") + (("fast_block_topk",) if batch == 128 else ()):
             k1_ms = cuda_ms(lambda: runs[name][0](1), reps=3)
             k50_ms = _TIMES[(name, batch, k)][0]
             log(f"[scale] {name} batch {batch} at {rows}x{dim}: k=1 {k1_ms:.3f} ms, k={k} {k50_ms:.3f} ms: "
@@ -1577,8 +1638,8 @@ def scale_kernel_times(store, masks, gen) -> None:
             + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items())
             + f"; int8 against auto {times['int8'] / times['auto']:.3f}x")
     if _off_tensor_cores() != off_tc:
-        raise AssertionError(f"scale times: a kernel 1, 2, 5 or 6 launch left the tensor cores: {read_loops()}")
-    log("[scale] every timed launch of kernels 1, 2, 5 and 6 ran on the tensor cores")
+        raise AssertionError(f"scale times: a kernel 1-6 launch left the tensor cores: {read_loops()}")
+    log("[scale] every timed launch of kernels 1-6 ran on the tensor cores")
     # the int8 tier's recall against the exact scan (kernel 1), 128 random
     # unit queries: on unit rows of no structure the neighbours' scores lie
     # close together, the hard case for a quantized nomination
@@ -1652,6 +1713,7 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
     from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import plain_scan
 
     demo = _demo()
     device = torch.device(DEVICE)

@@ -1,12 +1,18 @@
-// The tensor-core scan of kernels 1 and 5 (bf16, block_topk.cu) and of
-// kernels 2 and 6 (int8, int8_block_topk.cu): TMA loads into a ring of
-// shared-memory stages, one producer warp, two consumer warpgroups that run
-// wgmma (bf16 with f32 accumulators, or s8 with s32 accumulators), an
-// epilogue into a score tile, and the threshold selection (block_select.cuh,
-// select_pass).  The operand trait (Bf16, S8) supplies what differs: the
-// element size and tensor-map type, the wgmma instruction and its
-// accumulator, and the epilogue's score; the ring, the producer, the passes
-// and the selection are one copy.
+// The tensor-core scan of every bf16 and int8 scan of the flat index with
+// D % 8 == 0 (bf16) or D % 16 == 0 (int8): kernels 1, 3 and 5 (bf16,
+// block_topk.cu), kernel 4 (bf16, fused_topk.cu) and kernels 2 and 6 (int8,
+// int8_block_topk.cu).  TMA loads into a ring of shared-memory stages, one
+// producer warp, two consumer warpgroups that run wgmma (bf16 with f32
+// accumulators, or s8 with s32 accumulators), an epilogue into a score
+// tile, and a threshold selection with a running top-k across passes
+// (block_select.cuh): select_pass on exact f32 scores, or, for kernel 3
+// (kKeys), select_pass_keys on the TPU's packed int32 keys.  Kernel 4
+// launches kernel 1 with a range of blocks as the CTA's rows, so the running
+// top-k of a CTA is the TPU kernel's running top-k over that range.  The
+// operand trait (Bf16, S8) supplies what differs by type: the element size
+// and tensor-map type, the wgmma instruction and its accumulator, and the
+// epilogue's score; the ring, the producer, the passes and the selections
+// are one copy.
 //
 // Operands.  Corpus rows are wgmma's M side (operand A, K-major: the
 // corpus's own row-major [n, d] layout); the BQ queries of the CTA are its
@@ -29,7 +35,8 @@
 // predicate, the operand's score) writes a [BQ, 64 + 512] f32 score tile
 // whose rows start with each query's running top-k of the earlier passes;
 // select_pass replaces that list, or on the last pass writes the block's
-// partials.
+// partials (kernel 3: select_pass_keys keys the tile's scores as it reads
+// them and keeps a running list of keys).
 //
 // What bounds it (H100, 1M x 1536).  At batch <= 32 the corpus read from
 // device memory: 0.92 ms bf16, 0.46 ms int8.  Above that the bytes the SMs
@@ -79,7 +86,7 @@ namespace tc {
 
 constexpr int kRowTile = 128;      // corpus rows a stage holds: two m64 warpgroups
 constexpr int kSwizzleBytes = 128;  // a box's width in bytes: CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1
-constexpr int kStages = 4;         // corpus stages of the ring of kernels 1, 2, 5 and 6
+constexpr int kStages = 4;         // corpus stages of the ring of kernels 1-6
 constexpr int kSweepStages = 6;    // the deeper ring scripts/torch_kernel_sweep.py also times
 constexpr int kQueryStages = 2;    // query stages: one box serves a pass's row tiles
 constexpr int kPassRows = 512;     // rows a pass keeps in the accumulators
@@ -92,6 +99,8 @@ constexpr int kConsumers = 256;    // warps 0-7: two consumer warpgroups, then t
 constexpr int kThreadsTc = kConsumers + 32;  // and warp 8, the producer
 constexpr int kWgmmaKBytes = 32;   // bytes of D one wgmma consumes (k16 bf16, k32 s8)
 static_assert(kPassTiles * kRowTile == kPassRows, "a pass is whole row tiles");
+static_assert((kListSlots + kPassRows + 32 * kSubsets - 1) / (32 * kSubsets) * kListSlots <= kKeyCandidates,
+              "select_pass_keys: the positions of k subsets fit the candidate buffer");
 
 // Shared memory of one CTA, in bytes from the aligned base: the ring
 // (stages corpus boxes, then kQueryStages query boxes), over which a pass's
@@ -353,10 +362,14 @@ struct S8 {
 
 // ---------------------------------------------------------------------------
 // The kernel body: scores of queries [q0, q0 + BQ) against rows [row0,
-// row0 + bn) into the score tile, then the block's top-k
+// row0 + bn) into the score tile, then the block's top-k.  kKeys (kernel 3,
+// bn <= 2048): select_pass_keys keys each score at its block-local lane as
+// it reads the tile, and keeps a running list of keys; the epilogue and
+// the scoring loop are kernel 1's.  Compiled out of every other
+// instantiation.
 // ---------------------------------------------------------------------------
 
-template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false>
 __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
                                               const CUtensorMap* query_map,
                                               const typename Op::Scales& scales,
@@ -438,10 +451,11 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     return;
   }
 
-  // consumers.  The running top-k of each query starts empty.
+  // consumers.  The running top-k of each query starts empty (kKeys: a
+  // list of keys in list_i, INT_MIN where empty).
   for (int i = threadIdx.x; i < BQ * kListSlots; i += kConsumers) {
     list_v[i] = -CUDART_INF_F;
-    list_i[i] = INT_MAX;
+    list_i[i] = kKeys ? INT_MIN : INT_MAX;
   }
   // Warpgroup wg scores rows wg * 64 .. wg * 64 + 63 of each row tile.
   // Fragment of m64nBQk16 / k32: element 4 j + 2 h + e of a thread is (row r + 8 h,
@@ -450,6 +464,8 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
   const int t128 = threadIdx.x % 128;
   const int frag_row = wg * 64 + (t128 / 32) * 16 + (t128 % 32) / 4;
   const int qc = 2 * (t128 % 4);
+  // kKeys: the lane field of the keys, max(10, bit_length(bn - 1)) bits
+  [[maybe_unused]] const int lm = kKeys ? (1 << max(10, 32 - __clz(bn - 1))) - 1 : 0;
   int cs = 0, qs = 0;
   uint32_t cph = 0, qph = 0;
   for (int p = 0; p < passes; ++p) {
@@ -536,8 +552,12 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
       }
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // the tile is whole
 
-    select_pass<BQ, kThreshold>(scores, kPitch, prows, list_v, list_i, q0, q, blk, gridDim.y,
-                                row0 + pass0, k, p == passes - 1, cands, out_v, out_i);
+    if constexpr (kKeys)
+      select_pass_keys<BQ>(scores, kPitch, prows, list_i, q0, q, blk, gridDim.y, row0, pass0, ncols, lm, k,
+                           p == passes - 1, reinterpret_cast<int*>(cands), out_v, out_i);
+    else
+      select_pass<BQ, kThreshold>(scores, kPitch, prows, list_v, list_i, q0, q, blk, gridDim.y,
+                                  row0 + pass0, k, p == passes - 1, cands, out_v, out_i);
     // the producer's next loads write over the tile: order these generic
     // accesses before them
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");

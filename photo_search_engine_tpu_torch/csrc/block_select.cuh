@@ -13,11 +13,19 @@
 // columns.  Ties therefore go to the smallest row, as lax.top_k does, and
 // the comparison is on exact float32 values (no packed keys).
 //
-// Variants beside it: select_pass, the threshold selection with a running
-// top-k of the bf16 kernels 1 and 5 on the tensor cores; select_block_topk_fast,
-// the packed keys of kernel 3 (_extract_block_topk_fast, topk.py:301-342);
-// merge_topk_ids, which carries explicit ids for kernel 4's running top-k;
-// and the merge of sorted lists in fused_topk.cu.
+// Variants beside it, by dtype and width:
+// - select_pass, the threshold selection with a running top-k of the
+//   tensor-core scan (block_score_tc.cuh): bf16 kernels 1 and 5 and bf16
+//   kernel 4 (kernel 1 launched with a range of blocks as a CTA's rows),
+//   int8 kernels 2 and 6;
+// - select_pass_keys, the same selection on the packed keys of kernel 3
+//   (_extract_block_topk_fast, topk.py:301-342) for bf16 kernel 3, flat and
+//   grouped, on the tensor cores;
+// - select_block_topk_fast, kernel 3's packed keys after the FMA loop
+//   (float32, and bf16 with D % 8 != 0);
+// - merge_topk_ids, which carries explicit ids for kernel 4's running top-k
+//   after the FMA loop (float32, and bf16 with D % 8 != 0);
+// - the merge of sorted range lists in fused_topk.cu (kernel 4, every dtype).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -147,7 +155,7 @@ __device__ void select_block_topk(float* scores, int bn, int q0, int q,
 }
 
 // ---------------------------------------------------------------------------
-// Selection of the tensor-core scan (bf16 kernels 1 and 5,
+// Selection of the tensor-core scan (kernels 1, 2, 4, 5 and 6,
 // block_score_tc.cuh).  The scan scores a block in passes of rows; a score
 // row of a pass holds the query's running top-k of the earlier passes in its
 // first kListSlots positions (ids from the list, -inf past k) and the pass's
@@ -296,6 +304,105 @@ __device__ __noinline__ void select_pass(float* scores, int pitch, int prows, fl
 
 __device__ __forceinline__ int flip_key(int bits) {  // an involution
   return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+// The packed key of score `v` at block-local lane `lane` (lm: the lane
+// field's mask).  -inf is keyed too: its keys are ordered and unique, above
+// INT_MIN, the empty slot.
+__device__ __forceinline__ int pack_key(float v, int lane, int lm) {
+  return (flip_key(__float_as_int(v)) & ~lm) | (lm - lane);
+}
+
+// Candidates of select_pass_keys: the warp's float2 buffer holds twice as
+// many ints, less the row's result.  A key at or above the threshold lies
+// in one of the k subsets whose maxima reach it (keys are unique), and a
+// subset holds at most ceil((kListSlots + kPassRows) / (32 kSubsets))
+// positions, so the candidates always fit and no round fallback is needed
+// (static_assert in block_score_tc.cuh, which defines kPassRows).
+constexpr int kKeyCandidates = 2 * (kCandidates + kListSlots) - kListSlots;
+
+// select_pass on kernel 3's packed keys (bf16 kernel 3 on the tensor cores,
+// flat and grouped).  The score tile is kernel 1's (f32 scores of the pass
+// after kListSlots unused head positions); the running top-k is a list of
+// keys (list, [BQ][kListSlots], INT_MIN where empty).  Each position is
+// keyed as it is read: the list's key, or the pass's score keyed at its
+// block-local lane pass0 + c - kListSlots, so the epilogue and the scoring
+// loop before it stay kernel 1's.  Keys are unique and totally ordered, so
+// the block's top-k is the top-k of the running list and the pass, a key's
+// rank is the number of larger keys, and no tie rule is needed; -inf keys
+// are kept (the TPU emits them).  The last pass decodes: value
+// flip_key(key | lm), id row0 + lm - (key & lm); a block of fewer than k
+// rows (ncols) fills its slots with lanes ncols, ncols + 1, ... at -inf, as
+// the TPU's tile padded with -inf does.  Out of line, as select_pass.
+template <int BQ>
+__device__ __noinline__ void select_pass_keys(const float* scores, int pitch, int prows, int* list, int q0,
+                                              int q, int blk, int nb, int row0, int pass0, int ncols, int lm,
+                                              int k, bool last, int* buf, float* __restrict__ out_v,
+                                              int* __restrict__ out_i) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  int* cand = buf + warp * 2 * (kCandidates + kListSlots);
+  int* best = cand + kKeyCandidates;  // the row's new top-k keys, by slot
+  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+  const int npos = kListSlots + prows;
+  for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
+    const float* row = scores + ql * pitch;
+    int* lk = list + ql * kListSlots;
+    // position c's key as an unsigned, order-preserving value (INT_MIN, the
+    // empty slot, is 0); whether c is in the list is uniform over a warp's 32
+    auto key_at = [=](int c) {
+      const int key = c < kListSlots ? lk[c] : pack_key(row[c], pass0 + c - kListSlots, lm);
+      return static_cast<uint32_t>(key) ^ 0x80000000u;
+    };
+    // T, the k-th largest of the subset maxima
+    uint32_t m[kSubsets];
+#pragma unroll
+    for (int s = 0; s < kSubsets; ++s) m[s] = 0;
+    for (int c0 = 0; c0 < npos; c0 += 32 * kSubsets)
+#pragma unroll
+      for (int s = 0; s < kSubsets; ++s) {
+        const int c = c0 + 32 * s + lane;
+        if (c < npos) m[s] = max(m[s], key_at(c));
+      }
+    uint32_t prefix = 0;
+    for (int bit = 31; bit >= 0; --bit) {
+      const uint32_t trial = prefix | (1u << bit);
+      int reach = 0;
+#pragma unroll
+      for (int s = 0; s < kSubsets; ++s) reach += m[s] >= trial;
+      if (__reduce_add_sync(0xffffffffu, reach) >= k) prefix = trial;
+    }
+    int total = 0;
+    for (int c0 = 0; c0 < npos; c0 += 32) {
+      const int c = c0 + lane;
+      const uint32_t u = c < npos ? key_at(c) : 0u;
+      const bool take = u >= prefix && u != 0u;
+      const unsigned ballot = __ballot_sync(0xffffffffu, take);
+      if (take) cand[total + __popc(ballot & ((1u << lane) - 1))] = static_cast<int>(u ^ 0x80000000u);
+      total += __popc(ballot);
+    }
+    __syncwarp();
+    for (int i = lane; i < total; i += 32) {
+      const int mine = cand[i];
+      int rank = 0;
+      for (int j = 0; j < total; ++j) rank += cand[j] > mine;  // one broadcast read a step
+      if (rank < k) best[rank] = mine;
+    }
+    for (int s = total + lane; s < k; s += 32) best[s] = INT_MIN;
+    __syncwarp();  // every key is read from the list before the list is rewritten
+    const size_t first = (static_cast<size_t>(q0 + ql) * nb + blk) * k;
+    for (int s = lane; s < kListSlots; s += 32) {
+      const int key = s < k ? best[s] : INT_MIN;
+      if (!last) {
+        lk[s] = key;
+      } else if (s < k) {
+        const bool real = s < total;  // else a lane past the block's rows: ncols + (s - total)
+        out_v[first + s] = real ? __int_as_float(flip_key(key | lm)) : -CUDART_INF_F;
+        out_i[first + s] = row0 + (real ? lm - (key & lm) : ncols + s - total);
+      }
+    }
+    __syncwarp();  // the buffers are free for the next row
+  }
 }
 
 __device__ __forceinline__ int lane_best_key(const int* keys, int ncols, int lane) {

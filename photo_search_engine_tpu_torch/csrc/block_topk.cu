@@ -19,13 +19,19 @@
 // _extract_block_topk_fast (photo_search_engine_tpu/ops/topk.py:301-342),
 // launched by _pallas_twophase_impl (:395-480), and _grouped_kernel with
 // fast=True (grouped_mask.py:167-211, grouped_mask_search(impl=
-// "pallas_fast")).  It is kFast = true: the scoring loop is kernel 1's
-// (block_score.cuh), only the selection differs.  Each score becomes a
-// unique 32-bit key whose low bits hold the column (select_block_topk_fast
-// in block_select.cuh), so a round of the warp's selection is one
-// __reduce_max_sync instead of a five-step butterfly over (value, column)
-// pairs (10 shuffles).  The partials hold the quantized scores the TPU
-// kernel writes; the wrapper rescores the k winners exactly.
+// "pallas_fast")).  Each score becomes a unique 32-bit key whose low bits
+// hold the block-local column, so ties go to the smallest column and the
+// winning column falls out of the key.  bf16 with d % 8 == 0 runs kernel 1's
+// (or 5's) tensor-core scan with kKeys (block_score_tc.cuh): its scoring
+// loop and epilogue unchanged, then select_pass_keys (block_select.cuh)
+// keys each score as it reads the tile and keeps a running list of keys
+// across the block's passes; a block of fewer than k rows fills its slots
+// with the -inf lanes past its rows, as the TPU's padded tile does.  (Keyed
+// in the epilogue instead, the BQ 32 instantiations spilled 32 and 144
+// bytes, and kernel 3 took 0.3 ms more than kernel 1 at k = 1, batch 128.)  float32, and bf16 with d % 8 != 0, take the FMA loop (kFast =
+// true) and select_block_topk_fast, k rounds of one __reduce_max_sync.  The
+// partials hold the quantized scores the TPU kernel writes; the wrapper
+// rescores the k winners exactly.
 //
 // What bounds it on the H100: at 1M x 1536 bf16 every batch reads the
 // 3.1 GB corpus once from device memory: 0.92 ms at 3.35 TB/s.  The product
@@ -60,8 +66,9 @@
 // TMA cannot stride, and every float32 corpus take the FMA loop of
 // block_score.cuh: a TQ x 8 register tile of IEEE fmaf (no TF32: f32 is
 // scored at full precision, as the JAX package's Precision.HIGHEST), D
-// staged 32 at a time.  The wrappers count launches by loop
-// (launches_by_loop).  Kernels 3 and 4 keep the FMA loop for now.
+// staged 32 at a time.  The same rule holds for kernel 3 here and for
+// kernel 4 (fused_topk.cu); f32 stays on fmaf by contract.  The wrappers
+// count launches by loop (launches_by_loop).
 //
 // Outputs: [Q, NB, k] float32 scores (higher is better; l2 as
 // -(|q|^2 + |c|^2 - 2 q.c)) and int32 global row ids, padded with -inf and
@@ -102,8 +109,9 @@ block_topk_kernel(const T* __restrict__ corpus, const T* __restrict__ queries,
     select_block_topk<BQ>(smem, bn, q0, q, blk, gridDim.y, row0, k, out_v, out_i);
 }
 
-// The bf16 kernels 1 and 5 on the tensor cores (block_score_tc.cuh).
-template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+// The bf16 kernels 1 and 5 on the tensor cores (block_score_tc.cuh), and
+// kernel 3 through either (kKeys).
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys>
 __global__ void __launch_bounds__(tc::kThreadsTc, 2)
 tc_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
                      const __grid_constant__ CUtensorMap query_map,
@@ -111,7 +119,7 @@ tc_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
                      const int8_t* __restrict__ mask, Predicates pred,
                      float* __restrict__ out_v, int* __restrict__ out_i, int n, int d, int q,
                      int count, int k, int bn, int l2) {
-  tc::tc_block_topk<tc::Bf16, BQ, kStagesT, kGrouped, kThreshold>(
+  tc::tc_block_topk<tc::Bf16, BQ, kStagesT, kGrouped, kThreshold, kKeys>(
       &corpus_map, &query_map, tc::Bf16::Scales{qnorms, cnorms}, mask, pred, out_v, out_i, n, d, q,
       count, k, bn, l2);
 }
@@ -151,7 +159,7 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms,
                                      out_i, n, d, q, count, k, bn, l2, s);
 }
 
-template <int BQ, int kStagesT, bool kGrouped, bool kThreshold>
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys>
 cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
                    const void* cnorms, const void* mask, Predicates pred, void* out_v,
                    void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
@@ -161,7 +169,7 @@ cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
       !tc::make_map<tc::Bf16>(&query_map, queries, q, d, BQ))
     return cudaErrorInvalidValue;
   const size_t smem = tc::smem_bytes<BQ>(kStagesT);
-  auto kernel = tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold>;
+  auto kernel = tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold, kKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -176,32 +184,33 @@ cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
   return cudaGetLastError();
 }
 
-template <int kStagesT, bool kGrouped, bool kThreshold>
+template <int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false>
 int dispatch_tc(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
                 const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d, int q,
                 int count, int k, int bn, int l2, cudaStream_t s) {
   if (q <= tc::kSmallBQ)
-    return run_tc<tc::kSmallBQ, kStagesT, kGrouped, kThreshold>(
+    return run_tc<tc::kSmallBQ, kStagesT, kGrouped, kThreshold, kKeys>(
         corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
-  return run_tc<tc::kLargeBQ, kStagesT, kGrouped, kThreshold>(
+  return run_tc<tc::kLargeBQ, kStagesT, kGrouped, kThreshold, kKeys>(
       corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
 }
 
-// bf16 kernels 1 and 5: the tensor cores where TMA can read the rows (a
-// 16-byte row stride, d % 8 == 0, and 16-byte-aligned bases); other
-// widths take the FMA loop, and the wrappers count those launches apart.
-template <bool kGrouped>
+// bf16 kernels 1 and 5 (kKeys: kernel 3 through them): the tensor cores
+// where TMA can read the rows (a 16-byte row stride, d % 8 == 0, and
+// 16-byte-aligned bases); other widths take the FMA loop, and the wrappers
+// count those launches apart.
+template <bool kGrouped, bool kKeys = false>
 int dispatch_bf16(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
                   const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d,
                   int q, int count, int k, int bn, int l2, void* stream) {
   if (d % 8 != 0)
-    return dispatch<__nv_bfloat16, kGrouped>(corpus, queries, qnorms, cnorms, mask, pred, out_v,
-                                             out_i, n, d, q, count, k, bn, l2, stream);
+    return dispatch<__nv_bfloat16, kGrouped, kKeys>(corpus, queries, qnorms, cnorms, mask, pred, out_v,
+                                                    out_i, n, d, q, count, k, bn, l2, stream);
   if (reinterpret_cast<uintptr_t>(corpus) % 16 || reinterpret_cast<uintptr_t>(queries) % 16)
     return cudaErrorMisalignedAddress;
-  return dispatch_tc<tc::kStages, kGrouped, true>(corpus, queries, qnorms, cnorms, mask, pred,
-                                                  out_v, out_i, n, d, q, count, k, bn, l2,
-                                                  static_cast<cudaStream_t>(stream));
+  return dispatch_tc<tc::kStages, kGrouped, true, kKeys>(corpus, queries, qnorms, cnorms, mask, pred,
+                                                         out_v, out_i, n, d, q, count, k, bn, l2,
+                                                         static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -272,7 +281,7 @@ extern "C" int pse_grouped_block_topk_bf16(const void* corpus, const void* queri
 }
 
 // Kernel 3: kernel 1 with packed-key selection; the outputs hold the
-// quantized scores (see select_block_topk_fast).
+// quantized scores (see select_pass_keys, select_block_topk_fast).
 extern "C" int pse_fast_block_topk_f32(const void* corpus, const void* queries,
                                        const void* qnorms, const void* cnorms,
                                        const void* mask, void* out_v, void* out_i,
@@ -287,9 +296,8 @@ extern "C" int pse_fast_block_topk_bf16(const void* corpus, const void* queries,
                                         const void* mask, void* out_v, void* out_i,
                                         int n, int d, int q, int count, int k, int bn,
                                         int l2, void* stream) {
-  return dispatch<__nv_bfloat16, false, true>(corpus, queries, qnorms, cnorms, mask,
-                                              pse::Predicates{}, out_v, out_i, n, d, q,
-                                              count, k, bn, l2, stream);
+  return dispatch_bf16<false, true>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{}, out_v,
+                                    out_i, n, d, q, count, k, bn, l2, stream);
 }
 
 // Kernel 3 through kernel 5's body: grouped_mask_search(impl="pallas_fast").
@@ -308,7 +316,7 @@ extern "C" int pse_fast_grouped_block_topk_bf16(const void* corpus, const void* 
                                                 void* out_v, void* out_i, int n, int d,
                                                 int q, int count, int k, int bn, int m,
                                                 void* stream) {
-  return dispatch<__nv_bfloat16, true, true>(corpus, queries, nullptr, nullptr, nullptr,
-                                             pse::make_predicates(table, ids, m), out_v,
-                                             out_i, n, d, q, count, k, bn, 0, stream);
+  return dispatch_bf16<true, true>(corpus, queries, nullptr, nullptr, nullptr,
+                                   pse::make_predicates(table, ids, m), out_v, out_i, n, d, q, count,
+                                   k, bn, 0, stream);
 }

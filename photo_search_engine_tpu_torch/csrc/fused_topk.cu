@@ -8,24 +8,34 @@
 // no [Q, NB, k] partials reach HBM.
 //
 // What bounds it on the H100: the same work as kernel 1.  At 1M x 1536 bf16
-// every batch reads the 3.1 GB corpus (about 0.92 ms at 3.35 TB/s); at
-// batch 128 the product is 0.39 TFLOP of f32 FMAs (5.9 ms at 67 TFLOP/s).
+// every batch reads the 3.1 GB corpus (about 0.92 ms at 3.35 TB/s); the
+// product (0.39 TFLOP at batch 128) takes 0.40 ms on the bf16 tensor cores,
+// 5.9 ms as f32 FMAs at 67 TFLOP/s.
 //
 // What the design does about it: Hopper runs CTAs in parallel and in no
 // order, and one CTA per query tile would keep 1 of 132 SMs busy at batch 1,
 // so the sequential grid is not copied.  The grid is (query tile, range):
-// each range is a contiguous run of blocks, with enough ranges to fill every
-// CTA slot of the SMs once (by shared memory), at least two CTAs per SM
-// (topk.fused_ranges).  A CTA scores its blocks one after the other with
-// kernel 1's scoring loop (block_score.cuh, the same accumulation order, so the
-// scores are kernel 1's bit for bit) and keeps a [BQ, k] running top-k
-// (values and row ids) in shared memory.  Each query merges a block only
-// when its own block maximum reaches its running k-th value, a finer skip
-// than the TPU's whole-tile test with the same result.  Running entries
-// hold smaller rows than the block, and the merge orders by (value, row id),
-// so ties still go to the smallest row.  The second kernel merges the
-// [Q, S, k] range partials to [Q, k] on the card (ties to the smallest row
-// id), one warp per query walking the heads of the S sorted lists.
+// each range is a contiguous run of blocks, with enough ranges to fill the
+// card's CTA slots (topk.fused_ranges).  Each CTA keeps a [BQ, k] running
+// top-k over its range, and a second kernel merges the [Q, S, k] range
+// partials to [Q, k] on the card (ties to the smallest row id), one warp
+// per query walking the heads of the S sorted lists.
+//
+// Which loop runs.
+// - bf16 with d % 8 == 0 (16-byte-aligned bases): kernel 1's entry point,
+//   pse_block_topk_bf16 (block_topk.cu, the tensor-core scan of
+//   block_score_tc.cuh), with a range of blocks_per_range * bn rows as its
+//   block, so that its [Q, S, k] outputs are the range partials; no kernel
+//   of its own, then the merge below.  The scan's passes of 512 rows carry
+//   each query's running top-k, and select_pass keeps only the positions at
+//   or above the running k-th (the TPU kernel's skip, row by row).  Each
+//   output element sums over D in the same order wherever its row lies and
+//   the selections are exact with ties to the smallest row, so the result
+//   equals kernel 1 followed by merge_partials bit for bit, ranges included.
+// - float32, and bf16 with d % 8 != 0: kernel 1's FMA loop
+//   (block_score.cuh, fmaf) block by block, each merged into the running
+//   top-k by merge_block (value, then row id), unless the block's best
+//   cannot reach the query's running k-th.
 //
 // Outputs: the [Q, S, k] range partials and the [Q, k] result, float32
 // scores (higher is better; l2 as -(|q|^2 + |c|^2 - 2 q.c)) and int32 row
@@ -33,21 +43,31 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+#include <type_traits>
 
 #include "block_score.cuh"
 #include "block_select.cuh"
+
+// Kernel 1, bf16 (block_topk.cu): kernel 4's tensor-core scan.
+extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries, const void* qnorms,
+                                   const void* cnorms, const void* mask, void* out_v, void* out_i,
+                                   int n, int d, int q, int count, int k, int bn, int l2,
+                                   void* stream);
 
 namespace {
 
 using namespace pse;
 
-// Each query row of the block's score tile merges into its running top-k,
-// one warp per row, unless the block cannot displace the row's k-th entry.
-// Kept out of line, as kernel 3's selection is (block_select.cuh): inlined,
-// it changed how the compiler scheduled the scoring loop, and this kernel
-// took 48.9 ms at batch 128 (1M x 1536 bf16, top-50, H100), 46.7 out of
-// line.  Ranges of 15 blocks rarely let a query skip a block: the k-th of
-// 15K rows is seldom above a block's best.
+// The FMA loop's merge (float32, and bf16 with d % 8 != 0): each query row
+// of the block's score tile merges into its running top-k, one warp per
+// row, unless the block cannot displace the row's k-th entry.  Kept out of
+// line, as kernel 3's selection is (block_select.cuh): inlined, it changed
+// how the compiler scheduled the scoring loop, and this kernel took 48.9 ms
+// at batch 128 (1M x 1536 bf16, top-50, H100), 46.7 out of line.  A query
+// seldom skips a whole block: the running k-th is seldom above a block's
+// best.
 __device__ __noinline__ void merge_block(float* scores, int bn, int nrows, int k, int row0,
                                          float* run_v, int* run_i) {
   const int lane = threadIdx.x % 32;
@@ -151,6 +171,15 @@ fused_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ par
   }
 }
 
+cudaError_t merge(const void* part_v, const void* part_i, void* out_v, void* out_i, int q,
+                  int ranges, int k, cudaStream_t stream) {
+  const size_t merge_smem = sizeof(int) * kWarps * static_cast<size_t>(ranges);
+  fused_merge_kernel<<<(q + kWarps - 1) / kWarps, kThreads, merge_smem, stream>>>(
+      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), q, ranges, k);
+  return cudaGetLastError();
+}
+
 template <typename T, int BQ>
 cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
                 const void* cnorms, const void* mask, void* part_v, void* part_i,
@@ -171,11 +200,7 @@ cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
       static_cast<int*>(part_i), n, d, q, count, k, bn, l2, blocks_per_range);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t merge_smem = sizeof(int) * kWarps * static_cast<size_t>(ranges);
-  fused_merge_kernel<<<(q + kWarps - 1) / kWarps, kThreads, merge_smem, stream>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), q, ranges, k);
-  return cudaGetLastError();
+  return merge(part_v, part_i, out_v, out_i, q, ranges, k, stream);
 }
 
 template <typename T>
@@ -184,6 +209,16 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms, const 
              int d, int q, int count, int k, int bn, int l2, int ranges,
              int blocks_per_range, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (d % 8 == 0) {  // the tensor cores: kernel 1 with a range as its block, then the merge
+      const long long span = static_cast<long long>(blocks_per_range) * bn;
+      if (span > INT_MAX) return cudaErrorInvalidValue;
+      const int err = pse_block_topk_bf16(corpus, queries, qnorms, cnorms, mask, part_v, part_i, n, d,
+                                          q, count, k, static_cast<int>(span), l2, stream);
+      if (err != cudaSuccess) return err;
+      return merge(part_v, part_i, out_v, out_i, q, ranges, k, s);
+    }
+  }
   if (q <= 8)
     return run<T, 8>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n, d,
                      q, count, k, bn, l2, ranges, blocks_per_range, s);
@@ -194,7 +229,9 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms, const 
 }  // namespace
 
 // part_v/part_i: [q][ranges][k]; out_v/out_i: [q][k].  Range r covers blocks
-// [r * blocks_per_range, (r + 1) * blocks_per_range) of `bn` rows.
+// [r * blocks_per_range, (r + 1) * blocks_per_range) of `bn` rows.  bf16
+// with d % 8 == 0 runs on the tensor cores (16-byte-aligned bases, else
+// cudaErrorMisalignedAddress), everything else on the FMA loop.
 extern "C" int pse_fused_topk_f32(const void* corpus, const void* queries, const void* qnorms,
                                   const void* cnorms, const void* mask, void* part_v,
                                   void* part_i, void* out_v, void* out_i, int n, int d, int q,

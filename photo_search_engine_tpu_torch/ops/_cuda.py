@@ -16,6 +16,7 @@ anything but 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -216,9 +217,12 @@ def require_aligned(what: str, tensor, alignment: int = 16) -> None:
                          f"got address {tensor.data_ptr():#x}")
 
 
+@functools.lru_cache(maxsize=None)
 def header_constants(name: str) -> Dict[str, int]:
     """The ``constexpr int kName = value;`` constants of the header
-    ``csrc/<name>``: the tile geometry the kernels compile with."""
+    ``csrc/<name>``: the tile geometry the kernels compile with.  Read once
+    per process (kernel 4's wrapper sizes its ranges from them on every
+    call); callers must not modify the dict."""
     import re
 
     with open(os.path.join(SRC_DIR, name)) as f:

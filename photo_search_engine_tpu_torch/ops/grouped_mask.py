@@ -24,6 +24,10 @@ predicate row.  Inner product only, as in the JAX package.
   then the exact rescore of the k winners (inner product, as JAX's
   ``grouped_mask.py:276-285``).
 
+Both score bfloat16 rows with D % 8 == 0 on the tensor cores
+(``csrc/block_score_tc.cuh``, 16-byte-aligned bases) and every other corpus
+on the FMA loop (``topk.scoring_loop``), counted in ``launches_by_loop``.
+
 ``impl`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
 ``"pallas_fused"`` run kernel 5 (the JAX function has no fused grouped
 scan: ``pallas_fused`` takes its two-phase kernel), ``"pallas_fast"``
@@ -163,7 +167,7 @@ def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, c
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
     _cuda.require(f"{name} mask_table", mask_table, dev, torch.int8, (m, n))
     _cuda.require(f"{name} mask_ids", mask_ids, dev, torch.int32, (q,))
-    if not fast and corpus.dtype == torch.bfloat16:
+    if corpus.dtype == torch.bfloat16:
         _cuda.require_aligned(f"{name} corpus", corpus)
         _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
@@ -233,7 +237,8 @@ def fast_grouped_block_topk(
     """Grouped kernel 3: kernel 5 with packed-key selection (``block_n <=
     2048``).  Inputs as :func:`grouped_block_topk`; the partial values are
     quantized.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel (its scoring loop as ``topk.scoring_loop`` says) or
+    raises."""
     if corpus.device.type == "cpu":
         return fast_grouped_block_topk_plain(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
@@ -241,10 +246,12 @@ def fast_grouped_block_topk(
     out = _launch_grouped_scan("fast_grouped_block_topk", True, corpus, queries, mask_table, mask_ids,
                                k, count, block_n)
     fast_grouped_block_topk.launches += 1
+    fast_grouped_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
     return out
 
 
 fast_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+fast_grouped_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
 
 
 def predicate_inputs(mask_table: torch.Tensor, mask_ids: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:

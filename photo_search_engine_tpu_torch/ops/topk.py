@@ -22,6 +22,11 @@ takes the JAX package's ``impl`` values:
 
 Any other ``impl`` raises.
 
+Kernels 1, 3 and 4 score bfloat16 rows with D % 8 == 0 on the tensor cores
+(``csrc/block_score_tc.cuh``, 16-byte-aligned bases) and every other corpus
+on the FMA loop (:func:`scoring_loop`); each wrapper counts its launches by
+loop in ``launches_by_loop``.
+
 Contract (FAISS flat conventions, as in the JAX package): ``ip``/
 ``cosine`` distances are inner products sorted descending; ``l2``
 distances are squared distances sorted ascending; an empty slot holds
@@ -45,7 +50,12 @@ MAX_KERNEL_K = 64
 DEFAULT_BLOCK_N = 1024  # corpus rows per kernel-1 block
 FAST_MAX_BN = 2048  # packed lane ids carry at most 11 bits
 IMPLS = ("auto", "pallas", "pallas_fast", "pallas_fused", "lax")
-FUSED_MIN_CTAS_PER_SM = 2  # kernel 4's ranges: at least two CTAs per SM
+FUSED_MIN_CTAS_PER_SM = 2  # kernel 4's ranges on the FMA loop: at least two CTAs per SM
+# kernel 4's CTAs an SM on the tensor cores, by query tile: at most the 2 of
+# __launch_bounds__(kThreadsTc, 2); at BQ 8 one CTA an SM already keeps the
+# corpus read in flight and ran fastest (scripts/torch_kernel_sweep.py
+# --fused-only, PERF.md)
+TC_FUSED_CTAS_PER_SM = {8: 1, 32: 2}
 SM_SHARED_BYTES = 233472  # shared memory of one H100 SM (228 KB)
 H100_SMS = 132  # SMs assumed when no card is asked (the plain version)
 _INT_MAX = torch.iinfo(torch.int32).max
@@ -229,10 +239,11 @@ def fast_block_topk_plain(corpus, queries, k, *, count, metric="ip", mask=None, 
 
 
 def scoring_loop(corpus: torch.Tensor) -> str:
-    """Which scoring loop kernels 1 and 5 run on ``corpus`` (the C entry
-    points' dispatch by shape): ``"tensor_core"`` (wgmma fed by TMA,
+    """Which scoring loop kernels 1, 3, 4 and 5 run on ``corpus`` (the C
+    entry points' dispatch by shape): ``"tensor_core"`` (wgmma fed by TMA,
     ``csrc/block_score_tc.cuh``) for bfloat16 rows whose byte stride TMA
-    takes (D % 8 == 0), ``"fma"`` (``csrc/block_score.cuh``) otherwise."""
+    takes (D % 8 == 0), ``"fma"`` (``csrc/block_score.cuh``) otherwise:
+    float32 is scored with IEEE fmaf by contract."""
     return "tensor_core" if corpus.dtype == torch.bfloat16 and corpus.shape[1] % 8 == 0 else "fma"
 
 
@@ -261,7 +272,7 @@ def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnor
     (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
     _cuda.require(f"{name} corpus", corpus, dev, corpus.dtype, (n, d))
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
-    if not fast and corpus.dtype == torch.bfloat16:
+    if corpus.dtype == torch.bfloat16:
         _cuda.require_aligned(f"{name} corpus", corpus)
         _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
@@ -340,8 +351,9 @@ def fast_block_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 3: kernel 1 with packed-key selection (``block_n <= 2048``).
     Inputs as :func:`block_topk`; the partial values are the quantized
-    scores of :func:`packed_key_topk_plain`.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    scores of :func:`packed_key_topk_plain`, bit for bit where the scores
+    agree.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (its scoring loop as :func:`scoring_loop` says) or raises."""
     if corpus.device.type == "cpu":
         return fast_block_topk_plain(
             corpus, queries, k, count=count, metric=metric, mask=mask,
@@ -349,10 +361,12 @@ def fast_block_topk(
         )
     out = _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n)
     fast_block_topk.launches += 1
+    fast_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
     return out
 
 
 fast_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+fast_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
 
 
 def merge_partials(part_v, part_i, k):
@@ -399,17 +413,30 @@ def kernel_block_q(nq: int) -> int:
     return 8 if nq <= 8 else 32
 
 
-def fused_ranges(nq: int, nb: int, sm_count: int = H100_SMS, *, block_n: int = DEFAULT_BLOCK_N,
+def fused_ranges(nq: int, nb: int, sm_count: int = H100_SMS, *, loop: str, block_n: int = DEFAULT_BLOCK_N,
                  k: int = MAX_KERNEL_K) -> Tuple[int, int]:
     """``(ranges, blocks_per_range)`` of kernel 4: contiguous runs of
-    blocks, enough of them over the query tiles to fill every CTA slot of
-    the SMs once (as many CTAs as the shared memory of an SM holds, at
-    least two), and none empty."""
+    blocks, enough of them over the query tiles to fill the CTA slots of
+    the SMs once, and none empty.  ``loop`` is the scoring loop that will
+    run (:func:`scoring_loop` of the corpus).  On the tensor cores (``loop=
+    "tensor_core"``) an SM takes :data:`TC_FUSED_CTAS_PER_SM` CTAs (one at
+    a query tile of 8, two at 32), no more than :func:`tc_shared_bytes`
+    lets it hold, and the CTAs never outnumber the slots: a second wave of
+    CTAs that each scan a whole range would double the time.  On the FMA
+    loop an SM holds as many as the shared memory of its score tile lets
+    it, at least two."""
+    if loop not in ("tensor_core", "fma"):
+        raise ValueError(f"fused_ranges: unknown scoring loop {loop!r}")
     bq = kernel_block_q(nq)
-    cta_bytes = 4 * (bq * block_n + 32 * (bq + 1) + 32 * 257 + 2 * bq * k) + 1024  # + the SM's reserve
-    per_sm = max(FUSED_MIN_CTAS_PER_SM, SM_SHARED_BYTES // cta_bytes)
     tiles = -(-nq // bq)
-    want = max(1, min(nb, -(-per_sm * sm_count // tiles)))
+    if loop == "tensor_core":
+        stages = _cuda.header_constants("block_score_tc.cuh")["kStages"]
+        per_sm = max(1, min(TC_FUSED_CTAS_PER_SM[bq], SM_SHARED_BYTES // (tc_shared_bytes(bq, stages) + 1024)))
+        want = max(1, min(nb, per_sm * sm_count // tiles))
+    else:
+        cta_bytes = 4 * (bq * block_n + 32 * (bq + 1) + 32 * 257 + 2 * bq * k) + 1024  # + the SM's reserve
+        per_sm = max(FUSED_MIN_CTAS_PER_SM, SM_SHARED_BYTES // cta_bytes)
+        want = max(1, min(nb, -(-per_sm * sm_count // tiles)))
     per = -(-nb // want)
     return -(-nb // per), per
 
@@ -429,20 +456,28 @@ def fused_topk_plain(
     """Plain PyTorch version of kernel 4, with the same outputs: the
     ``[Q, k]`` top-k and the ``[Q, S, k]`` range partials (S ranges of
     ``blocks_per_range`` blocks).  Kernel 1's plain block partials are
-    merged range by range, which is what the running merge keeps, then
-    over ranges; ties to the smallest row, empty slots ``-inf`` and
-    ``INT_MAX``."""
+    merged range by range (:func:`range_partials`), which is what the
+    running merge keeps, then over ranges; ties to the smallest row, empty
+    slots ``-inf`` and ``INT_MAX``."""
     part_v, part_i = exact_block_topk_plain(
         corpus, queries, k, count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=block_n,
     )
+    range_v, range_i = range_partials(part_v, part_i, blocks_per_range, k)
+    return (*merge_partials(range_v, range_i, k), range_v, range_i)
+
+
+def range_partials(part_v, part_i, blocks_per_range: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's ``[Q, S, k]`` range partials from kernel 1's ``[Q, NB,
+    k]`` block partials: the stable top-k of each run of
+    ``blocks_per_range`` blocks (ties to the smallest row, empty slots
+    ``-inf`` and ``INT_MAX``)."""
     q, nb, _ = part_v.shape
     ranges = -(-nb // blocks_per_range)
     pad = ranges * blocks_per_range - nb
     part_v = torch.nn.functional.pad(part_v, (0, 0, 0, pad), value=float("-inf"))
     part_i = torch.nn.functional.pad(part_i, (0, 0, 0, pad), value=_INT_MAX)
     range_v, pos = stable_topk(part_v.reshape(q, ranges, -1), k)
-    range_i = torch.gather(part_i.reshape(q, ranges, -1), 2, pos)
-    return (*merge_partials(range_v, range_i, k), range_v, range_i)
+    return range_v, torch.gather(part_i.reshape(q, ranges, -1), 2, pos)
 
 
 def fused_topk(
@@ -460,17 +495,20 @@ def fused_topk(
     """Kernel 4: the fused running top-k of ``queries`` over ``corpus``.
 
     Inputs as :func:`block_topk`; ``blocks_per_range`` defaults to
-    :func:`fused_ranges` for the card's SM count.  Returns kernel-space
-    ``(values [Q, k], row ids [Q, k], range values [Q, S, k], range ids
-    [Q, S, k])``, as :func:`fused_topk_plain`.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    :func:`fused_ranges` for the card's SM count and the scoring loop.
+    Returns kernel-space ``(values [Q, k], row ids [Q, k], range values
+    [Q, S, k], range ids [Q, S, k])``, as :func:`fused_topk_plain`; on the
+    tensor cores they equal kernel 1's partials merged by
+    :func:`range_partials` and :func:`merge_partials`, bit for bit.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (its
+    scoring loop as :func:`scoring_loop` says) or raises."""
     n, q = corpus.shape[0], queries.shape[0]
     nb = -(-n // block_n)
     if blocks_per_range is None:
         sms = H100_SMS
         if corpus.device.type == "cuda":
             sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
-        blocks_per_range = fused_ranges(q, nb, sms, block_n=block_n, k=k)[1]
+        blocks_per_range = fused_ranges(q, nb, sms, block_n=block_n, k=k, loop=scoring_loop(corpus))[1]
     if corpus.device.type == "cpu":
         return fused_topk_plain(
             corpus, queries, k, count=count, metric=metric, mask=mask, cnorms=cnorms,
@@ -483,7 +521,10 @@ def fused_topk(
     d, dev = corpus.shape[1], corpus.device
     _cuda.require("fused_topk corpus", corpus, dev, corpus.dtype, (n, d))
     _cuda.require("fused_topk queries", queries, dev, corpus.dtype, (q, d))
-    if n == 0 or q == 0 or not 1 <= k <= MAX_KERNEL_K or blocks_per_range < 1:
+    if corpus.dtype == torch.bfloat16:
+        _cuda.require_aligned("fused_topk corpus", corpus)
+        _cuda.require_aligned("fused_topk queries", queries)
+    if n == 0 or q == 0 or not 1 <= k <= MAX_KERNEL_K or not 1 <= blocks_per_range <= _INT_MAX // block_n:
         raise ValueError(f"fused_topk: n={n}, q={q}, k={k}, blocks_per_range={blocks_per_range} out of range")
     ranges = -(-nb // blocks_per_range)
     if mask is not None:
@@ -509,10 +550,12 @@ def fused_topk(
     )
     _cuda.check(err, "fused_topk")
     fused_topk.launches += 1
+    fused_topk.launches_by_loop[scoring_loop(corpus)] += 1
     return out_v, out_i, part_v, part_i
 
 
 fused_topk.launches = 0  # kernel launches (read by chip_smoke.py)
+fused_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------

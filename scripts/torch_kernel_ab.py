@@ -2,10 +2,12 @@
 """The flat scan kernels of one checkout of the PyTorch port, timed on one
 CUDA card, for comparing two checkouts on the same card in one run.
 
-Kernels 1 and 5 (bf16, block_n 1024) and kernels 2 and 6 (int8 shadow,
-block_n 2048) at 1M x 1536 unit rows made on the card from a seed, top-50,
-batches 1, 8, 128 and 256; kernels 5 and 6 over five predicates keeping
-50 / 25 / 5 / 0.1 / 0 % of the rows; kernels 1 and 2 also at k = 1.  Times
+Kernels 1, 3 (flat and grouped), 4 and 5 (bf16, block_n 1024) and
+kernels 2 and 6 (int8 shadow, block_n 2048) at 1M x 1536 unit rows made on
+the card from a seed, top-50, batches 1, 8, 128 and 256; the grouped
+kernels over five predicates keeping 50 / 25 / 5 / 0.1 / 0 % of the rows;
+kernels 1, 2 and 3 also at k = 1; kernel 4 at the checkout's default
+blocks per range.  Times
 are CUDA events over 10 calls after one warm-up.  Prints one JSON line
 with the card's name and power limit and the checkout it timed.
 
@@ -82,10 +84,14 @@ def main() -> int:
             "int8_block_topk": lambda k: qo.int8_block_topk(c8, cs, q8, qs, k, count=ROWS, block_n=2048),
             "int8_grouped_block_topk": lambda k: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k,
                                                                             count=ROWS, block_n=2048),
+            "fast_block_topk": lambda k: to.fast_block_topk(corpus, q16, k, count=ROWS, block_n=1024),
+            "fast_grouped_block_topk": lambda k: go.fast_grouped_block_topk(corpus, q16, table, ids, k,
+                                                                            count=ROWS, block_n=1024),
+            "fused_topk": lambda k: to.fused_topk(corpus, q16, k, count=ROWS, block_n=1024),
         }
         for name, run in runs.items():
             times[f"{name} batch {batch}"] = ms(lambda: run(K))
-            if name in ("block_topk", "int8_block_topk"):
+            if name in ("block_topk", "int8_block_topk", "fast_block_topk"):
                 times[f"{name} batch {batch} k=1"] = ms(lambda: run(1))
     print(json.dumps({"card": card, "root": root, "rows": ROWS, "dim": DIM, "top_k": K,
                       "ms": {key: round(value, 4) for key, value in times.items()}}), flush=True)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Kernels 1, 3 and 4 of the PyTorch port side by side on one CUDA card:
 1M x 1536 bfloat16 unit rows made on the card from a seed, top-50, batches
-1, 8, 32, 128 and 256.  Kernel 1 (bf16: the tensor cores, wgmma fed by a
-TMA ring) against kernel 3 (the same scan on the FMA loop of
-``csrc/block_score.cuh``, packed-key selection), kernel 4 and the library
-composition (cuBLAS product, then ``torch.topk``); kernel 1 at k = 1; then
-kernel 1's geometries through ``pse_block_topk_bf16_geometry``: block_n in
-{512, 1024, 2048} with a ring of 2, 4 or 6 corpus stages, and the
-k-round selection at 1024 / 4; each one's merged top-k is checked
-identical to kernel 1's (the same sums in the same order).  ``--fused-ranges`` adds kernel 4 at 1, 2, 4, 8, 15 and 30 blocks
-per range.  Times are CUDA events over 5 calls after one warm-up
-(``chip_smoke.cuda_ms``); each line names the card and its power limit.
+1, 8, 32, 128 and 256.  Kernel 1, kernel 3 (packed-key selection) and
+kernel 4 (a running top-k over ranges of blocks), all three on the tensor
+cores (wgmma fed by a TMA ring, ``csrc/block_score_tc.cuh``), against the
+library composition (cuBLAS product, then ``torch.topk``); kernels 1 and 3
+at k = 1; then kernel 1's geometries through
+``pse_block_topk_bf16_geometry``: block_n in {512, 1024, 2048} with a ring
+of 2, 4 or 6 corpus stages, and the k-round selection at 1024 / 4; each
+one's merged top-k is checked identical to kernel 1's (the same sums in the
+same order).  ``--fused-only`` times kernel 4 instead, at 1, 2, 3, 4, 5,
+8, 15 and 30 blocks per range and at ``topk.fused_ranges``' default (each
+timed twice, in two passes of opposite order), each result checked
+identical to kernel 1 followed by ``merge_partials``.  Times are CUDA
+events over 5 calls after one warm-up (``chip_smoke.cuda_ms``); each line
+names the card and its power limit.
 
-Run from the repository root:  python3 scripts/torch_kernel_sweep.py
+Run from the repository root:  python3 scripts/torch_kernel_sweep.py [--fused-only]
 """
 
 import argparse
@@ -49,7 +53,7 @@ def geometry_scan(corpus, queries, k, block_n, stages, threshold):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--fused-ranges", action="store_true", help="also sweep kernel 4's blocks per range")
+    parser.add_argument("--fused-only", action="store_true", help="sweep kernel 4's blocks per range only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_sweep: needs a CUDA card", file=sys.stderr)
@@ -65,15 +69,32 @@ def main() -> int:
     kw = dict(count=ROWS, block_n=BLOCK_N)
     for batch in (1, 8, 32, 128, 256):
         queries = cs._unit_rows(batch, DIM, gen, torch.bfloat16)
+        want = to.merge_partials(*to.block_topk(corpus, queries, K, **kw), K)
+        if args.fused_only:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            ranges, per = to.fused_ranges(batch, nb, sms, block_n=BLOCK_N, k=K, loop="tensor_core")
+            settings = (None, 1, 2, 3, 4, 5, 8, 15, 30)
+            times = {blocks: [] for blocks in settings}
+            for blocks in settings + settings[::-1]:  # two passes in opposite orders: clocks settle meanwhile
+                run = lambda: to.fused_topk(corpus, queries, K, blocks_per_range=blocks, **kw)  # noqa: E731
+                got = run()[:2]
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"kernel 4 at {blocks} blocks per range differs from kernel 1's top-{K}")
+                times[blocks].append(cs.cuda_ms(run, reps=5))
+            fused = [f"{blocks or f'default {per}'}: {a:.3f}/{b:.3f}" for blocks, (a, b) in times.items()]
+            print(f"{card}: batch {batch} kernel 4 (tensor cores) by blocks per range (default {per}, {ranges} "
+                  f"ranges; top-{K} identical to kernel 1's; ms, forward / backward pass) {', '.join(fused)}",
+                  flush=True)
+            continue
         k1 = cs.cuda_ms(lambda: to.block_topk(corpus, queries, K, **kw), reps=5)
         k1_1 = cs.cuda_ms(lambda: to.block_topk(corpus, queries, 1, **kw), reps=5)
         k3 = cs.cuda_ms(lambda: to.fast_block_topk(corpus, queries, K, **kw), reps=5)
+        k3_1 = cs.cuda_ms(lambda: to.fast_block_topk(corpus, queries, 1, **kw), reps=5)
         k4 = cs.cuda_ms(lambda: to.fused_topk(corpus, queries, K, **kw), reps=5)
         lib = cs.cuda_ms(lambda: torch.topk(torch.matmul(queries, corpus.T), K), reps=5)
-        print(f"{card}: batch {batch} top-{K} at {ROWS}x{DIM} bf16: kernel 1 (tensor cores) {k1:.3f} ms "
-              f"(k=1 {k1_1:.3f}), kernel 3 (FMA loop) {k3:.3f} ms, kernel 4 (FMA loop) {k4:.3f} ms, "
+        print(f"{card}: batch {batch} top-{K} at {ROWS}x{DIM} bf16, tensor cores: kernel 1 {k1:.3f} ms "
+              f"(k=1 {k1_1:.3f}), kernel 3 {k3:.3f} ms (k=1 {k3_1:.3f}), kernel 4 {k4:.3f} ms, "
               f"cuBLAS + torch.topk {lib:.3f} ms", flush=True)
-        want = to.merge_partials(*to.block_topk(corpus, queries, K, **kw), K)
         bq = consts["kSmallBQ"] if batch <= consts["kSmallBQ"] else consts["kLargeBQ"]
         timed = []
         s4, s6 = consts["kStages"], consts["kSweepStages"]
@@ -94,14 +115,6 @@ def main() -> int:
                          f"({smem} B, {per_sm} CTAs an SM): {ms:.3f} (k=1 {ms1:.3f})")
         print(f"{card}: batch {batch} kernel 1 geometries (BQ {bq}; ms, merged top-{K} identical to kernel 1's): "
               + "; ".join(timed), flush=True)
-        if args.fused_ranges:
-            fused = []
-            for per in (None, 1, 2, 4, 8, 15, 30):
-                ms = cs.cuda_ms(lambda: to.fused_topk(corpus, queries, K, blocks_per_range=per, **kw), reps=5)
-                fused.append(f"{per or 'default'}: {ms:.3f}")
-            ranges, per = to.fused_ranges(batch, nb, block_n=BLOCK_N, k=K)
-            print(f"{card}: batch {batch} kernel 4 by blocks per range (default {per}, {ranges} ranges) "
-                  f"{', '.join(fused)} ms", flush=True)
     return 0
 
 

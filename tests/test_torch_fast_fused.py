@@ -238,12 +238,12 @@ def test_fused_partials_and_merge(metric, blocks_per_range):
 
 
 def test_fused_ranges_fill_the_card():
-    assert ttopk.fused_ranges(1, 978) == (326, 3)  # 3 CTAs of 70 KB per SM: 396 wanted
-    assert ttopk.fused_ranges(128, 978) == (66, 15)  # one 184 KB CTA per SM, at least 2: 4 query tiles
-    assert ttopk.fused_ranges(9, 978, block_n=2048) == (245, 4)  # no CTA fits (kernel refuses): 2 per SM
-    assert ttopk.fused_ranges(1, 3) == (3, 1)
+    assert ttopk.fused_ranges(1, 978, loop="fma") == (326, 3)  # 3 CTAs of 70 KB per SM: 396 wanted
+    assert ttopk.fused_ranges(128, 978, loop="fma") == (66, 15)  # one 184 KB CTA per SM, at least 2: 4 query tiles
+    assert ttopk.fused_ranges(9, 978, block_n=2048, loop="fma") == (245, 4)  # no CTA fits (kernel refuses): 2 per SM
+    assert ttopk.fused_ranges(1, 3, loop="fma") == (3, 1)
     for nq, nb in ((1, 978), (128, 978), (256, 10), (9, 1)):
-        ranges, per = ttopk.fused_ranges(nq, nb)
+        ranges, per = ttopk.fused_ranges(nq, nb, loop="fma")
         assert (ranges - 1) * per < nb <= ranges * per  # no empty range
 
 

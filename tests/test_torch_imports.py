@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
-* A static check parses every ``.py`` file of ``photo_search_engine_tpu_torch/``
-  and ``chip_smoke.py`` and fails on any import of ``jax``, ``jaxlib`` or
+* A static check parses every ``.py`` file of ``photo_search_engine_tpu_torch/``,
+  ``chip_smoke.py`` and the helpers it imports (``tests/torch_parity.py``),
+  and fails on any import of ``jax``, ``jaxlib`` or
   ``photo_search_engine_tpu`` (the port's own package aside), imports
   inside functions included.
 * The port keeps its own copy of each host module it needs from the JAX
@@ -53,7 +54,8 @@ def _port_sources():
         if "_build" in root.split(os.sep) or "__pycache__" in root:
             continue
         found += [os.path.relpath(os.path.join(root, f), REPO) for f in files if f.endswith(".py")]
-    return sorted(found) + ["chip_smoke.py"]
+    # chip_smoke.py imports the shared checks of tests/torch_parity.py
+    return sorted(found) + ["chip_smoke.py", os.path.join("tests", "torch_parity.py")]
 
 
 def forbidden_imports(source: str):

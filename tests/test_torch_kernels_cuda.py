@@ -14,14 +14,15 @@ with a card and without jax (this file imports none), run:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance: kernels 1, 4, 5 and 7 (float layouts) values within 1e-5 of
-the plain float32 product (summation order only, unit rows); kernel 4's
-result within 1e-5 of kernel 1's (bf16 kernel 1 sums on the tensor cores,
-kernel 4 with fmaf: another order);
+the plain float32 product (summation order only, unit rows); kernel 4
+identical to kernel 1 followed by merge_partials, range partials and
+result (the same scoring loop, so the same sums, and exact selections);
 kernels 2 and 6, and kernel 7 on an int8 layout, identical (exact int32
 dot, the same float32 scaling); kernel 3's searches values within 1e-5,
 and an id may differ from the plain version's only where both scores lie
 inside the 2^-12 relative window of the k-th score (score ulps can move a
-packed-key window)."""
+packed-key window); kernel 3's partials identical to the plain version's
+where the products are exact."""
 
 import pytest
 import torch
@@ -30,7 +31,7 @@ from photo_search_engine_tpu_torch.ops import grouped_mask as go
 from photo_search_engine_tpu_torch.ops import ivf_scan as io
 from photo_search_engine_tpu_torch.ops import quantized as qo
 from photo_search_engine_tpu_torch.ops import topk as to
-from tests.torch_parity import assert_topk_match, assert_window_match
+from tests.torch_parity import assert_same_bits, assert_topk_match, assert_window_match, launch_on_loop, plain_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -279,12 +280,8 @@ def _search_pair(module, name, search, sign=1.0):
     got = search()
     torch.cuda.synchronize()
     assert getattr(module, name).launches == before + 1
-    kernel = getattr(module, name)
-    setattr(module, name, getattr(module, name + "_plain"))
-    try:
+    with plain_scan(module, name):
         ref = search()
-    finally:
-        setattr(module, name, kernel)
     return (sign * got[0], got[1]), (sign * ref[0], ref[1])
 
 
@@ -330,6 +327,35 @@ def test_fast_partials_are_the_plain_quantized_partials(gen):
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32)) and torch.equal(got[1], ref[1])
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q", [3, 40])
+def test_bf16_fast_partials_are_the_plain_quantized_partials(gen, metric, q):
+    """bf16 kernel 3 on the tensor cores, flat and grouped, on exact
+    products (rows with one nonzero bf16 lane, queries with one 1.0 lane;
+    many equal scores): its quantized partials are the plain version's bit
+    for bit, with masked rows, a live count, and a last block of 40 rows,
+    shorter than k = 64, whose slots past its rows hold its -inf lanes."""
+    n, k = 2 * 1024 + 40, 64
+    corpus = torch.zeros((n, 64), device="cuda")
+    corpus[torch.arange(n), torch.arange(n) % 64] = torch.rand(n, generator=gen, device="cuda")
+    corpus[::7] = 0.0
+    corpus = corpus.to(torch.bfloat16)
+    queries = torch.zeros((q, 64), device="cuda")
+    queries[torch.arange(q), torch.arange(q) % 3] = 1.0
+    queries = queries.to(torch.bfloat16)
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.8).to(torch.int8)
+    kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+    got = launch_on_loop(to.fast_block_topk, "tensor_core", lambda: to.fast_block_topk(corpus, queries, k, **kw))
+    assert_same_bits("", got, to.fast_block_topk_plain(corpus, queries, k, **kw))
+    assert (got[1][:, 2, 40:] == 2048 + torch.arange(40, 64, device="cuda", dtype=torch.int32)).all()
+    assert torch.isneginf(got[0][:, 2, 40:]).all()
+    table, ids = _predicates(gen, 3, n, q)
+    kw = dict(count=n - 10, block_n=1024)
+    got = launch_on_loop(go.fast_grouped_block_topk, "tensor_core",
+                       lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
+    assert_same_bits("", got, go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", ["ip", "l2", "masked", "empty"])
 @pytest.mark.parametrize("k,q,per", [(1, 1, 1), (10, 9, 2), (64, 40, 3), (50, 128, None)])
@@ -343,14 +369,16 @@ def test_fused_topk_matches_plain_and_kernel1(gen, dtype, variant, k, q, per):
     vals, idx, part_v, part_i = to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw)
     torch.cuda.synchronize()
     assert to.fused_topk.launches == before + 1
-    per = per or to.fused_ranges(q, 5, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per = per or to.fused_ranges(q, 5, sms, loop=to.scoring_loop(corpus))[1]
     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
     assert_topk_match(part_v, part_i, ref[2][..., :k], ref[3][..., :k], tol=1e-5, cut=ref[2][..., k])
     assert_topk_match(vals, idx, ref[0][..., :k], ref[1][..., :k], tol=1e-5, cut=ref[0][..., k])
-    # bf16 kernel 1 sums on the tensor cores and kernel 4 with fmaf: the same
-    # rows within the tolerance, not the same bits
-    k1_v, k1_i = to.merge_partials(*to.block_topk(corpus, queries, k, **kw), k)
-    assert_topk_match(vals, idx, k1_v, k1_i, tol=1e-5, cut=ref[0][..., k])
+    # kernel 4 scores as kernel 1 does (bf16: the tensor cores, f32: fmaf) and
+    # selects exactly: kernel 1's partials merged range by range, bit for bit
+    k1 = to.block_topk(corpus, queries, k, **kw)
+    assert_same_bits("", (part_v, part_i), to.range_partials(*k1, per, k))
+    assert_same_bits("", (vals, idx), to.merge_partials(*k1, k))
 
 
 @pytest.mark.parametrize("impl", ["pallas_fast", "pallas_fused"])
@@ -382,16 +410,6 @@ def test_fast_and_fused_wrappers_check_their_inputs(gen):
 _TC_Q = [1, 8, 9, 32, 33, 128, 256]  # across both query tiles (8 and 32) and their edges
 
 
-def _loop_launch(wrapper, loop, call):
-    """``call()`` launches ``wrapper`` once, on the scoring loop ``loop``."""
-    before = dict(wrapper.launches_by_loop)
-    out = call()
-    torch.cuda.synchronize()
-    after = wrapper.launches_by_loop
-    assert after[loop] == before[loop] + 1 and sum(after.values()) == sum(before.values()) + 1
-    return out
-
-
 @pytest.mark.parametrize("q", _TC_Q)
 @pytest.mark.parametrize("d", [1536, 1000, 1001])
 @pytest.mark.parametrize("k", [1, 50, 64])
@@ -406,7 +424,7 @@ def test_bf16_block_topk_across_tiles_and_widths(gen, q, d, k):
               block_n=1024)
     loop = "tensor_core" if d % 8 == 0 else "fma"
     assert to.scoring_loop(corpus) == loop
-    got_v, got_i = _loop_launch(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
+    got_v, got_i = launch_on_loop(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
     ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
 
@@ -421,7 +439,7 @@ def test_bf16_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
     table, ids = _predicates(gen, 3, n, q)
     kw = dict(count=count, block_n=1024)
     loop = "tensor_core" if d % 8 == 0 else "fma"
-    got_v, got_i = _loop_launch(go.grouped_block_topk, loop,
+    got_v, got_i = launch_on_loop(go.grouped_block_topk, loop,
                                 lambda: go.grouped_block_topk(corpus, queries, table, ids, k, **kw))
     ref_v, ref_i = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
@@ -476,12 +494,53 @@ def test_bf16_many_equal_scores_take_the_rounds_and_tie_exactly(gen, q):
 def test_bf16_wrappers_refuse_misaligned_rows(gen):
     corpus = _unit(101, 64, gen, torch.bfloat16)
     shifted = corpus.view(-1)[4:4 + 6400].view(100, 64)  # contiguous, 8 bytes past an aligned base
-    with pytest.raises(ValueError, match="16-byte"):
-        to.block_topk(shifted, corpus[:3], 5, count=100)
+    shifted_q = corpus.view(-1)[4:4 + 192].view(3, 64)
     table = torch.ones((1, 100), dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError, match="16-byte"):
-        go.grouped_block_topk(corpus[:100], corpus.view(-1)[4:4 + 192].view(3, 64), table,
-                              torch.zeros(3, dtype=torch.int32, device="cuda"), 5, count=100)
+    ids = torch.zeros(3, dtype=torch.int32, device="cuda")
+    for call in (lambda: to.block_topk(shifted, corpus[:3], 5, count=100),
+                 lambda: to.fast_block_topk(shifted, corpus[:3], 5, count=100),
+                 lambda: to.fast_block_topk(corpus[:100], shifted_q, 5, count=100),
+                 lambda: to.fused_topk(shifted, corpus[:3], 5, count=100),
+                 lambda: to.fused_topk(corpus[:100], shifted_q, 5, count=100),
+                 lambda: go.grouped_block_topk(corpus[:100], shifted_q, table, ids, 5, count=100),
+                 lambda: go.fast_grouped_block_topk(shifted, corpus[:3], table, ids, 5, count=100)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1000, 1001])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_bf16_fast_and_fused_across_tiles_and_widths(gen, q, d, k):
+    """Kernels 3 (flat and grouped) and 4 on bf16 rows, each launch counted
+    on its loop (D = 1001: the FMA loop): kernel 3's searches against the
+    same searches on its plain version, kernel 4 bit for bit against kernel
+    1 followed by merge_partials; a ragged last block, count below n, ip or
+    l2 or masked by turns."""
+    n, count = 2500, 2400
+    corpus, queries = _unit(n, d, gen, torch.bfloat16), _unit(q, d, gen, torch.bfloat16)
+    variant = ("ip", "l2", "masked")[(_TC_Q.index(q) + k) % 3]
+    metric = "l2" if variant == "l2" else "ip"
+    mask = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.int8) if variant == "masked" else None
+    loop = "tensor_core" if d % 8 == 0 else "fma"
+    sign = -1.0 if metric == "l2" else 1.0
+    kw = dict(count=count, metric=metric, mask=mask, impl="pallas_fast", block_n=1024)
+    got = launch_on_loop(to.fast_block_topk, loop, lambda: to.exact_search(corpus, queries, k, **kw))
+    with plain_scan(to, "fast_block_topk"):
+        ref = to.exact_search(corpus, queries, k, **kw)
+    assert_window_match(sign * got[0], got[1], sign * ref[0], ref[1], tol=1e-5)
+    table, ids = _predicates(gen, 3, n, q)
+    search = lambda: go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")  # noqa: E731
+    got = launch_on_loop(go.fast_grouped_block_topk, loop, search)
+    with plain_scan(go, "fast_grouped_block_topk"):
+        ref = search()
+    assert_window_match(*got, *ref, tol=1e-5)
+    scan = dict(count=count, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+    vals, idx, part_v, part_i = launch_on_loop(to.fused_topk, loop, lambda: to.fused_topk(corpus, queries, k, **scan))
+    k1 = to.block_topk(corpus, queries, k, **scan)
+    per = to.fused_ranges(q, 3, torch.cuda.get_device_properties(0).multi_processor_count, loop=loop)[1]
+    assert_same_bits("", (part_v, part_i), to.range_partials(*k1, per, k))
+    assert_same_bits("", (vals, idx), to.merge_partials(*k1, k))
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +570,7 @@ def test_int8_block_topk_across_tiles_and_widths(gen, q, d, k):
               cnorms=to.row_sq_norms(ref_rows), block_n=2048)
     loop = qo.int8_scoring_loop(d)
     assert loop == ("tensor_core" if d % 16 == 0 else "dp4a")
-    got = _loop_launch(qo.int8_block_topk, loop, lambda: qo.int8_block_topk(c8, cs, q8, qs, k, **kw))
+    got = launch_on_loop(qo.int8_block_topk, loop, lambda: qo.int8_block_topk(c8, cs, q8, qs, k, **kw))
     assert_topk_match(*got, *qo.int8_block_topk_plain(c8, cs, q8, qs, k, **kw), tol=0.0, exact=True)
 
 
@@ -524,7 +583,7 @@ def test_int8_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
     _, c8, cs, q8, qs = _int8_inputs(gen, n, d, q)
     table, ids = _predicates(gen, 3, n, q)
     kw = dict(count=count, block_n=2048)
-    got = _loop_launch(qo.int8_grouped_block_topk, qo.int8_scoring_loop(d),
+    got = launch_on_loop(qo.int8_grouped_block_topk, qo.int8_scoring_loop(d),
                        lambda: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k, **kw))
     ref = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, k, **kw)
     assert_topk_match(*got, *ref, tol=0.0, exact=True)
@@ -591,12 +650,19 @@ def test_int8_tensor_core_kernels_run_igmma_and_tma():
 
 
 def test_tensor_core_kernels_run_wgmma_and_tma():
-    """The SASS of every bf16 kernel 1 and 5 instantiation on the tensor
-    cores holds wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    """The SASS of every bf16 kernel 1, 3 and 5 instantiation on the tensor
+    cores holds wgmma (HGMMA) and TMA loads (UTMALDG); bf16 kernel 4
+    launches kernel 1's over its ranges (fused_topk.cu)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and the CUDA toolkit: the kernels are built there")
+    import re
+
     from photo_search_engine_tpu_torch.ops import _cuda
 
     counts = _cuda.sass_counts("tc_block_topk_kernel")
-    assert len(counts) >= 4, counts  # kernels 1 and 5 at BQ 8 and 32
+    # <BQ, stages, grouped, threshold, keys>: kernels 1 and 5, and kernel 3
+    # through each (keys), at BQ 8 and 32
+    found = {re.search(r"ILi(\d+)ELi4ELb([01])ELb1ELb([01])E", name).groups() for name in counts
+             if re.search(r"ILi(\d+)ELi4ELb([01])ELb1ELb([01])E", name)}
+    assert found == {(bq, g, keys) for bq in ("8", "32") for g in "01" for keys in "01"}, counts
     assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()), counts

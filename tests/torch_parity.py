@@ -1,9 +1,11 @@
-"""Shared helpers of the ``test_torch_*`` parity tests: seeded inputs made
-with numpy and handed to both packages, the top-k comparison, and the
-route flow both apps run.  Imports no jax (a test runs it with jax absent)."""
+"""Shared helpers of the ``test_torch_*`` parity tests and of
+``chip_smoke.py``: seeded inputs made with numpy and handed to both
+packages, the top-k comparisons, the kernel-launch checks, and the route
+flow both apps run.  Imports no jax (a test runs it with jax absent)."""
 
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import time
@@ -80,6 +82,43 @@ def assert_window_match(got_v, got_i, ref_v, ref_i, *, tol, window=2.0 ** -12):
         near = (np.abs(got_v - kth) <= reach) & (np.abs(ref_v - kth) <= reach)
     assert (same | near).all(), "an id differs outside the packed-key window of the k-th score"
     return float(np.abs(got_v[live] - ref_v[live]).max(initial=0.0))
+
+
+def assert_same_bits(what, got, ref):
+    """``(values, ids)`` of a kernel equal to ``ref``'s bit for bit (values
+    compared as int32 bits, so -0.0, +0.0 and the -inf slots count too)."""
+    import torch
+
+    same_v = got[0].view(torch.int32) == ref[0].view(torch.int32)
+    same_i = got[1] == ref[1]
+    bad = int((~(same_v & same_i)).sum())
+    assert got[0].shape == ref[0].shape and bad == 0, f"{what}: {bad} slots differ from the reference's bits"
+
+
+def launch_on_loop(wrapper, loop, call):
+    """``call()``, which must launch ``wrapper`` once, on the scoring loop
+    ``loop`` (``wrapper.launches_by_loop``); returns what it returns."""
+    import torch
+
+    before = dict(wrapper.launches_by_loop)
+    out = call()
+    torch.cuda.synchronize()
+    after = wrapper.launches_by_loop
+    assert after[loop] == before[loop] + 1 and sum(after.values()) == sum(before.values()) + 1, (
+        f"{wrapper.__name__}: expected one launch on {loop}, {before} -> {after}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_scan(module, name):
+    """Inside, ``module.name`` is its plain version (``name + "_plain"``):
+    the search around the scan (probes, merge, rescore) runs the same code."""
+    kernel = getattr(module, name)
+    setattr(module, name, getattr(module, name + "_plain"))
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
 
 
 def _upload_bytes():

@@ -6,8 +6,8 @@ Phases; each prints its results on lines of its own and raises on failure:
 1. device  - the card's name and power limit; build the CUDA kernels from
              photo_search_engine_tpu_torch/csrc with nvcc; the registers
              and spills of the tensor-core kernels (bf16 kernels 1, 3 and
-             5, kernel 1 also for kernel 4's ranges; int8 kernels 2 and 6)
-             and their HGMMA (bf16 wgmma),
+             5, kernel 1 also for kernel 4's ranges; int8 kernels 2 and 6;
+             bf16 and int8 kernel 7) and their HGMMA (bf16 wgmma),
              IGMMA (int8 wgmma) and UTMALDG (TMA) counts in the SASS, which
              must not be 0.
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
@@ -28,8 +28,12 @@ Phases; each prints its results on lines of its own and raises on failure:
              (ivf_block_topk, the IVF probed-cluster scan) on float32,
              bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
              (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
-             in {1, 8, 64}, with padding slots, a slot mask, a query whose
-             probed clusters are all masked out and duplicate rows; then
+             in {1, 8, 64}, bf16 and int8 on the tensor cores at k <= 64
+             and every other case on the FMA / __dp4a loop (each launch
+             checked on its loop), with padding slots, a slot mask, a query
+             whose probed clusters are all masked out, duplicate rows,
+             probe ids outside the layout, and one call of each loop under
+             torch.cuda.set_sync_debug_mode("error"); then
              kernel 3 (fast_block_topk, the packed-key scan, and
              fast_grouped_block_topk, through kernel 5's body) and kernel 4
              (fused_topk, the fused running top-k): the searches through
@@ -63,8 +67,8 @@ Phases; each prints its results on lines of its own and raises on failure:
              results identical to kernel 1's and kernel 3's checked against
              its plain version; and every kernel's time against its plain
              version (CUDA events, after warm-up), its bound and the time of
-             the nearest library composition, at batch 1, 8 (kernels 1-6),
-             128 and 256 (kernels 1, 2, 3, 4 and 6), with kernels 1, 2 and 3
+             the nearest library composition, at batch 1, 8, 128 and 256
+             (kernels 1-6), with kernels 1, 2 and 3
              at k = 1 against k = 50 (every timed launch of 1-6 on the
              tensor cores); merge_partials and rescore_pool timed apart; store.search host to host through impl auto (bf16) and
              int8 and the impl routes; the int8 tier's recall@10 and @50
@@ -78,10 +82,13 @@ Phases; each prints its results on lines of its own and raises on failure:
              kernel 7 through the routes, a masked search_batch takes the
              ivf_masked route; each result is held against the same search
              with kernel 7's plain version under the same probes; recall@10
-             against the flat exact scan (kernel 1); kernel 7's times against
-             its plain version and the library composition (gathered probed
-             clusters, cuBLAS or torch._int_mm, torch.topk; chunked at batch
-             128) at batch 1 and 128, top-50.
+             against the flat exact scan (kernel 1); the routes must have run
+             kernel 7 on the tensor cores; kernel 7's times against its
+             plain version and the library composition (gathered probed
+             clusters, cuBLAS or torch._int_mm, torch.topk; chunked above
+             batch 1) at batch 1, 8, 128 and 256, top-50, with its tile and
+             group size, its groups and its launches by loop; IVFIndex.search
+             host to host at batch 1 and 128.
 
 The launch counters are set to 0 before the route runs of phases 3, 4 and
 5 (and before the store's impl routes in phase 4) and read after every
@@ -186,6 +193,25 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def ivf_scan_work(row_valid, nlist: int, lrows: int, probes, row_bytes: int):
+    """What kernel 7 must do for these probes: ``(bytes, padded bytes,
+    scored rows)``.  The bytes are the live rows of each probed cluster,
+    read once, and one ``row_valid`` byte for each of its slots: a slot
+    whose flag is 0 (padding, or dropped by a filter) scores -inf whatever
+    it holds, so its row need not be read.  The padded bytes count every
+    slot's row, the figure of a scan that reads the whole cluster.  The
+    scored rows are the live rows summed over the (query, probe) pairs, for
+    the operations."""
+    import torch
+
+    live = (row_valid.view(nlist, lrows) > 0).sum(dim=1)
+    pr = probes.long()
+    pr = pr[(pr >= 0) & (pr < nlist)]
+    probed = torch.unique(pr)
+    flags = probed.numel() * lrows
+    return (int(live[probed].sum()) * row_bytes + flags, flags * row_bytes + flags, int(live[pr].sum()))
+
+
 def bound_ms(moved_bytes: float, ops: float, unit: str):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate of their type."""
@@ -237,7 +263,7 @@ def read_launches() -> dict:
 
 
 def read_loops() -> dict:
-    """Kernels 1-6's launches by scoring loop (tensor cores, or the FMA /
+    """Each kernel's launches by scoring loop (tensor cores, or the FMA /
     __dp4a loop)."""
     return {name: dict(wrapper.launches_by_loop) for name, wrapper in _wrappers().items()
             if hasattr(wrapper, "launches_by_loop")}
@@ -305,7 +331,8 @@ def phase_device() -> None:
     ptxas = _ptxas_by_function(info["log"])
     sass = _cuda.sass_counts(TC_KERNEL)
     sass8 = _cuda.sass_counts(TC_INT8_KERNEL)
-    for name, ops in sorted({**sass, **sass8}.items(), key=lambda item: _tc_label(item[0])):
+    sass7 = _cuda.sass_counts(TC_IVF_KERNEL)
+    for name, ops in sorted({**sass, **sass8, **sass7}.items(), key=lambda item: _tc_label(item[0])):
         regs, stores, loads = ptxas.get(name, ("?", "?", "?"))
         log(f"[device] {_tc_label(name)}: {regs} registers, {stores}/{loads} bytes spill stores/loads; "
             f"SASS {ops['HGMMA']} HGMMA, {ops['IGMMA']} IGMMA, {ops['UTMALDG']} UTMALDG")
@@ -318,15 +345,24 @@ def phase_device() -> None:
         raise AssertionError(f"bf16 tensor-core kernels without HGMMA or UTMALDG in their SASS: {sass}")
     if len(sass8) < 4 or any(ops["IGMMA"] == 0 or ops["UTMALDG"] == 0 for ops in sass8.values()):
         raise AssertionError(f"int8 tensor-core kernels without IGMMA or UTMALDG in their SASS: {sass8}")
+    # kernel 7: bf16 (HGMMA) and int8 (IGMMA), groups of 8 and 32
+    if {_tc_label(name) for name in sass7} != {f"kernel 7 {tier} tensor cores, BQ {bq}, 4 stages, threshold selection"
+                                               for tier in ("bf16", "int8") for bq in (8, 32)}:
+        raise AssertionError(f"kernel 7's tensor-core instantiations: {sorted(sass7)}")
+    if any(ops["IGMMA" if "int8" in _tc_label(name) else "HGMMA"] == 0 or ops["UTMALDG"] == 0
+           for name, ops in sass7.items()):
+        raise AssertionError(f"kernel 7 tensor-core kernels without wgmma or UTMALDG in their SASS: {sass7}")
 
 
 TC_KERNEL = "tc_block_topk_kernel"
 TC_INT8_KERNEL = "tc_int8_block_topk_kernel"
+TC_IVF_KERNEL = "tc_ivf_topk_kernel"
 
 
 def _tc_label(mangled: str) -> str:
-    """``tc_block_topk_kernel<BQ, stages, grouped, threshold, keys>`` or
-    ``tc_int8_block_topk_kernel<BQ, grouped>`` from its mangled name.  bf16
+    """``tc_block_topk_kernel<BQ, stages, grouped, threshold, keys>``,
+    ``tc_int8_block_topk_kernel<BQ, grouped>`` or ``tc_ivf_topk_kernel<Op,
+    BQ>`` from its mangled name.  bf16
     kernel 4 launches kernel 1's threshold instantiation over its ranges
     (fused_topk.cu), so that one is named for both."""
     import re
@@ -343,6 +379,10 @@ def _tc_label(mangled: str) -> str:
     if found:
         bq, grouped = found.groups()
         return f"{'kernel 6' if grouped == '1' else 'kernel 2'} int8 tensor cores, BQ {bq}, 4 stages, threshold selection"
+    found = re.search(TC_IVF_KERNEL + r"IN3pse2tc\d+(Bf16|S8)ELi(\d+)E", mangled)
+    if found:
+        op, bq = found.groups()
+        return f"kernel 7 {'bf16' if op == 'Bf16' else 'int8'} tensor cores, BQ {bq}, 4 stages, threshold selection"
     return mangled
 
 
@@ -738,10 +778,11 @@ def check_int8_tensor_core_kernels(gen) -> None:
         f"all-masked block gives empty slots; duplicate rows across a block edge tie to the smallest row")
 
 
-def check_partials(name, got, plain, k):
+def check_partials(name, got, plain, k, *, exact=False):
     """Kernel 7's ``[Q, nprobe, T, kk]`` partials against its plain
     version run at k + 1, whose extra column (when the tile has one) is the
-    cut, then the merged top-k the same way (:func:`check_topk`'s rule)."""
+    cut, then the merged top-k the same way (:func:`check_topk`'s rule);
+    ``exact`` (int8) asks for identical values and ids."""
     from tests.torch_parity import assert_topk_match
 
     from photo_search_engine_tpu_torch.ops import topk as to
@@ -750,10 +791,12 @@ def check_partials(name, got, plain, k):
     kk = got[0].shape[-1]
     cut = ref_v[..., kk] if ref_v.shape[-1] > kk else None
     try:
-        err = assert_topk_match(*got, ref_v[..., :kk], ref_i[..., :kk], tol=TOL, cut=cut)
+        err = assert_topk_match(*got, ref_v[..., :kk], ref_i[..., :kk], tol=TOL, cut=cut, exact=exact)
     except AssertionError as exc:
         raise AssertionError(f"{name} (partials): {exc}") from exc
-    return max(err, check_topk(f"{name} (merged)", *to.merge_partials(*got, k), *to.merge_partials(ref_v, ref_i, k + 1)))
+    merged = check_topk(f"{name} (merged)", *to.merge_partials(*got, k), *to.merge_partials(ref_v, ref_i, k + 1),
+                        exact=exact)
+    return max(err, merged)
 
 
 def _ivf_layout(gen, nlist, lrows, d):
@@ -774,19 +817,26 @@ def _ivf_layout(gen, nlist, lrows, d):
 
 
 def check_ivf_kernel(gen, d) -> None:
-    """Kernel 7 against its plain version: float32, bfloat16 and int8
+    """Kernel 7 against its plain version: float32 (the FMA loop), bfloat16
+    and int8 (the tensor cores at k <= 64, the FMA / __dp4a loop above)
     layouts, ip and l2, k 1/10/50/64 (and 500 on the float layouts), Q
-    1/9/33/128, nprobe 1/8/64, with padding slots; then a slot mask, a query
-    whose probed clusters are all masked out, and duplicate rows."""
+    1/9/33/128, nprobe 1/8/64, with padding slots, each launch checked on
+    its loop; then a slot mask, a query whose probed clusters are all
+    masked out, duplicate rows, probe ids outside the layout, and one call
+    of each loop under ``torch.cuda.set_sync_debug_mode("error")`` (the
+    wrapper reads nothing back to the host)."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import launch_on_loop
 
-    nlist, lrows = 96, 384  # 384 slots: a ragged last tile of 128
+    nlist, lrows = 96, 1100  # whole-cluster tiles end in a ragged pass of 76 rows; the FMA tiles of 256 in one of 76
     base, row_valid, dups = _ivf_layout(gen, nlist, lrows, d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {"float32": 0, "bfloat16": 0, "int8": 0}
+    loops = {"tensor_core": 0, "fma": 0}
     shapes = ((1, 1, 1), (10, 9, 8), (50, 33, 64), (64, 128, 8), (50, 128, 64), (500, 9, 8), (500, 1, 64))
     for tier in cases:
         ref_rows = base.to(torch.bfloat16 if tier != "float32" else torch.float32)
@@ -807,36 +857,65 @@ def check_ivf_kernel(gen, d) -> None:
                     extra = dict(qscales=qs, cscales=cscales)
                 else:
                     queries = queries.to(corpus.dtype)
+                loop = io_.ivf_scoring_loop(corpus, k)
+                # the geometry's tile, also for the plain version's k + 1 (whose loop may differ)
+                bn = io_.ivf_geometry(q, nprobe, nlist, lrows, loop, sms)[0]
                 for valid, what in ((row_valid, ""), (row_valid * (torch.rand(row_valid.shape, generator=gen, device=DEVICE) < 0.3), " masked")):
-                    kw = dict(lrows=lrows, metric=metric, cnorms=cnorms, **extra)
-                    got = io_.ivf_block_topk(corpus, queries, probes, valid.to(torch.int8), k, **kw)
-                    torch.cuda.synchronize()
-                    name = f"ivf_block_topk {tier} {metric}{what} k={k} q={q} nprobe={nprobe}"
+                    kw = dict(lrows=lrows, metric=metric, cnorms=cnorms, block_n=bn, **extra)
+                    got = launch_on_loop(io_.ivf_block_topk, loop,
+                                         lambda: io_.ivf_block_topk(corpus, queries, probes, valid.to(torch.int8), k, **kw))
+                    name = f"ivf_block_topk {tier} {metric}{what} k={k} q={q} nprobe={nprobe} ({loop})"
                     plain = lambda kk: io_.ivf_block_topk_plain(corpus, queries, probes, valid.to(torch.int8), kk, **kw)  # noqa: E731
-                    if tier == "int8":
-                        err = check_topk(name, *got, *plain(k + 1), exact=True)
-                    else:
-                        err = check_partials(name, got, plain, k)
+                    err = check_partials(name, got, plain, k, exact=tier == "int8")
                     _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
                     cases[tier] += 1
+                    loops[loop] += 1
     log(f"[kernels] ivf_block_topk: {cases['float32'] + cases['bfloat16']} float cases agree with the plain "
-        f"version (max |err| {_ERRORS['ivf_block_topk']:.3g}, tol {TOL}), {cases['int8']} int8 cases identical")
+        f"version (max |err| {_ERRORS['ivf_block_topk']:.3g}, tol {TOL}), {cases['int8']} int8 cases identical; "
+        f"{loops['tensor_core']} on the tensor cores, {loops['fma']} on the FMA / __dp4a loop")
 
     # a query whose probed clusters are all masked out; duplicates of slot 7
-    # come out at the smallest slots, across clusters
+    # come out at the smallest slots, across clusters; ids outside the
+    # layout match no slot
     row_valid[3 * lrows : 5 * lrows] = 0
-    probes = torch.tensor([[0, 1], [3, 4]], dtype=torch.int32, device=DEVICE)
-    for dtype in (torch.float32, torch.bfloat16):
-        corpus = base.to(dtype)
-        queries = corpus[[7, 7]].contiguous()
-        vals, slots = to.merge_partials(*io_.ivf_block_topk(corpus, queries, probes, row_valid, 64, lrows=lrows), 64)
-        want = sorted([7] + [int(r) for r in dups[:40]])
-        if slots[0].tolist()[: len(want)] != want:
+    probes = torch.tensor([[0, 1, 2], [3, 4, -1], [nlist, 1, nlist + 7]], dtype=torch.int32, device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        corpus, kw = base.to(dtype if dtype != torch.int8 else torch.float32), dict(lrows=lrows)
+        queries = corpus[[7, 7, 7]].contiguous()
+        if dtype == torch.int8:
+            queries, qs = io_.quantize_ivf_queries(queries)
+            corpus, cs = qo.quantize_rows(corpus)
+            kw.update(qscales=qs, cscales=cs)
+        vals, slots = to.merge_partials(*io_.ivf_block_topk(corpus, queries, probes, row_valid, 64, **kw), 64)
+        want = sorted([7] + [int(r) for r in dups])[:64]
+        if slots[0].tolist() != want:
             raise AssertionError(f"ivf duplicate-row ties {str(dtype)[6:]}: {slots[0].tolist()[:8]}... != {want[:8]}...")
         if not (torch.isneginf(vals[1]).all() and (slots[1] == torch.iinfo(torch.int32).max).all()):
             raise AssertionError("ivf: a query whose probed clusters are all masked out returned slots")
+        if not (slots[2] // lrows == 1).all():
+            raise AssertionError(f"ivf: probe ids outside the layout matched slots: {slots[2].tolist()[:8]}...")
     log("[kernels] ivf_block_topk: duplicate-row ties at the smallest slots across clusters; a query whose "
-        "probed clusters are all masked out gets empty slots (f32, bf16)")
+        "probed clusters are all masked out gets empty slots; probe ids past nlist and below 0 match no slot "
+        "(f32, bf16, int8)")
+
+    # one call of each loop under sync debug mode "error": a host sync raises
+    corpus = base.to(torch.bfloat16)
+    probes = torch.sort(torch.stack([torch.randperm(nlist, generator=gen, device=DEVICE)[:8] for _ in range(33)]),
+                        dim=1).values.to(torch.int32).contiguous()
+    queries = _unit_rows(33, d, gen, torch.bfloat16)
+    c8, cs = qo.quantize_rows(corpus)
+    q8, qs = io_.quantize_ivf_queries(queries.float())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        io_.ivf_block_topk(corpus, queries, probes, row_valid, 50, lrows=lrows)
+        io_.ivf_block_topk(c8, q8, probes, row_valid, 64, lrows=lrows, qscales=qs, cscales=cs)
+        io_.ivf_block_topk(corpus, queries, probes, row_valid, 500, lrows=lrows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log('[kernels] ivf_block_topk: bf16 and int8 on the tensor cores and bf16 k=500 on the FMA loop ran under '
+        'torch.cuda.set_sync_debug_mode("error"): no host sync')
 
 
 def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
@@ -1536,7 +1615,8 @@ def scale_kernel_times(store, masks, gen) -> None:
     for batch, names in ((1, _FLAT + _IMPL_ROUTES),
                          (8, _FLAT + _IMPL_ROUTES),
                          (128, _FLAT + _IMPL_ROUTES),
-                         (256, ("block_topk", "int8_block_topk", "int8_grouped_block_topk") + _IMPL_ROUTES)):
+                         (256, ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk")
+                          + _IMPL_ROUTES)):
         qb = _unit_rows(batch, dim, gen, torch.float32)
         qb16 = qb.to(torch.bfloat16)
         q_i8, qs = qo.quantize_rows(qb)
@@ -1698,14 +1778,18 @@ def phase_ivf(rows: int = 1_000_000, dim: int = 1536) -> None:
     queries = to.l2_normalize(corpus[picks].float() + 0.1 * noise).cpu().numpy()
     mask = rng.random(rows) < 0.25  # a filter keeping about a quarter of the rows
     metadata = _metadata(rows)
+    # 128 more held-out queries, drawn after the others, for kernel 7's batch-256 times
+    picks = torch.from_numpy(rng.choice(rows, size=128, replace=False)).to(DEVICE)
+    noise = torch.randn((128, basis.shape[0]), generator=gen, device=DEVICE) @ basis
+    timing = np.concatenate([queries, to.l2_normalize(corpus[picks].float() + 0.1 * noise).cpu().numpy()])
     torch.cuda.synchronize()
-    log(f"[ivf] {rows} x {dim} bf16 rows of intrinsic dimension 32 on the card, 128 held-out queries, "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"[ivf] {rows} x {dim} bf16 rows of intrinsic dimension 32 on the card, 128 held-out queries (and 128 "
+        f"more for batch 256), in {time.perf_counter() - t0:.1f} s")
     for quantized in ("0", "1"):
-        _ivf_tier(corpus, metadata, queries, mask, quantized)
+        _ivf_tier(corpus, metadata, queries, mask, quantized, timing)
 
 
-def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
+def _ivf_tier(corpus, metadata, queries, mask, quantized: str, timing) -> None:
     import numpy as np
     import torch
 
@@ -1776,15 +1860,18 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
             index.search_batch(queries[:4], 50, mask=mask)
             masked_route = dict(index.last_route)
             launches = read_launches()
+            loops = dict(io_.ivf_block_topk.launches_by_loop)
         finally:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[ivf] route launches {launches}; masked search_batch route {masked_route}; micro-batcher: "
-            f"batches_run {batcher.batches_run}, grouped_batches_run {batcher.grouped_batches_run}, "
+        log(f"[ivf] route launches {launches}; kernel 7 by loop {loops}; masked search_batch route {masked_route}; "
+            f"micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run {batcher.grouped_batches_run}, "
             f"requests_served {batcher.requests_served}")
         if launches["ivf_block_topk"] <= 0:
             raise AssertionError(f"STORE_QUANTIZED={quantized}: the IVF routes never launched ivf_block_topk")
+        if loops["tensor_core"] <= 0:
+            raise AssertionError(f"STORE_QUANTIZED={quantized}: kernel 7 never ran on the tensor cores: {loops}")
         if route["impl"] != "ivf" or masked_route["impl"] != "ivf_masked":
             raise AssertionError(f"IVF routes: {route}, {masked_route}")
         _LAUNCHES["ivf_block_topk"] += launches["ivf_block_topk"]
@@ -1808,51 +1895,83 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str) -> None:
             f"masked 50; max |err| {_ERRORS['ivf_block_topk']:.3g}); recall@10 at nprobe 64 against the flat "
             f"exact scan (kernel 1), 128 held-out queries: {recall:.4f}")
 
-        # kernel 7 against its plain version at the main-path shapes, then
-        # their times (CUDA events; plain, kernel, kernel, plain).  The
-        # wrapper's time includes its probe-group table (one probe-id read
-        # back, one table upload), which the path pays on every call.
-        for batch in (1, 128):
-            qb = torch.from_numpy(queries[:batch]).to(device).to(torch.bfloat16).contiguous()
-            probes = ivf._probe(qb, 64)
-            if quantized == "1":
-                ivf._ensure_quantized()
-                q8, qs = io_.quantize_ivf_queries(qb.float())
-                args = (ivf._corpus_i8, q8, probes, ivf._row_valid)
-                kw = dict(lrows=ivf.capacity, metric="ip", qscales=qs, cscales=ivf._cscales)
-                kk, name = 64, "ivf_block_topk int8"  # top-50 nominates min(2k, 64) = 64
-            else:
-                args, kw, kk, name = (ivf._corpus, qb, probes, ivf._row_valid), dict(lrows=ivf.capacity, metric="ip"), 50, "ivf_block_topk"
-            kernel = lambda: io_.ivf_block_topk(*args, kk, **kw)  # noqa: E731
-            plain = lambda kk_=kk: io_.ivf_block_topk_plain(*args, kk_, **kw)  # noqa: E731
-            if quantized == "1":
-                err = check_topk(f"{name} batch {batch}", *kernel(), *plain(kk + 1), exact=True)
-            else:
-                err = check_partials(f"{name} batch {batch}", kernel(), plain, kk)
-            _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
-            pairs = batch * probes.shape[1]
-            probed = torch.unique(probes).numel()  # clusters read, each once
-            moved = (probed * ivf.capacity * (dim * args[0].element_size() + 1) + nbytes(*args[1:3])
-                     + pairs * -(-ivf.capacity // 256) * kk * 8)  # rows and slot flags, queries, probes, partials
-            gflop = 2 * pairs * ivf.capacity * dim / 1e9
-            library, lib_label = _ivf_library(ivf, probes, qb, quantized == "1")
-            ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
-                (name, batch, 50), kernel, plain, library, moved, gflop * 1e9,
-                "int8" if quantized == "1" else "bf16", reps=5)
-            groups, _, _, bq = io_.probe_groups(probes.cpu().numpy(), ivf.nlist)
-            fill = f"{groups.shape[0]} groups of up to {bq} queries, {pairs / (groups.shape[0] * bq):.0%} full"
-            gbytes = pairs * ivf.capacity * dim * args[0].element_size() / 1e9  # probed rows, counted per pair
-            lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms ({lib_label})"
-            log(f"[ivf] {name} batch {batch} top-50 (nprobe 64, {pairs} probe pairs in {fill}: {gbytes:.2f} GB of probed "
-                f"rows, {gflop:.1f} GFLOP) at {rows}x{dim}: agrees with the plain version (max |err| {err:.3g}); "
-                f"kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' rows, {gflop / ms:.2f} TFLOP/s), "
-                f"plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{e:.3f}); bound {bound:.3f} ms by "
-                f"{by} ({probed} clusters read, {moved / 1e9:.3f} GB); library {lib}")
+        _ivf_kernel_times(ivf, timing, quantized == "1", rows)
         # the micro-batcher's closures and the index refer to each other:
         # collect the cycle, so that the next tier starts from free memory
         del index, services, ivf, batcher
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
+    """Kernel 7 at the ivf phase's shapes (batches 1, 8, 128 and 256 of
+    the held-out queries ``timing``, nprobe 64, top-50; the int8 tier
+    nominates 64), each checked against its plain version and timed
+    against it, its bound and the library composition; then
+    ``IVFIndex.search`` host to host at batches 1 and 128."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+
+    device, dim = ivf._corpus.device, timing.shape[1]
+    # kernel 7 against its plain version at the main-path shapes, then
+    # their times (CUDA events; plain, kernel, kernel, plain).  The
+    # wrapper's time includes the work list (torch.sort, the group
+    # kernel) and the query gather, which the path pays on every call;
+    # nothing is read back to the host.
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for batch in (1, 8, 128, 256):
+        qb = torch.from_numpy(timing[:batch]).to(device).to(torch.bfloat16).contiguous()
+        probes = ivf._probe(qb, 64)
+        if int8:
+            ivf._ensure_quantized()
+            q8, qs = io_.quantize_ivf_queries(qb.float())
+            args = (ivf._corpus_i8, q8, probes, ivf._row_valid)
+            kw = dict(lrows=ivf.capacity, metric="ip", qscales=qs, cscales=ivf._cscales)
+            kk, name = 64, "ivf_block_topk int8"  # top-50 nominates min(2k, 64) = 64
+        else:
+            args, kw, kk, name = (ivf._corpus, qb, probes, ivf._row_valid), dict(lrows=ivf.capacity, metric="ip"), 50, "ivf_block_topk"
+        loop = io_.ivf_scoring_loop(args[0], kk)
+        bn, bq = io_.ivf_geometry(batch, 64, ivf.nlist, ivf.capacity, loop, sms)
+        kw["block_n"] = bn  # the plain version takes the kernel's tile
+        before = dict(io_.ivf_block_topk.launches_by_loop)
+        kernel = lambda: io_.ivf_block_topk(*args, kk, **kw)  # noqa: E731
+        plain = lambda kk_=kk: io_.ivf_block_topk_plain(*args, kk_, **kw)  # noqa: E731
+        err = check_partials(f"{name} batch {batch}", kernel(), plain, kk, exact=int8)
+        _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+        pairs = batch * probes.shape[1]
+        probed = torch.unique(probes).numel()  # clusters read, each once
+        tiles = -(-ivf.capacity // bn)
+        row_bytes = dim * args[0].element_size()
+        rows_moved, padded, scored = ivf_scan_work(ivf._row_valid, ivf.nlist, ivf.capacity, probes, row_bytes)
+        rest = nbytes(*args[1:3]) + pairs * tiles * kk * 8  # queries, probes, partials
+        moved = rows_moved + rest
+        gflop = 2 * scored * dim / 1e9
+        unit = "int8" if int8 else "bf16"
+        padded_bound = bound_ms(padded + rest, 2.0 * pairs * ivf.capacity * dim, unit)[0]
+        library, lib_label = _ivf_library(ivf, probes, qb, int8)
+        ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
+            (name, batch, 50), kernel, plain, library, moved, gflop * 1e9, unit, reps=5)
+        by_loop = {lp: n - before[lp] for lp, n in io_.ivf_block_topk.launches_by_loop.items()}
+        if by_loop["fma"] or not by_loop["tensor_core"]:
+            raise AssertionError(f"{name} batch {batch}: timed launches left the tensor cores: {by_loop}")
+        groups = io_.ivf_work_list(probes, ivf.nlist, bq)[0]  # on the card; read here for the log only
+        live = int((groups[:, 2] > 0).sum())
+        fill = (f"{live} groups of up to {bq} pairs (bound {groups.shape[0]}), {pairs / (live * bq):.0%} full, "
+                f"{tiles} tiles of {bn} slots a cluster")
+        gbytes = scored * row_bytes / 1e9  # the pairs' live rows, counted per pair
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms ({lib_label})"
+        log(f"[ivf] {name} batch {batch} top-50 (nprobe 64, {pairs} probe pairs in {fill}: {gbytes:.2f} GB of "
+            f"live probed rows, {gflop:.1f} GFLOP) at {rows}x{dim}: agrees with the plain version (max |err| "
+            f"{err:.3g}); kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' live rows, {gflop / ms:.2f} "
+            f"TFLOP/s), plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{e:.3f}); bound {bound:.3f} ms "
+            f"by {by} (the live rows of the {probed} clusters read, {moved / 1e9:.3f} GB; {padded_bound:.3f} ms "
+            f"counting their padding slots, {(padded + rest) / 1e9:.3f} GB); library {lib}; launches by loop "
+            f"{by_loop}")
+    # the search host to host (IVFIndex.search: probe, kernel 7, merge or rescore, download)
+    times = {batch: cuda_ms(lambda b=batch: ivf.search(timing[:b], 50, nprobe=64), reps=3) for batch in (1, 128)}
+    log(f"[ivf] {'int8' if int8 else 'exact'} IVFIndex.search top-50 nprobe 64, host to host: "
+        + ", ".join(f"batch {b} {t:.3f} ms" for b, t in times.items()))
 
 
 def _ivf_library(ivf, probes, qb, int8: bool, chunk: int = 8):

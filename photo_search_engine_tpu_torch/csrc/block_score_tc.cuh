@@ -1,7 +1,10 @@
 // The tensor-core scan of every bf16 and int8 scan of the flat index with
 // D % 8 == 0 (bf16) or D % 16 == 0 (int8): kernels 1, 3 and 5 (bf16,
 // block_topk.cu), kernel 4 (bf16, fused_topk.cu) and kernels 2 and 6 (int8,
-// int8_block_topk.cu).  TMA loads into a ring of shared-memory stages, one
+// int8_block_topk.cu); and of kernel 7, the IVF probed-cluster scan (bf16
+// and int8, ivf_topk.cu), whose CTAs take their rows, queries and lists
+// from a work list of probe pairs (IvfWork).  TMA loads into a ring of
+// shared-memory stages, one
 // producer warp, two consumer warpgroups that run wgmma (bf16 with f32
 // accumulators, or s8 with s32 accumulators), an epilogue into a score
 // tile, and a threshold selection with a running top-k across passes
@@ -361,6 +364,36 @@ struct S8 {
 };
 
 // ---------------------------------------------------------------------------
+// Where a CTA's rows, queries and lists come from.  FlatWork (kernels 1-6):
+// query tile blockIdx.x, rows [blockIdx.y * bn, + bn) of the corpus.
+// IvfWork (kernel 7): group blockIdx.x of the probe-pair work list and tile
+// blockIdx.y of its cluster, rows [cluster * lrows + tile * bn, + bn) of the
+// cluster-major layout, at most its end; the group's queries are rows
+// [blockIdx.x * BQ, + BQ) of a group-major query buffer (gathered on the
+// card, zeros past the group's size), and each pair's list goes to its own
+// partial (PairRows).  A group of size 0 lies past the work list's count:
+// its CTA leaves at once.
+// ---------------------------------------------------------------------------
+
+struct FlatWork {
+  static constexpr bool kFlat = true;
+  __device__ __forceinline__ int row0(int blk, int bn) const { return blk * bn; }
+  __device__ __forceinline__ int ncols(int row0, int, int bn, int n) const { return min(bn, n - row0); }
+};
+
+struct IvfWork {
+  static constexpr bool kFlat = false;
+  const int* groups;        // [G][3]: cluster, first sorted position, size
+  const long long* order;   // [P]: the pair (query * nprobe + probe slot) at each sorted position
+  int lrows;                // slots of a cluster
+  int tiles;                // tiles of bn slots a cluster
+  __device__ __forceinline__ int row0(int tile, int bn) const {
+    return groups[3 * blockIdx.x] * lrows + tile * bn;
+  }
+  __device__ __forceinline__ int ncols(int, int tile, int bn, int) const { return min(bn, lrows - tile * bn); }
+};
+
+// ---------------------------------------------------------------------------
 // The kernel body: scores of queries [q0, q0 + BQ) against rows [row0,
 // row0 + bn) into the score tile, then the block's top-k.  kKeys (kernel 3,
 // bn <= 2048): select_pass_keys keys each score at its block-local lane as
@@ -369,19 +402,23 @@ struct S8 {
 // instantiation.
 // ---------------------------------------------------------------------------
 
-template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false>
+template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false,
+          typename Work = FlatWork>
 __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
                                               const CUtensorMap* query_map,
                                               const typename Op::Scales& scales,
                                               const int8_t* __restrict__ mask,
                                               const Predicates& pred, float* __restrict__ out_v,
                                               int* __restrict__ out_i, int n, int d, int q,
-                                              int count, int k, int bn, int l2) {
+                                              int count, int k, int bn, int l2, const Work work = Work{}) {
   using Acc = typename Op::Acc;
   constexpr int kBoxK = Op::kBoxK;
   constexpr int kCorpusBox = kRowTile * kSwizzleBytes;
   constexpr int kQueryBox = BQ * kSwizzleBytes;
   constexpr int kPitch = kListSlots + kPassRows + kPitchPad;
+  if constexpr (!Work::kFlat) {
+    if (work.groups[3 * blockIdx.x + 2] == 0) return;  // past the group count: before any barrier
+  }
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   uint8_t* ring = base;                           // corpus stages, then query stages
@@ -400,8 +437,8 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
   uint64_t* pass_free = qempty + kQueryStages;  // the consumers are done with a pass's tile
   const int q0 = blockIdx.x * BQ;
   const int blk = blockIdx.y;
-  const int row0 = blk * bn;
-  const int ncols = min(bn, n - row0);  // the block's rows
+  const int row0 = work.row0(blk, bn);
+  const int ncols = work.ncols(row0, blk, bn, n);  // the block's rows
   const int passes = (ncols + kPassRows - 1) / kPassRows;  // of kPassRows rows, the last ragged
   const int chunks = (d + kBoxK - 1) / kBoxK;
 
@@ -555,9 +592,14 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     if constexpr (kKeys)
       select_pass_keys<BQ>(scores, kPitch, prows, list_i, q0, q, blk, gridDim.y, row0, pass0, ncols, lm, k,
                            p == passes - 1, reinterpret_cast<int*>(cands), out_v, out_i);
-    else
+    else if constexpr (Work::kFlat)
       select_pass<BQ, kThreshold>(scores, kPitch, prows, list_v, list_i, q0, q, blk, gridDim.y,
                                   row0 + pass0, k, p == passes - 1, cands, out_v, out_i);
+    else  // the group's first pair and size, read again here rather than held across the loop
+      select_pass_pairs<BQ>(scores, kPitch, prows, list_v, list_i,
+                            PairRows{work.order, work.groups[3 * blockIdx.x + 1], work.groups[3 * blockIdx.x + 2],
+                                     work.tiles, blk},
+                            row0 + pass0, k, p == passes - 1, cands, out_v, out_i);
     // the producer's next loads write over the tile: order these generic
     // accesses before them
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");

@@ -17,7 +17,8 @@
 // - select_pass, the threshold selection with a running top-k of the
 //   tensor-core scan (block_score_tc.cuh): bf16 kernels 1 and 5 and bf16
 //   kernel 4 (kernel 1 launched with a range of blocks as a CTA's rows),
-//   int8 kernels 2 and 6;
+//   int8 kernels 2 and 6, and as select_pass_pairs bf16 and int8 kernel 7
+//   (a group of probe pairs' lists);
 // - select_pass_keys, the same selection on the packed keys of kernel 3
 //   (_extract_block_topk_fast, topk.py:301-342) for bf16 kernel 3, flat and
 //   grouped, on the tensor cores;
@@ -155,7 +156,7 @@ __device__ void select_block_topk(float* scores, int bn, int q0, int q,
 }
 
 // ---------------------------------------------------------------------------
-// Selection of the tensor-core scan (kernels 1, 2, 4, 5 and 6,
+// Selection of the tensor-core scan (kernels 1, 2, 4, 5, 6 and 7,
 // block_score_tc.cuh).  The scan scores a block in passes of rows; a score
 // row of a pass holds the query's running top-k of the earlier passes in its
 // first kListSlots positions (ids from the list, -inf past k) and the pass's
@@ -198,23 +199,49 @@ __device__ __forceinline__ float from_ordered_key(uint32_t key) {
   return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
 }
 
+// Which score rows a CTA selects, and where each row's list goes on the
+// last pass.  BlockRows (kernels 1, 2, 4, 5 and 6): queries q0 .. q - 1 of
+// the tile, query q0 + ql's list of block blk at [(q0 + ql) * nb + blk] *
+// k.  PairRows (kernel 7): the `size` probe pairs of a group, the pair at
+// sorted position first + ql being order[first + ql] = query * nprobe +
+// probe slot, whose list of the cluster's tile `tile` goes to [pair *
+// tiles + tile] * k.
+struct BlockRows {
+  int q0, q, blk, nb;
+  template <int BQ>
+  __device__ __forceinline__ int nrows() const { return q - q0 < BQ ? q - q0 : BQ; }
+  __device__ __forceinline__ size_t first(int ql, int k) const {
+    return (static_cast<size_t>(q0 + ql) * nb + blk) * k;
+  }
+};
+
+struct PairRows {
+  const long long* order;
+  int first_pair, size, tiles, tile;
+  template <int BQ>
+  __device__ __forceinline__ int nrows() const { return size; }
+  __device__ __forceinline__ size_t first(int ql, int k) const {
+    return (static_cast<size_t>(order[first_pair + ql]) * tiles + tile) * k;
+  }
+};
+
 // One pass's selection for every query row of the score tile (pitch
 // `pitch`, positions [0, kListSlots + prows)): the running list
 // list_v/list_i ([BQ][kListSlots]) is copied into each row's head, and the
 // row's new top-k replaces it, or, on the last pass, goes to
-// out_v/out_i[(q * nb + blk) * k + slot].  kThreshold: the threshold
+// out_v/out_i[rows.first(ql, k) + slot].  kThreshold: the threshold
 // selection, else the k rounds.  `buf` holds kWarps * (kCandidates +
-// kListSlots) pairs.  Kept out of line, as the packed-key selection is.
-template <int BQ, bool kThreshold>
-__device__ __noinline__ void select_pass(float* scores, int pitch, int prows, float* list_v,
-                                         int* list_i, int q0, int q, int blk, int nb, int id0,
-                                         int k, bool last, float2* buf,
-                                         float* __restrict__ out_v, int* __restrict__ out_i) {
+// kListSlots) pairs.  Inlined into the two out-of-line entries below.
+template <int BQ, bool kThreshold, typename Rows>
+__device__ __forceinline__ void select_pass_rows(float* scores, int pitch, int prows, float* list_v,
+                                                 int* list_i, const Rows& rows, int id0, int k, bool last,
+                                                 float2* buf, float* __restrict__ out_v,
+                                                 int* __restrict__ out_i) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   float2* cand = buf + warp * (kCandidates + kListSlots);
   float2* best = cand + kCandidates;  // the row's new top-k: (value, id) by slot
-  const int nrows = q - q0 < BQ ? q - q0 : BQ;
+  const int nrows = rows.template nrows<BQ>();
   const int ncols = kListSlots + prows;
   for (int ql = warp; ql < nrows; ql += kWarps) {  // warp-uniform
     float* row = scores + ql * pitch;
@@ -277,7 +304,7 @@ __device__ __noinline__ void select_pass(float* scores, int pitch, int prows, fl
       for (int s = total + lane; s < k; s += 32) best[s] = make_float2(-CUDART_INF_F, __int_as_float(INT_MAX));
     }
     __syncwarp();  // every id is read from the list before the list is rewritten
-    const size_t first = (static_cast<size_t>(q0 + ql) * nb + blk) * k;
+    const size_t first = rows.first(ql, k);
     for (int s = lane; s < kListSlots; s += 32) {
       const float2 b = s < k ? best[s] : make_float2(-CUDART_INF_F, __int_as_float(INT_MAX));
       if (!last) {
@@ -290,6 +317,28 @@ __device__ __noinline__ void select_pass(float* scores, int pitch, int prows, fl
     }
     __syncwarp();  // the buffers are free for the next row
   }
+}
+
+// select_pass_rows for a tile of queries q0 .. q - 1 and block blk of nb
+// (kernels 1, 2, 4, 5 and 6).  Kept out of line, as the packed-key
+// selection is.
+template <int BQ, bool kThreshold>
+__device__ __noinline__ void select_pass(float* scores, int pitch, int prows, float* list_v,
+                                         int* list_i, int q0, int q, int blk, int nb, int id0,
+                                         int k, bool last, float2* buf,
+                                         float* __restrict__ out_v, int* __restrict__ out_i) {
+  select_pass_rows<BQ, kThreshold>(scores, pitch, prows, list_v, list_i, BlockRows{q0, q, blk, nb}, id0, k,
+                                   last, buf, out_v, out_i);
+}
+
+// select_pass_rows for a group of probe pairs (kernel 7), threshold
+// selection.  Out of line, as select_pass.
+template <int BQ>
+__device__ __noinline__ void select_pass_pairs(float* scores, int pitch, int prows, float* list_v,
+                                               int* list_i, PairRows rows, int id0, int k, bool last,
+                                               float2* buf, float* __restrict__ out_v,
+                                               int* __restrict__ out_i) {
+  select_pass_rows<BQ, true>(scores, pitch, prows, list_v, list_i, rows, id0, k, last, buf, out_v, out_i);
 }
 
 // ---------------------------------------------------------------------------

@@ -45,9 +45,10 @@ _SIGNATURES = {
     "pse_grouped_block_topk_f32": (6, 7),
     "pse_grouped_block_topk_bf16": (6, 7),
     "pse_int8_grouped_block_topk": (8, 7),
-    "pse_ivf_topk_f32": (11, 9),
-    "pse_ivf_topk_bf16": (11, 9),
-    "pse_ivf_topk_int8": (11, 9),
+    "pse_ivf_work": (2, 4),
+    "pse_ivf_topk_f32": (13, 11),
+    "pse_ivf_topk_bf16": (13, 11),
+    "pse_ivf_topk_int8": (13, 11),
     "pse_fast_block_topk_f32": (7, 7),
     "pse_fast_block_topk_bf16": (7, 7),
     "pse_fast_grouped_block_topk_f32": (6, 7),

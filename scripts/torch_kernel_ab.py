@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The flat scan kernels of one checkout of the PyTorch port, timed on one
+"""The scan kernels of one checkout of the PyTorch port, timed on one
 CUDA card, for comparing two checkouts on the same card in one run.
 
 Kernels 1, 3 (flat and grouped), 4 and 5 (bf16, block_n 1024) and
@@ -7,9 +7,18 @@ kernels 2 and 6 (int8 shadow, block_n 2048) at 1M x 1536 unit rows made on
 the card from a seed, top-50, batches 1, 8, 128 and 256; the grouped
 kernels over five predicates keeping 50 / 25 / 5 / 0.1 / 0 % of the rows;
 kernels 1, 2 and 3 also at k = 1; kernel 4 at the checkout's default
-blocks per range.  Times
-are CUDA events over 10 calls after one warm-up.  Prints one JSON line
-with the card's name and power limit and the checkout it timed.
+blocks per range.  Then kernel 7 (the IVF scan) at the checkout's default
+geometry on a cluster-major layout of 1024 clusters x 1536 slots x 1536
+(unit rows, each cluster filled to a seeded 768-1536 slots, the rest
+padding) and its int8 shadow, each query probing 64 seeded clusters,
+top-50 (int8: the 64 the int8 tier nominates), at the same batches;
+kernel 7 followed by merge_partials and the download, host to host; and
+``IVFIndex.search`` top-50 at nprobe 64, host to host, on an index made
+from that layout and 1024 seeded unit centroids (STORE_QUANTIZED off: bf16
+kernel 7 and the merge; on: int8 kernel 7 and the exact rescore).  Times
+are CUDA events over 10 calls after one warm-up, host to host the host
+clock over 10 calls.  Prints one JSON line with the card's name and power
+limit and the checkout it timed.
 
 Run from the repository root; ``--root`` names the directory that holds
 the ``photo_search_engine_tpu_torch`` package to time (default: this
@@ -23,8 +32,12 @@ import json
 import os
 import subprocess
 import sys
+import time
+
+import numpy as np
 
 ROWS, DIM, K, SEED = 1_000_000, 1536, 50, 20261016
+NLIST, LROWS, NPROBE = 1024, 1536, 64  # kernel 7's layout: the ivf phase's IVF_NLIST, L and IVF_NPROBE
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -41,6 +54,7 @@ def main() -> int:
         print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
 
@@ -93,7 +107,51 @@ def main() -> int:
             times[f"{name} batch {batch}"] = ms(lambda: run(K))
             if name in ("block_topk", "int8_block_topk", "fast_block_topk"):
                 times[f"{name} batch {batch} k=1"] = ms(lambda: run(1))
+    del corpus, c8, cs, table
+
+    # kernel 7 on a seeded cluster-major layout
+    layout = torch.empty((NLIST * LROWS, DIM), dtype=torch.bfloat16, device="cuda")
+    for start in range(0, layout.shape[0], 131072):
+        layout[start:start + 131072] = unit(min(131072, layout.shape[0] - start), gen).to(torch.bfloat16)
+    fill = torch.randint(LROWS // 2, LROWS + 1, (NLIST,), generator=gen, device="cuda")
+    valid = (torch.arange(LROWS, device="cuda")[None, :] < fill[:, None]).to(torch.int8).reshape(-1)
+    l8, ls = qo.quantize_rows(layout)
+
+    def host_ms(fn, reps=10):
+        fn()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - start) / reps
+
+    for batch in (int(b) for b in args.batches.split(",")):
+        probes = torch.rand((batch, NLIST), generator=gen, device="cuda").argsort(dim=1)[:, :NPROBE]
+        probes = torch.sort(probes, dim=1).values.to(torch.int32).contiguous()
+        q16 = unit(batch, gen).to(torch.bfloat16)
+        q8, qs = io.quantize_ivf_queries(q16.float())
+        runs = {"bf16": (lambda: io.ivf_block_topk(layout, q16, probes, valid, K, lrows=LROWS), K),
+                "int8": (lambda: io.ivf_block_topk(l8, q8, probes, valid, 64, lrows=LROWS, qscales=qs, cscales=ls), 64)}
+        for tier, (run, kk) in runs.items():
+            times[f"ivf_block_topk {tier} batch {batch}"] = ms(run)
+            times[f"ivf_block_topk {tier} batch {batch} + merge, host to host"] = host_ms(
+                lambda: to.merge_partials(*run(), kk)[1].cpu())
+    del l8, ls
+
+    # the search a user calls, host to host, on an index over that layout
+    from photo_search_engine_tpu_torch.models.ivf import IVFIndex
+
+    slots = np.arange(NLIST * LROWS).reshape(NLIST, LROWS)
+    perm = np.where(slots % LROWS < fill.cpu().numpy()[:, None], slots, -1).reshape(-1)
+    centroids = unit(NLIST, gen).cpu().numpy()
+    for tier, quantized in (("bf16", False), ("int8", True)):
+        index = IVFIndex(centroids, layout, perm, LROWS, store_dtype="bfloat16", quantized=quantized, device="cuda")
+        for batch in (int(b) for b in args.batches.split(",")):
+            queries = unit(batch, gen).cpu().numpy()
+            times[f"IVFIndex.search {tier} batch {batch}, host to host"] = host_ms(
+                lambda: index.search(queries, K, nprobe=NPROBE))
+        del index
     print(json.dumps({"card": card, "root": root, "rows": ROWS, "dim": DIM, "top_k": K,
+                      "ivf": {"nlist": NLIST, "slots": LROWS, "nprobe": NPROBE},
                       "ms": {key: round(value, 4) for key, value in times.items()}}), flush=True)
     return 0
 

@@ -12,17 +12,30 @@ one's merged top-k is checked identical to kernel 1's (the same sums in the
 same order).  ``--fused-only`` times kernel 4 instead, at 1, 2, 3, 4, 5,
 8, 15 and 30 blocks per range and at ``topk.fused_ranges``' default (each
 timed twice, in two passes of opposite order), each result checked
-identical to kernel 1 followed by ``merge_partials``.  Times are CUDA
-events over 5 calls after one warm-up (``chip_smoke.cuda_ms``); each line
-names the card and its power limit.
+identical to kernel 1 followed by ``merge_partials``.  ``--ivf-only``
+times kernel 7 (the IVF scan, tensor cores) instead, on a cluster-major
+layout of 1024 clusters x 1536 slots x 1536 (each cluster filled to a
+seeded 768-1536 slots) with 64 seeded probes a query, bf16 top-50 and int8
+top-64, at every tile of 512, 768 and 1536 slots and group size of 8 and
+32 (two passes of opposite order), each merged result checked against the
+one at ``ivf_scan.ivf_geometry``'s choice, which the line names.
+``--f32-only`` times the float32 kernels (the FMA loop, by contract) at
+batches 1 and 128: kernel 1 at 1M x 1536 and kernel 7 on that layout in
+float32, each against its plain version, its bound and the library
+composition (a cuBLAS float32 product with TF32 off, then ``torch.topk``;
+kernel 7's gathers each query's probed clusters first, in chunks of 8
+queries).  Times are CUDA events over 5 calls after one warm-up
+(``chip_smoke.cuda_ms``); each line names the card and its power limit.
 
-Run from the repository root:  python3 scripts/torch_kernel_sweep.py [--fused-only]
+Run from the repository root:
+    python3 scripts/torch_kernel_sweep.py [--fused-only | --ivf-only | --f32-only]
 """
 
 import argparse
 import os
 import subprocess
 import sys
+import types
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -30,11 +43,106 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from photo_search_engine_tpu_torch.ops import _cuda  # noqa: E402
+from photo_search_engine_tpu_torch.ops import ivf_scan as io  # noqa: E402
+from photo_search_engine_tpu_torch.ops import quantized as qo  # noqa: E402
 from photo_search_engine_tpu_torch.ops import topk as to  # noqa: E402
+from tests.torch_parity import assert_topk_match  # noqa: E402
 
 ROWS, DIM, K, BLOCK_N = 1_000_000, 1536, 50, 1024
+NLIST, LROWS, NPROBE = 1024, 1536, 64  # kernel 7's layout: the ivf phase's IVF_NLIST, L and IVF_NPROBE
 SM_SHARED_LIMIT = 232448  # bytes one CTA may use on the H100
 _SM_SHARED = 233472  # an SM's shared memory; each resident CTA also reserves 1 KB
+
+
+def ivf_layout(gen, dtype=torch.bfloat16):
+    """Kernel 7's seeded layout: ``(rows [NLIST * LROWS, DIM], row_valid)``."""
+    layout = torch.empty((NLIST * LROWS, DIM), dtype=dtype, device="cuda")
+    for start in range(0, layout.shape[0], 131072):
+        layout[start:start + 131072] = cs._unit_rows(min(131072, layout.shape[0] - start), DIM, gen, dtype)
+    fill = torch.randint(LROWS // 2, LROWS + 1, (NLIST,), generator=gen, device="cuda")
+    valid = (torch.arange(LROWS, device="cuda")[None, :] < fill[:, None]).to(torch.int8).reshape(-1)
+    return layout, valid
+
+
+def ivf_probes(gen, batch):
+    probes = torch.rand((batch, NLIST), generator=gen, device="cuda").argsort(dim=1)[:, :NPROBE]
+    return torch.sort(probes, dim=1).values.to(torch.int32).contiguous()
+
+
+def ivf_sweep(card) -> int:
+    """Kernel 7's tile and group size on the tensor cores, by batch."""
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    layout, valid = ivf_layout(gen)
+    l8, ls = qo.quantize_rows(layout)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    settings = [(bn, bq) for bn in (512, 768, 1536) for bq in io.IVF_BQ]
+    for batch in (1, 8, 32, 128, 256):
+        probes = ivf_probes(gen, batch)
+        q16 = cs._unit_rows(batch, DIM, gen, torch.bfloat16)
+        q8, qs = io.quantize_ivf_queries(q16.float())
+        rule = io.ivf_geometry(batch, NPROBE, NLIST, LROWS, "tensor_core", sms)
+        probed = int(torch.unique(probes).numel())
+        groups = {bq: int((io.ivf_work_list(probes, NLIST, bq)[0][:, 2] > 0).sum()) for bq in io.IVF_BQ}
+        for tier, args, kk, extra in (("bf16", (layout, q16), K, {}),
+                                      ("int8", (l8, q8), 64, dict(qscales=qs, cscales=ls))):
+            def run(bn, bq):
+                return io.ivf_block_topk(*args, probes, valid, kk, lrows=LROWS, block_n=bn, bq=bq, **extra)
+
+            want = to.merge_partials(*run(*rule), kk)
+            times = {s: [] for s in settings}
+            for s in settings + settings[::-1]:  # two passes in opposite orders: clocks settle meanwhile
+                assert_topk_match(*to.merge_partials(*run(*s), kk), *want, tol=1e-5, exact=tier == "int8")
+                times[s].append(cs.cuda_ms(lambda: run(*s), reps=5))
+            best = min(times, key=lambda s: sum(times[s]))
+            cells = ", ".join(f"bn {bn} / BQ {bq}: {a:.3f}/{b:.3f}" for (bn, bq), (a, b) in times.items())
+            print(f"{card}: kernel 7 {tier} batch {batch} top-{kk} (nprobe {NPROBE}, {probed} clusters probed, "
+                  f"{batch * NPROBE / probed:.2f} pairs a cluster; groups: {groups[8]} of 8, {groups[32]} of 32; "
+                  f"merged results agree with the rule's) ms, forward / backward pass: {cells}; "
+                  f"rule bn {rule[0]} / BQ {rule[1]}, fastest bn {best[0]} / BQ {best[1]}", flush=True)
+    return 0
+
+
+def f32_times(card) -> int:
+    """float32 kernels 1 and 7 (the FMA loop) against their plain versions,
+    bounds and library compositions, at batches 1 and 128."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # a full-precision library product, as the kernels
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    corpus = torch.empty((ROWS, DIM), dtype=torch.float32, device="cuda")
+    for start in range(0, ROWS, 131072):
+        corpus[start:start + 131072] = cs._unit_rows(min(131072, ROWS - start), DIM, gen, torch.float32)
+    kw = dict(count=ROWS, block_n=BLOCK_N)
+    nb = -(-ROWS // BLOCK_N)
+    for batch in (1, 128):
+        queries = cs._unit_rows(batch, DIM, gen, torch.float32)
+        ms, pms, bound, by, lib, _ = cs.time_kernel(
+            ("block_topk f32", batch, K), lambda: to.block_topk(corpus, queries, K, **kw),
+            lambda: to.exact_block_topk_plain(corpus, queries, K, **kw),
+            lambda: torch.topk(torch.matmul(queries, corpus.T), K),
+            cs.nbytes(corpus, queries) + batch * nb * K * 8, 2.0 * batch * ROWS * DIM, "f32")
+        print(f"{card}: kernel 1 f32 (FMA loop) batch {batch} top-{K} at {ROWS}x{DIM}: kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms, bound {bound:.3f} ms by {by}, library {lib:.3f} ms (cuBLAS f32, TF32 off, "
+              "+ torch.topk)", flush=True)
+    del corpus
+    layout, valid = ivf_layout(gen, torch.float32)
+    ivf = types.SimpleNamespace(_row_valid=valid, nlist=NLIST, capacity=LROWS, _corpus=layout)
+    for batch in (1, 128):
+        probes = ivf_probes(gen, batch)
+        queries = cs._unit_rows(batch, DIM, gen, torch.float32)
+        pairs, probed = batch * NPROBE, int(torch.unique(probes).numel())
+        library, label = cs._ivf_library(ivf, probes, queries, False)
+        rows_moved, padded, scored = cs.ivf_scan_work(valid, NLIST, LROWS, probes, DIM * 4)
+        rest = cs.nbytes(queries, probes) + pairs * -(-LROWS // io.IVF_FMA_BLOCK_N) * K * 8
+        padded_bound = cs.bound_ms(padded + rest, 2.0 * pairs * LROWS * DIM, "f32")[0]
+        tile = io.ivf_launch(layout, probes, LROWS, K)[1]
+        ms, pms, bound, by, lib, _ = cs.time_kernel(
+            ("ivf_block_topk f32", batch, K), lambda: io.ivf_block_topk(layout, queries, probes, valid, K, lrows=LROWS),
+            lambda: io.ivf_block_topk_plain(layout, queries, probes, valid, K, lrows=LROWS, block_n=tile), library,
+            rows_moved + rest, 2.0 * scored * DIM, "f32")
+        print(f"{card}: kernel 7 f32 (FMA loop) batch {batch} top-{K} (nprobe {NPROBE} of {NLIST}, L {LROWS}, "
+              f"{probed} clusters probed): kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bound:.3f} ms by {by} "
+              f"(live rows; {padded_bound:.3f} ms counting the padding slots), library {lib:.3f} ms ({label}; "
+              "TF32 off)", flush=True)
+    return 0
 
 
 def geometry_scan(corpus, queries, k, block_n, stages, threshold):
@@ -54,12 +162,18 @@ def geometry_scan(corpus, queries, k, block_n, stages, threshold):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused-only", action="store_true", help="sweep kernel 4's blocks per range only")
+    parser.add_argument("--ivf-only", action="store_true", help="sweep kernel 7's tile and group size only")
+    parser.add_argument("--f32-only", action="store_true", help="time the float32 kernels 1 and 7 only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_sweep: needs a CUDA card", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.ivf_only:
+        return ivf_sweep(card)
+    if args.f32_only:
+        return f32_times(card)
     consts = _cuda.header_constants("block_score_tc.cuh")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     corpus = torch.empty((ROWS, DIM), dtype=torch.bfloat16, device="cuda")

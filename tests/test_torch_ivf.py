@@ -18,6 +18,9 @@ assignment, layout, the int8 query quantization and the tuned nprobe
 identical.
 """
 
+import contextlib
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,7 @@ from photo_search_engine_tpu_torch.core.convert import ivf_state_from_jax
 from photo_search_engine_tpu_torch.models import ivf
 from photo_search_engine_tpu_torch.ops import ivf_scan
 from photo_search_engine_tpu_torch.ops.quantized import quantize_rows
-from tests.torch_parity import assert_topk_match, unit_rows
+from tests.torch_parity import assert_topk_match, plain_scan, unit_rows
 
 D = 64
 TOL = 1e-5
@@ -150,13 +153,20 @@ def test_build_on_device_matches_build():
 
 @pytest.mark.parametrize("metric", ["ip", "l2"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_search_matches_jax(metric, dtype):
+@pytest.mark.parametrize("scan", ["wrapper", "plain"])
+def test_search_matches_jax(metric, dtype, scan):
+    """The search through kernel 7's wrapper (on CPU tensors: the plain
+    version at the kernel's tile) and through the plain version at its own
+    default, one whole-cluster tile a pair."""
     jax_index, corpus = _jax_index(metric, dtype, False)
     port = _port_of(jax_index)
     queries = _queries(corpus, np.random.default_rng(11))
-    for k, nprobe in ((10, 8), (1, 1)):
-        _assert_same(port.search(queries, k, nprobe=nprobe),
-                     jax_index.search(queries, k, nprobe=nprobe, impl="pallas"), metric)
+    with contextlib.ExitStack() as stack:
+        if scan == "plain":
+            stack.enter_context(plain_scan(ivf_scan, "ivf_block_topk"))
+        for k, nprobe in ((10, 8), (1, 1)):
+            _assert_same(port.search(queries, k, nprobe=nprobe),
+                         jax_index.search(queries, k, nprobe=nprobe, impl="pallas"), metric)
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2"])
@@ -289,61 +299,189 @@ def test_state_roundtrip_and_foreign_corpus():
 # ---------------------------------------------------------------------------
 
 
-def _emulate_kernel(corpus, queries, probe_ids, row_valid, k, lrows, block_n):
-    """Kernel 7's walk over the probe-pair groups, in numpy: one (group,
-    tile) at a time, each query of the group scored against the tile and
-    its top-kk written to its own partial slot."""
-    groups, pair_query, pair_slot, bq = ivf_scan.probe_groups(probe_ids, corpus.shape[0] // lrows)
+def _numpy_groups(probe_ids, nlist, bq):
+    """The work list by a numpy walk, independent of the port's code:
+    the pairs sorted stably by cluster (ids below 0 first, at or past nlist
+    last, in no group), each cluster's run cut into groups of ``bq``.
+    Returns ``(groups [n, 3]: cluster, first sorted position, size;
+    order)``."""
+    key = np.asarray(probe_ids, np.int64).reshape(-1)
+    order = np.argsort(key, kind="stable")
+    live = (key >= 0) & (key < nlist)
+    counts = np.bincount(key[live], minlength=nlist)
+    start = (key < 0).sum() + np.cumsum(counts) - counts  # each cluster's first sorted position
+    per_cluster = -(-counts // bq)
+    cluster = np.repeat(np.arange(nlist), per_cluster)
+    local = np.arange(cluster.size) - (np.cumsum(per_cluster) - per_cluster)[cluster]
+    first = start[cluster] + local * bq
+    size = np.minimum(bq, counts[cluster] - local * bq)
+    return np.stack([cluster, first, size], axis=1).astype(np.int32), order
+
+
+def _emulate_kernel(corpus, queries, probe_ids, row_valid, k, lrows, block_n, bq=8):
+    """Kernel 7's walk over the work list the port builds
+    (``ivf_work_list``, here on CPU tensors), in numpy: one (group, tile) at
+    a time, each pair of the group scored against the tile and its top-kk
+    written to its own partial slot; pairs in no group stay empty."""
+    nlist = corpus.shape[0] // lrows
+    groups, order, _ = ivf_scan.ivf_work_list(torch.from_numpy(probe_ids.astype(np.int32)), nlist, bq)
+    groups, order = groups.numpy(), order.numpy()
     nq, nprobe = probe_ids.shape
     tiles, kk = -(-lrows // block_n), min(k, block_n)
     out_v = np.full((nq, nprobe, tiles, kk), -np.inf, np.float32)
     out_i = np.full((nq, nprobe, tiles, kk), _INT_MAX, np.int32)
     seen = np.zeros((nq, nprobe), int)
     for cluster, first, size in groups:
+        if size == 0:  # past the group count: the CTA leaves
+            assert cluster == -1
+            continue
         assert 1 <= size <= bq
         for t in range(tiles):
             lo = cluster * lrows + t * block_n
             hi = min(lo + block_n, (cluster + 1) * lrows)
-            for p in range(first, first + size):
-                q, j = pair_query[p], pair_slot[p]
+            for pair in order[first: first + size]:
+                q, j = divmod(int(pair), nprobe)
                 assert probe_ids[q, j] == cluster
                 seen[q, j] += t == 0
                 s = np.where(row_valid[lo:hi] > 0, corpus[lo:hi] @ queries[q], -np.inf).astype(np.float32)
-                order = np.argsort(-s, kind="stable")[:kk]
-                out_v[q, j, t, : order.size] = s[order]
-                out_i[q, j, t, : order.size] = np.where(np.isneginf(s[order]), _INT_MAX, lo + order)
-    assert (seen == 1).all()  # every (query, probe) pair in exactly one group
+                best = np.argsort(-s, kind="stable")[:kk]
+                out_v[q, j, t, : best.size] = s[best]
+                out_i[q, j, t, : best.size] = np.where(np.isneginf(s[best]), _INT_MAX, lo + best)
+    live = (probe_ids >= 0) & (probe_ids < nlist)
+    np.testing.assert_array_equal(seen, live.astype(int))  # every live pair in exactly one group, no other
     return out_v, out_i
 
 
-@pytest.mark.parametrize("nq,nprobe", [(1, 3), (9, 4), (40, 8)])
+@pytest.mark.parametrize("nq,nprobe", [(1, 3), (9, 4), (40, 8), (7, 5)])
 def test_probe_groups_emulated_walk_matches_the_plain_version(nq, nprobe):
+    """The walk over the work list built from these probes (the last case
+    with ids past the layout and below 0) gives the plain version's
+    partials, at a ragged tile and at the default geometry."""
     rng = np.random.default_rng(22)
-    nlist, lrows, block_n = 8, 48, 32  # a ragged last tile of 16 slots
+    nlist, lrows = 8, 48
     corpus = unit_rows(rng, nlist * lrows, 16)
     corpus[100:110] = corpus[5]  # duplicate slots: ties to the smallest slot
     row_valid = (rng.random(nlist * lrows) < 0.8).astype(np.int8)
     probe_ids = np.sort(np.stack([rng.choice(nlist, nprobe, replace=False) for _ in range(nq)]), axis=1)
+    if nq == 7:
+        probe_ids[2, 1], probe_ids[4, 0], probe_ids[5, 4] = nlist, -1, nlist + 9
     queries = unit_rows(rng, nq, 16)
     queries[0] = corpus[5]
-    for k in (1, 12, 100):
-        want = _emulate_kernel(corpus, queries, probe_ids, row_valid, k, lrows, block_n)
-        got = ivf_scan.ivf_block_topk(
-            torch.from_numpy(corpus), torch.from_numpy(queries), torch.from_numpy(probe_ids.astype(np.int32)),
-            torch.from_numpy(row_valid), k, lrows=lrows, block_n=block_n,
-        )
+    args = (torch.from_numpy(corpus), torch.from_numpy(queries), torch.from_numpy(probe_ids.astype(np.int32)),
+            torch.from_numpy(row_valid))
+    for k, block_n in ((1, 32), (12, 32), (100, 32), (12, None)):  # 32: a ragged last tile of 16 slots
+        got = ivf_scan.ivf_block_topk(*args, k, lrows=lrows, block_n=block_n)
+        bn = ivf_scan.ivf_launch(args[0], args[2], lrows, k, block_n)[1]
+        want = _emulate_kernel(corpus, queries, probe_ids, row_valid, k, lrows, bn)
         assert_topk_match(*got, *want, tol=TOL)
 
 
-def test_probe_groups_pick_the_group_size():
-    assert ivf_scan.probe_groups(np.arange(64).reshape(1, 64).astype(np.int32), 64)[3] == 8
-    crowded = np.tile(np.arange(4, dtype=np.int32), (12, 1))  # 12 queries per cluster
-    groups, _, _, bq = ivf_scan.probe_groups(crowded, 4)
-    assert bq == 16 and groups[:, 2].tolist() == [12, 12, 12, 12]
-    groups, _, _, bq = ivf_scan.probe_groups(np.tile(np.arange(2, dtype=np.int32), (70, 1)), 2)
-    assert bq == 32 and groups[:, 0].tolist() == [0, 0, 0, 1, 1, 1] and groups[:, 2].tolist() == [32, 32, 6] * 2
-    with pytest.raises(ValueError, match="probe ids"):
-        ivf_scan.probe_groups(np.array([[4]], np.int32), 4)
+@pytest.mark.parametrize("case", ["spread", "crowded", "overflow", "outside", "long"])
+def test_probe_groups_pick_the_group_size(case):
+    """The work list the port builds (on CPU tensors) is the numpy walk's,
+    group for group and pair for pair, with (-1, 0, 0) past the group
+    count: one query over 64 clusters; 12 queries on each of 4 clusters (a
+    group each); 70 queries on 2 clusters (groups of 32, 32 and 6); ids
+    outside the layout in no group; a long run of pairs cut across the
+    work kernel's threads."""
+    rng = np.random.default_rng(23)
+    probe_ids, nlist, bq = {
+        "spread": (np.arange(64, dtype=np.int32).reshape(1, 64), 64, 8),
+        "crowded": (np.tile(np.arange(4, dtype=np.int32), (12, 1)), 4, 32),
+        "overflow": (np.tile(np.arange(2, dtype=np.int32), (70, 1)), 2, 32),
+        "outside": (np.array([[4, 0], [-1, 1], [2, 9], [0, 4]], np.int32), 4, 8),
+        "long": (np.sort(rng.integers(0, 5, size=(3000, 2)), axis=1).astype(np.int32), 5, 32),
+    }[case]
+    groups, order, sorted_ids = ivf_scan.ivf_work_list(torch.from_numpy(probe_ids), nlist, bq)
+    want, want_order = _numpy_groups(probe_ids, nlist, bq)
+    n = want.shape[0]
+    assert groups.shape == (ivf_scan.ivf_group_bound(*probe_ids.shape, nlist, bq), 3) and groups.dtype == torch.int32
+    np.testing.assert_array_equal(groups[:n].numpy(), want)
+    assert (groups[n:] == torch.tensor([-1, 0, 0], dtype=torch.int32)).all()
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(sorted_ids.numpy(), probe_ids.reshape(-1)[want_order])
+    if case == "crowded":
+        assert groups[:n, 2].tolist() == [12, 12, 12, 12]
+    if case == "overflow":
+        assert groups[:n, 0].tolist() == [0, 0, 0, 1, 1, 1] and groups[:n, 2].tolist() == [32, 32, 6] * 2
+    if case == "outside":  # the pairs of ids 4, -1 and 9 are in no group
+        covered = [int(pair) for _, first, size in groups[:n].tolist() for pair in order[first: first + size]]
+        assert sorted(covered) == [1, 3, 4, 6]
+
+
+@pytest.mark.parametrize("bq", ivf_scan.IVF_BQ)
+@pytest.mark.parametrize("nq,nprobe,nlist", [(1, 64, 1024), (5, 7, 7), (70, 2, 2), (33, 16, 64), (200, 64, 64)])
+def test_group_count_never_exceeds_the_bound(bq, nq, nprobe, nlist):
+    """Every query on the same clusters (the fewest distinct clusters, the
+    fullest groups) and every pair on its own cluster where nlist allows
+    (the most partial groups): the groups never outnumber
+    ``ivf_group_bound``, which the grid is sized by; at batch 1 of 64
+    distinct probes with groups of 8 the bound is the count, 64."""
+    rng = np.random.default_rng(24)
+    same = np.tile(np.arange(nprobe, dtype=np.int32), (nq, 1))
+    spread = (np.arange(nq * nprobe, dtype=np.int32) % nlist).reshape(nq, nprobe)
+    shuffled = np.sort(np.stack([rng.permutation(nlist)[:nprobe] for _ in range(nq)]), axis=1).astype(np.int32)
+    bound = ivf_scan.ivf_group_bound(nq, nprobe, nlist, bq)
+    for probes in (same, spread, shuffled):
+        groups, _, _ = ivf_scan.ivf_work_list(torch.from_numpy(probes), nlist, bq)
+        live = int((groups[:, 2] > 0).sum())
+        assert 0 < live <= bound == groups.shape[0]
+        assert int(groups[:, 2].sum()) == nq * nprobe  # every pair in a group
+    if (nq, nprobe, nlist, bq) == (1, 64, 1024, 8):
+        assert bound == 64 == live
+
+
+def test_group_size_and_tile_rule_read_no_probe_ids():
+    """``ivf_geometry`` takes shapes only (no probe id, so no read-back):
+    at nlist 1024, L 1536 and nprobe 64, the ivf phase's index, batches 1
+    and 8 take groups of 8 and three tiles of 512 slots a cluster (64 or
+    ~420 groups: too few CTAs for four waves), batches 32 and 128 two
+    tiles, groups of 8 up to 8 queries per probed cluster, batch 256 (16 a
+    cluster) groups of 32 — the sweep's fastest settings, each within 1.3 %
+    (PERF.md); the FMA loop keeps its 256-slot tile."""
+    assert list(inspect.signature(ivf_scan.ivf_geometry).parameters) == [
+        "nq", "nprobe", "nlist", "lrows", "loop", "sm_count"]
+    geo = {q: ivf_scan.ivf_geometry(q, 64, 1024, 1536, "tensor_core") for q in (1, 8, 32, 128, 256)}
+    assert geo == {1: (512, 8), 8: (512, 8), 32: (768, 8), 128: (768, 8), 256: (768, 32)}
+    assert ivf_scan.ivf_geometry(256, 64, 1024, 1536, "fma") == (ivf_scan.IVF_FMA_BLOCK_N, 32)
+    assert ivf_scan.ivf_geometry(2048, 64, 1024, 1536, "tensor_core") == (1536, 32)  # many groups: whole clusters
+    assert ivf_scan.ivf_geometry(1, 8, 24, 384, "tensor_core") == (128, 8)  # few groups: three tiles
+    assert ivf_scan.ivf_geometry(1, 8, 24, 384, "tensor_core", sm_count=1) == (384, 8)
+    with pytest.raises(ValueError, match="loop"):
+        ivf_scan.ivf_geometry(1, 8, 24, 384, "dp4a")
+    bf16 = torch.zeros((4, 1536), dtype=torch.bfloat16)
+    assert ivf_scan.ivf_scoring_loop(bf16, 64) == "tensor_core" and ivf_scan.ivf_scoring_loop(bf16, 65) == "fma"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1001), dtype=torch.bfloat16), 10) == "fma"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1536), dtype=torch.int8), 64) == "tensor_core"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1000), dtype=torch.int8), 10) == "fma"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1536)), 10) == "fma"
+    assert ivf_scan.ivf_block_topk.launches_by_loop.keys() == {"tensor_core", "fma"}
+
+
+def test_probe_ids_outside_the_layout_match_no_slot(monkeypatch):
+    """The JAX probe matrix (``ivf.py:900-902``, ``row.at[ids].set(1)``)
+    drops an id at or past nlist and wraps a negative one to ``nlist +
+    id``.  The port matches no slot for either (kernel and plain version,
+    so nothing outside the layout is read): the same as JAX for ids past
+    nlist, a recorded difference for negative ones."""
+    import jax
+    import jax.numpy as jnp
+
+    jax_index, corpus = _jax_index("ip", "float32", False)
+    nlist = jax_index.nlist
+    ids = np.array([[3, nlist, nlist + 5, -1]], np.int32)
+    monkeypatch.setattr(jax.lax, "top_k", lambda scores, k: (scores[:, :k], jnp.asarray(ids)))
+    width = jax_index._centroids_dev.shape[1]  # the JAX index pads D to its lane width
+    probe_matrix = np.asarray(jax_index._probe(jnp.asarray(np.pad(corpus[:1], ((0, 0), (0, width - D)))), 4)[0])
+    assert probe_matrix[0, 3] == 1 and probe_matrix[0, nlist - 1] == 1 and probe_matrix.sum() == 2
+    port = _port_of(jax_index)
+    q = torch.from_numpy(corpus[:1])
+    vals, slots = ivf_scan.ivf_block_topk_plain(port._corpus, q, torch.from_numpy(ids), port._row_valid, 5,
+                                                lrows=port.capacity)
+    assert torch.isfinite(vals[0, 0]).any()  # cluster 3 is scanned
+    assert torch.isneginf(vals[0, 1:]).all() and (slots[0, 1:] == _INT_MAX).all()
+    groups, order, _ = ivf_scan.ivf_work_list(torch.from_numpy(ids), nlist, 8)
+    assert groups[0].tolist() == [3, int(torch.nonzero(order == 0)[0, 0]), 1] and groups[1:, 2].sum() == 0
 
 
 def test_plain_scan_masks_and_empties():
@@ -363,6 +501,9 @@ def test_plain_scan_masks_and_empties():
     vals, slots = ivf_scan.ivf_block_topk(corpus, corpus[lrows + 3 : lrows + 4], probes, row_valid, 40,
                                           lrows=lrows, block_n=16)
     assert lrows + 3 not in slots.flatten().tolist() and slots.shape == (1, 2, 2, 16)
+    # the plain version's default tile is the whole cluster: one list a pair
+    whole = ivf_scan.ivf_block_topk_plain(corpus, corpus[lrows + 3 : lrows + 4], probes, row_valid, 40, lrows=lrows)
+    assert whole[1].shape == (1, 2, 1, 32)
     c8, cs = quantize_rows(corpus)
     q8, qs = ivf_scan.quantize_ivf_queries(corpus[:1])
     vals, slots = ivf_scan.ivf_block_topk(c8, q8, probes, row_valid, 3, lrows=lrows, qscales=qs, cscales=cs,

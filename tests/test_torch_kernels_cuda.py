@@ -221,7 +221,8 @@ def test_ivf_block_topk_matches_plain(gen, dtype, metric, k, q, nprobe):
     got_v, got_i = io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw)
     torch.cuda.synchronize()
     assert io.ivf_block_topk.launches == before + 1
-    ref_v, ref_i = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k, **kw)
+    tile = io.ivf_launch(corpus, probes, lrows, k)[1]  # the kernel's tile, for the plain version's partials
+    ref_v, ref_i = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k, block_n=tile, **kw)
     assert_topk_match(got_v, got_i, ref_v, ref_i, tol=1e-5)
     # merged over probes and tiles, the whole scan: the same
     assert_topk_match(*to.merge_partials(got_v, got_i, k), *to.merge_partials(ref_v, ref_i, k), tol=1e-5)
@@ -236,18 +237,32 @@ def test_ivf_block_topk_int8_identical_to_plain(gen, metric, k, q, nprobe):
     q8, qs = io.quantize_ivf_queries(queries)
     kw = dict(lrows=lrows, metric=metric, cnorms=to.row_sq_norms(corpus), qscales=qs, cscales=cs)
     got = io.ivf_block_topk(c8, q8, probes, row_valid, k, **kw)
-    assert_topk_match(*got, *io.ivf_block_topk_plain(c8, q8, probes, row_valid, k, **kw), tol=0.0, exact=True)
+    tile = io.ivf_launch(c8, probes, lrows, k)[1]
+    assert_topk_match(*got, *io.ivf_block_topk_plain(c8, q8, probes, row_valid, k, block_n=tile, **kw),
+                      tol=0.0, exact=True)
 
 
-def test_ivf_block_topk_masked_out_probes_and_ties(gen):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_ivf_block_topk_masked_out_probes_and_ties(gen, dtype):
     """A query whose probed clusters are all masked out gets empty slots;
-    duplicate rows come out at the smallest slots, across clusters."""
+    duplicate rows come out at the smallest slots, across clusters (bf16
+    and int8 on the tensor cores, f32 on the FMA loop)."""
     lrows = 256
     corpus, queries, probes, row_valid = _ivf_inputs(gen, 8, lrows, 128, 2, 2, torch.float32)
     row_valid[:] = 1
     row_valid[4 * lrows : 6 * lrows] = 0
     probes = torch.tensor([[0, 1], [4, 5]], dtype=torch.int32, device="cuda")
-    vals, slots = to.merge_partials(*io.ivf_block_topk(corpus, queries, probes, row_valid, 40, lrows=lrows), 40)
+    kw = dict(lrows=lrows)
+    if dtype == torch.int8:
+        queries, qs = io.quantize_ivf_queries(corpus[[7, 7]])
+        corpus, cs = qo.quantize_rows(corpus)
+        kw.update(qscales=qs, cscales=cs)
+    else:
+        corpus, queries = corpus.to(dtype), queries.to(dtype)
+    loop = "fma" if dtype == torch.float32 else "tensor_core"
+    part = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid,
+                                                                             40, **kw))
+    vals, slots = to.merge_partials(*part, 40)
     assert slots[0].tolist()[:36] == [7] + list(range(lrows + 5, lrows + 40))
     assert torch.isneginf(vals[1]).all() and (slots[1] == torch.iinfo(torch.int32).max).all()
 
@@ -266,11 +281,132 @@ def test_ivf_wrapper_checks_its_inputs(gen):
     with pytest.raises(ValueError):
         io.ivf_block_topk(corpus, queries, probes, row_valid, 5, metric="l2", **kw)  # no cnorms
     with pytest.raises(ValueError):
-        io.ivf_block_topk(corpus, queries, probes + 4, row_valid, 5, **kw)  # a cluster past nlist
+        io.ivf_block_topk(corpus, queries, probes, row_valid, 5, bq=16, **kw)  # no such group size
+    # clusters past nlist and below 0 match no slot, on both loops: empty partials
+    outside = torch.stack([probes[:, 0] + 4, probes[:, 1] - 9], 1).to(torch.int32).contiguous()
+    for rows in (corpus, corpus.to(torch.bfloat16)):
+        vals, slots = io.ivf_block_topk(rows, queries.to(rows.dtype), outside, row_valid, 5, **kw)
+        assert torch.isneginf(vals).all() and (slots == torch.iinfo(torch.int32).max).all()
     # a score tile past the shared memory of one SM: the C entry returns the error
     with pytest.raises(RuntimeError, match="cudaError"):
         io.ivf_block_topk(corpus, queries, probes, row_valid, 5, lrows=128, block_n=65536)
     io.ivf_block_topk(corpus, queries, probes, row_valid, 5, **kw)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 on the tensor cores (block_score_tc.cuh with IvfWork) and its work list
+# ---------------------------------------------------------------------------
+
+
+def _ivf_pair(gen, tier, metric, k, q, nprobe, *, lrows=1100, nlist=24, d=256, masked=False, **kw):
+    """Kernel 7 (tensor cores, each launch checked on its loop) and its
+    plain version on the same bf16 or int8 layout; 1100 slots a cluster:
+    whole-cluster tiles end in a ragged pass of 76 rows."""
+    corpus, queries, probes, row_valid = _ivf_inputs(gen, nlist, lrows, d, q, nprobe, torch.bfloat16)
+    if masked:
+        row_valid &= (torch.rand(row_valid.shape, generator=gen, device="cuda") < 0.3).to(torch.int8)
+    kw.update(lrows=lrows, metric=metric, cnorms=to.row_sq_norms(corpus))
+    if tier == "int8":
+        corpus, cs = qo.quantize_rows(corpus)
+        queries, qs = io.quantize_ivf_queries(queries.float())
+        kw.update(qscales=qs, cscales=cs)
+    got = launch_on_loop(io.ivf_block_topk, "tensor_core",
+                         lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
+    kw["block_n"] = io.ivf_launch(corpus, probes, lrows, k, kw.get("block_n"), kw.pop("bq", None))[1]
+    return got, io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k, **kw)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("q", [1, 9, 33, 128])
+@pytest.mark.parametrize("nprobe", [1, 8, 24])
+@pytest.mark.parametrize("k", [1, 10, 50, 64])
+def test_ivf_tensor_cores_match_plain(gen, tier, q, nprobe, k):
+    """bf16 within 1e-5 of the plain version, int8 identical; ip and l2,
+    masked or not, by turns; the geometry's own tile (three tiles a cluster
+    at the fewest groups, whole clusters above)."""
+    turn = q + nprobe + k
+    got, ref = _ivf_pair(gen, tier, ("ip", "l2")[turn % 2], k, q, nprobe, masked=turn % 3 == 0)
+    assert_topk_match(*got, *ref, tol=1e-5, exact=tier == "int8")
+    assert_topk_match(*to.merge_partials(*got, k), *to.merge_partials(*ref, k), tol=1e-5, exact=tier == "int8")
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("block_n,bq", [(512, 8), (768, 32), (1100, 8), (1100, 32), (300, 32)])
+def test_ivf_tensor_cores_at_every_tile_and_group_size(gen, tier, block_n, bq):
+    """Any tile and group size gives the plain version's partials at that
+    tile: the sweep's geometries, and a tile that is not whole passes."""
+    got, ref = _ivf_pair(gen, tier, "ip", 50, 40, 8, block_n=block_n, bq=bq)
+    assert got[0].shape[2] == -(-1100 // block_n)
+    assert_topk_match(*got, *ref, tol=1e-5, exact=tier == "int8")
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16 D 1001", "int8 D 1000", "bf16 k 100", "bf16", "int8"])
+def test_ivf_launches_by_loop(gen, case):
+    """The loop rule (``ivf_scoring_loop``): f32, bf16 rows TMA cannot
+    stride, int8 with D % 16 != 0 and kk > 64 take the FMA / __dp4a loop;
+    bf16 and int8 with k <= 64 the tensor cores.  Each is right."""
+    d = {"bf16 D 1001": 1001, "int8 D 1000": 1000}.get(case, 256)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    corpus, queries, probes, row_valid = _ivf_inputs(gen, 6, 384, d, 5, 3, dtype)
+    k = 100 if "k 100" in case else 20
+    kw = dict(lrows=384)
+    if case.startswith("int8"):
+        corpus, cs = qo.quantize_rows(corpus)
+        queries, qs = io.quantize_ivf_queries(queries.float())
+        kw.update(qscales=qs, cscales=cs)
+    loop = "tensor_core" if case in ("bf16", "int8") else "fma"
+    assert io.ivf_scoring_loop(corpus, k) == loop
+    got = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
+    ref = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k,
+                                  block_n=io.ivf_launch(corpus, probes, 384, k)[1], **kw)
+    assert_topk_match(*got, *ref, tol=1e-5, exact=case.startswith("int8"))
+
+
+def test_ivf_wrapper_reads_nothing_back(gen):
+    """Under ``set_sync_debug_mode("error")`` a host sync raises: the work
+    list, the gather and the scan, on both loops, run without one."""
+    corpus, queries, probes, row_valid = _ivf_inputs(gen, 24, 384, 256, 33, 8, torch.bfloat16)
+    c8, cs = qo.quantize_rows(corpus)
+    q8, qs = io.quantize_ivf_queries(queries.float())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        io.ivf_block_topk(corpus, queries, probes, row_valid, 50, lrows=384)
+        io.ivf_block_topk(c8, q8, probes, row_valid, 50, lrows=384, qscales=qs, cscales=cs)
+        io.ivf_block_topk(corpus, queries, probes, row_valid, 100, lrows=384)
+        io.ivf_work_list(probes, 24, 32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bq", [8, 32])
+@pytest.mark.parametrize("q,nprobe,nlist", [(1, 64, 1024), (128, 64, 1024), (700, 3, 4), (40, 8, 24)])
+def test_ivf_work_list_on_the_card_is_the_plain_one(gen, bq, q, nprobe, nlist):
+    """The work list the card builds equals the plain version's, groups and
+    order, with ids past nlist and below 0 in no group."""
+    probes = torch.stack([torch.randperm(nlist, generator=gen, device="cuda")[:nprobe] for _ in range(q)])
+    probes = torch.sort(probes, dim=1).values.to(torch.int32)
+    probes[0, 0], probes[-1, -1] = -3, nlist + 2
+    probes = probes.contiguous()
+    got = io.ivf_work_list(probes, nlist, bq)
+    want = io.ivf_work_list_plain(probes.cpu(), nlist, bq)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_ivf_tensor_core_kernels_run_wgmma_and_tma():
+    """The SASS of every kernel 7 instantiation on the tensor cores (bf16
+    and int8, groups of 8 and 32) holds wgmma (HGMMA bf16, IGMMA int8) and
+    TMA loads (UTMALDG)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the CUDA toolkit: the kernels are built there")
+    from photo_search_engine_tpu_torch.ops import _cuda
+
+    counts = _cuda.sass_counts("tc_ivf_topk_kernel")
+    assert len(counts) == 4, counts
+    for name, c in counts.items():
+        assert c["IGMMA" if "S8" in name else "HGMMA"] > 0 and c["UTMALDG"] > 0, counts
 
 
 def _search_pair(module, name, search, sign=1.0):

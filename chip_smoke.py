@@ -90,10 +90,43 @@ Phases; each prints its results on lines of its own and raises on failure:
              group size, its groups and its launches by loop; IVFIndex.search
              host to host at batch 1 and 128.
 
-The launch counters are set to 0 before the route runs of phases 3, 4 and
-5 (and before the store's impl routes in phase 4) and read after every
-client thread has joined; a kernel that its path never launched fails the
-run.  The second-to-last line of output is a JSON object with each
+6. online  - the online profile: a local stand-in for an OpenAI-compatible
+             server on 127.0.0.1 in a thread (/v1/embeddings: a unit vector
+             per input from a seeded hash of its words; /v1/rerank and
+             /v1/chat/completions: rankings by a seeded rule; calls and
+             inputs counted), and the app served through
+             initialize_services / create_app with EMBEDDING_BASE_URL,
+             TEXT_RERANK_BASE_URL and VISUAL_RERANK_* at the stand-in and
+             the micro-batcher on.  The PIL photo library of phase 3 is
+             indexed through the real Indexer with the stand-in's
+             embeddings; a text search with the API text rerank and the
+             visual rerank, one with the chat text rerank, an image and an
+             upload search with the visual rerank each report the reranks
+             they ran.  Then phase 4's corpus: 32 concurrent
+             /search_by_image (kernel 1, then kernel 2 with the int8 tier),
+             64 concurrent season-filtered searches whose query vectors come
+             from the stand-in through the batched embedder (kernels 5 and
+             6), each held against the plain scan of the stand-in's vector,
+             and 32 concurrent /search_photos whose query embeds must reach
+             the stand-in as coalesced list calls (mean batch above 1); route
+             p50/p99 ms and wall seconds (the stand-in answers in
+             microseconds: these time the port's host path and the card).
+7. tools   - tools.migrate on a fake FAISS flat binary of 8192 x 1536 unit
+             rows (bursts of 16 shots), then recall_eval.evaluate on the
+             result: exact recall@10 1.0 (kernel 1), every masked check
+             right, the int8 (kernel 2) and IVF (kernel 7) recall printed;
+             recall_eval.evaluate_synthetic at 1M x 1536, intrinsic 32,
+             nlist 1024, sweeping nprobe 16/32/64 at batch 1/8/128 through
+             IVFIndex.device_search_fn (kernel 7, CUDA events); and one call
+             of device_search_fn per tier (bf16, int8) under
+             torch.cuda.set_sync_debug_mode("error"), equal to
+             IVFIndex.search.  The tools find the card as their default
+             device: PSE_PLATFORM must be unset.
+
+The launch counters are set to 0 before the route runs of phases 3-6 (and
+before the store's impl routes in phase 4) and before phase 7, and read
+after every client thread has joined; a kernel that its path never
+launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
 kernel's route, launches, error, times, bound (the larger of its bytes
 over 3.35 TB/s and its operations over the peak of their type: 989 TFLOP/s
 bf16, 67 TFLOP/s f32, 1,979 TOP/s int8) and library time; the last is
@@ -103,6 +136,7 @@ non-zero and prints no result.
 Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
                                         or under $CUDA_HOME or /usr/local/cuda)
       python3 chip_smoke.py --phases device,kernels
+      python3 chip_smoke.py --phases device,online,tools
 """
 
 from __future__ import annotations
@@ -126,10 +160,12 @@ _NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_b
           "fast_block_topk", "fast_grouped_block_topk", "fused_topk")
 _FLAT = _NAMES[:4]
 _IMPL_ROUTES = _NAMES[5:]  # driven through the store's impl values in phase 4
-_DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",)}  # what each phase must launch
+_DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",), "online": _FLAT,
+           "tools": ("block_topk", "int8_block_topk", "ivf_block_topk")}  # what each phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
+_IVF_RECALL = {}  # tier: phase 5's recall@10 at nprobe 64, printed beside phase 7's
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}  # dense; f32 outside the tensor cores
@@ -1353,37 +1389,50 @@ def _batch_delta(batcher, before):
     return tuple(a - b for a, b in zip(now, before)), now
 
 
+def _scale_index(rows: int, dim: int, tmp: str, phase: str):
+    """``rows`` x ``dim`` bf16 unit rows made on the card from a seed, with
+    an int8 shadow and the seeded season metadata, installed in a
+    VectorIndex as a user's ingest would leave it (``load_device_rows``):
+    the corpus of phases 4 and 6.  Returns the index and the generator,
+    whose next draws the phase goes on with."""
+    import torch
+
+    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    corpus = torch.empty((rows, dim), dtype=torch.bfloat16, device=DEVICE)
+    for start in range(0, rows, 131072):
+        stop = min(rows, start + 131072)
+        corpus[start:stop] = _unit_rows(stop - start, dim, gen, torch.bfloat16)
+    index = VectorIndex(
+        dimension=dim, index_path=os.path.join(tmp, "scale.index"),
+        metadata_path=os.path.join(tmp, "scale-meta.json"), metric="cosine",
+        store_dtype="bfloat16", quantized=True, device=torch.device(DEVICE),
+    )
+    index.load_device_rows(corpus, _metadata(rows))
+    del corpus
+    torch.cuda.synchronize()
+    log(f"[{phase}] {rows} x {dim} bf16 rows + int8 shadow on the card, season metadata on the host, in "
+        f"{time.perf_counter() - t0:.1f} s (capacity {index._store.capacity}, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    return index, gen
+
+
 def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
     import numpy as np
     import torch
 
     from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
-    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
 
     demo = _demo()
     device = torch.device(DEVICE)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    corpus = torch.empty((rows, dim), dtype=torch.bfloat16, device=device)
-    for start in range(0, rows, 131072):
-        stop = min(rows, start + 131072)
-        corpus[start:stop] = _unit_rows(stop - start, dim, gen, torch.bfloat16)
     with tempfile.TemporaryDirectory(prefix="pse_scale_") as tmp:
-        index = VectorIndex(
-            dimension=dim, index_path=os.path.join(tmp, "scale.index"),
-            metadata_path=os.path.join(tmp, "scale-meta.json"), metric="cosine",
-            store_dtype="bfloat16", quantized=True, device=device,
-        )
-        index.load_device_rows(corpus, _metadata(rows))
-        del corpus
+        index, gen = _scale_index(rows, dim, tmp, "scale")
         store = index._store
-        torch.cuda.synchronize()
-        log(f"[scale] {rows} x {dim} bf16 rows + int8 shadow on the card, season metadata on the host, in "
-            f"{time.perf_counter() - t0:.1f} s (capacity {store.capacity}, "
-            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
         # the app's own wiring over the installed index, micro-batcher on and
         # no keyword index (filtered text queries take search_masked); query
@@ -1891,6 +1940,7 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str, timing) -> None:
         _, want = to.exact_search(index._store._device, q16, 10, count=index._store.count, metric="ip")
         want = want.cpu().numpy()
         recall = float(np.mean([len(set(g.tolist()) & set(w.tolist())) / 10 for g, w in zip(got, want)]))
+        _IVF_RECALL[tier] = recall
         log(f"[ivf] {tier}: results agree with kernel 7's plain version under the same probes (k 10, 500, "
             f"masked 50; max |err| {_ERRORS['ivf_block_topk']:.3g}); recall@10 at nprobe 64 against the flat "
             f"exact scan (kernel 1), 128 held-out queries: {recall:.4f}")
@@ -2020,12 +2070,392 @@ def _ivf_library(ivf, probes, qb, int8: bool, chunk: int = 8):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the online profile against a local stand-in server
+# ---------------------------------------------------------------------------
+
+_STANDIN_NOTE = ("the stand-in answers in microseconds: these times are the port's host path and the card, "
+                 "not a real model's latency")
+
+
+def _online_env(base_url: str) -> dict:
+    """The online profile's keys, every backend at the stand-in."""
+    return {
+        "EMBEDDING_BASE_URL": base_url, "EMBEDDING_API_KEY": "standin", "EMBEDDING_BACKEND": "openai",
+        "TEXT_RERANK_BASE_URL": base_url, "TEXT_RERANK_API_KEY": "standin", "TEXT_RERANK_BACKEND": "api",
+        "VISUAL_RERANK_BASE_URL": base_url, "VISUAL_RERANK_API_KEY": "standin",
+        "SEARCH_MICROBATCH_ENABLED": "1",
+    }
+
+
+def _post_route(base):
+    """``post(path, body, files=None)`` over HTTP, for ``run_online_flow``."""
+    demo = _demo()
+
+    def post(path, body, files=None):
+        if files:
+            (field, (name, content)), = files.items()
+            return demo._post_multipart(base, path, body, field, name, content)
+        return demo._post(base, path, body)
+
+    return post
+
+
+def _percentiles(ms):
+    ms = sorted(ms)
+    return ms[len(ms) // 2], ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+
+
+def phase_online(rows: int = 1_000_000, dim: int = 1536) -> None:
+    from tests.torch_parity import StandInServer
+
+    with StandInServer(dim=dim) as standin:
+        log(f"[online] stand-in OpenAI-compatible server at {standin.base_url} (/v1/embeddings, /v1/rerank, "
+            f"/v1/chat/completions)")
+        online_library(standin)
+        online_scale(standin, rows, dim)
+        log(f"[online] stand-in calls {standin.calls}")
+
+
+def online_library(standin) -> None:
+    """The PIL photo library of phase 3 indexed through the real Indexer
+    with the stand-in's embeddings, then a text search with the API text
+    rerank and the visual rerank, the same with the chat text rerank, an
+    image search and an upload search with the visual rerank: each
+    response must report the reranks it ran."""
+    from photo_search_engine_tpu_torch.api.app import (
+        _build_text_rerank_service,
+        create_app,
+        initialize_services,
+        load_config,
+    )
+    from tests.torch_parity import run_online_flow
+
+    demo = _demo()
+    with tempfile.TemporaryDirectory(prefix="pse_online_") as tmp:
+        env = dict(_app_env(tmp, "0"), **_online_env(standin.base_url))
+        services = initialize_services(load_config(env))
+        kinds = {key: type(services[key]).__name__
+                 for key in ("embedding_service", "text_rerank_service", "visual_rerank_service")}
+        if kinds != {"embedding_service": "OpenAICompatibleEmbeddingService",
+                     "text_rerank_service": "TextRerankService", "visual_rerank_service": "VisualRerankService"}:
+            raise AssertionError(f"online profile: services built {kinds}")
+        if services["device"].type != "cuda":
+            raise AssertionError(f"online profile served on {services['device']}")
+        config = services["config"]
+        # the same app with TEXT_RERANK_BACKEND=chat, its rerank made as initialize_services makes it
+        chat = dict(services, text_rerank_service=_build_text_rerank_service(
+            dict(config, TEXT_RERANK_BACKEND="chat"), services["device"]))
+        server, port = _serve(create_app(services))
+        chat_server, chat_port = _serve(create_app(chat))
+        try:
+            base = f"http://127.0.0.1:{port}"
+            t = time.perf_counter()
+            demo._post(base, "/init_index", {"mode": "full"})
+            status = _wait_ready(demo, base, "online profile")
+            embeds = dict(standin.calls)
+            log(f"[online] library: indexed {status['indexed_count']} photos in {time.perf_counter() - t:.1f} s "
+                f"with {embeds['/v1/embeddings']} /v1/embeddings calls")
+            reset_launches()
+            before = dict(standin.calls)
+            out = run_online_flow(_post_route(base), config["PHOTO_DIR"])
+            text = demo._post(f"http://127.0.0.1:{chat_port}", "/search_photos",
+                              {"query": "beach sunset sea", "top_k": 4, "enable_text_rerank": True})
+            launches = read_launches()
+        finally:
+            for srv in (server, chat_server):
+                srv.shutdown()
+                srv.server_close()
+            close_batchers(services)
+        if not (text["status"] == "success" and text["results"] and text["text_reranked"]
+                and all("text_rerank_score" in hit for hit in text["results"])):
+            raise AssertionError(f"online chat text rerank did not run: {str(text)[:300]}")
+        calls = {path: standin.calls[path] - before[path] for path in before}
+        if calls["/v1/rerank"] < 1 or calls["/v1/chat/completions"] < 4:
+            raise AssertionError(f"online library: the reranks did not reach the stand-in: {calls}")
+        log(f"[online] library: text (api text rerank + visual rerank) {len(out['text']['results'])} results, "
+            f"chat text rerank {len(text['results'])}, image {len(out['image']['results'])}, upload "
+            f"{len(out['upload']['results'])}, each reporting its reranks; stand-in calls {calls}; launches "
+            f"{launches}")
+        if launches["block_topk"] <= 0:
+            raise AssertionError("online library: the image searches never launched block_topk")
+        for name in _FLAT:
+            _LAUNCHES[name] += launches[name]
+
+
+def online_scale(standin, rows: int = 1_000_000, dim: int = 1536) -> None:
+    """Phase 4's corpus served by the online profile, micro-batcher on, no
+    keyword index: 32 concurrent /search_by_image (kernel 1, then kernel 2
+    with the int8 tier), 64 concurrent season-filtered searches whose query
+    vectors come from the stand-in through the batched embedder (kernels 5
+    and 6), each held against the plain scan of the stand-in's vector, and
+    32 concurrent /search_photos whose query embeds must reach the stand-in
+    as coalesced list calls."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import standin_vector
+
+    demo = _demo()
+    device = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory(prefix="pse_online_scale_") as tmp:
+        index, _ = _scale_index(rows, dim, tmp, "online")
+        store = index._store
+        config = load_config(dict(_online_env(standin.base_url), **{
+            "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu", "KEYWORD_BACKEND": "none",
+            "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10", "QUERY_EXPANSION_ENABLED": "0",
+            "QUERY_CACHE_ENABLED": "0", "EMBEDDING_CACHE_ENABLED": "0",
+        }))
+        services = initialize_services(config, device=device, vector_index=index)
+        embedder = services["searcher"].embedding_service
+        server, port = _serve(create_app(services))
+        base = f"http://127.0.0.1:{port}"
+        seasons = np.array([("春天", "夏天", "秋天", "冬天").index(m["time_info"]["season"]) for m in _metadata(rows)])
+        masks = [seasons == s for s in range(4)]
+        picks = [int(x) for x in np.random.default_rng(SEED + 5).integers(0, rows, size=32)]
+        texts = [f"{('春天', '夏天', '秋天', '冬天')[i % 4]} 海边 日落 {i}" for i in range(64)]
+        filtered = {}
+        try:
+            reset_launches()
+            for quantized in (False, True):
+                tier = "int8" if quantized else "exact"
+                index.quantized = quantized
+                latency = {}
+
+                def image_search(i):
+                    t = time.perf_counter()
+                    _results("online /search_by_image", demo._post(
+                        base, "/search_by_image", {"image_path": f"/photos/{i}.jpg", "top_k": 10}))
+                    latency[i] = 1e3 * (time.perf_counter() - t)
+
+                t = time.perf_counter()
+                run_threads(image_search, [(i,) for i in picks])
+                wall = time.perf_counter() - t
+                p50, p99 = _percentiles(latency.values())
+                log(f"[online] 32 concurrent /search_by_image ({tier}): route ms p50 {p50:.1f} p99 {p99:.1f}, "
+                    f"wall {wall:.2f} s")
+
+                def filtered_search(i):
+                    vec = embedder.generate_embedding(texts[i])
+                    filtered[(tier, i)] = index.search_masked(vec, 50, masks[i % 4])
+
+                calls = len(standin.embed_inputs)
+                t = time.perf_counter()
+                run_threads(filtered_search, [(i,) for i in range(64)])
+                wall = time.perf_counter() - t
+                sizes = standin.embed_inputs[calls:]
+                log(f"[online] 64 concurrent season-filtered searches ({tier}, k 50, query vectors from the "
+                    f"stand-in through the batched embedder): wall {wall:.2f} s, {len(sizes)} /v1/embeddings "
+                    f"calls (mean batch {sum(sizes) / max(len(sizes), 1):.2f})")
+
+            latency = {}
+
+            def text_search(i):
+                t = time.perf_counter()
+                _results("online /search_photos", demo._post(
+                    base, "/search_photos", {"query": f"海边 日落 照片 {i}", "top_k": 10}), allow_empty=True)
+                latency[i] = 1e3 * (time.perf_counter() - t)
+
+            calls = len(standin.embed_inputs)
+            t = time.perf_counter()
+            run_threads(text_search, [(i,) for i in range(32)])
+            wall = time.perf_counter() - t
+            sizes = standin.embed_inputs[calls:]
+            p50, p99 = _percentiles(latency.values())
+            mean = sum(sizes) / max(len(sizes), 1)
+            log(f"[online] 32 concurrent /search_photos: 32 requests, {len(sizes)} /v1/embeddings calls (mean "
+                f"embed batch {mean:.2f}); route ms p50 {p50:.1f} p99 {p99:.1f}, wall {wall:.2f} s "
+                f"({_STANDIN_NOTE})")
+            if sum(sizes) < 32 or not mean > 1:
+                raise AssertionError(f"online /search_photos: query embeds did not coalesce: {sizes}")
+            launches, loops = read_launches(), read_loops()
+        finally:
+            server.shutdown()
+            server.server_close()
+            close_batchers(services)
+        log(f"[online] route launches {launches}; by scoring loop {loops}")
+        for name in _FLAT:
+            if launches[name] <= 0:
+                raise AssertionError(f"online routes never launched {name}")
+            if loops[name]["tensor_core"] != launches[name]:
+                raise AssertionError(f"online routes: {name} launched off the tensor cores: {loops[name]}")
+            _LAUNCHES[name] += launches[name]
+
+        # every filtered result against the plain scan of the stand-in's
+        # vector for its text, under its own season; the vectors normalized
+        # on the host as the store normalizes cosine queries
+        vectors = np.stack([standin_vector(t, dim) for t in texts])
+        vectors /= np.maximum(np.linalg.norm(vectors, axis=1, keepdims=True), 1e-30)
+        queries = torch.from_numpy(vectors).to(device)
+        keep = torch.from_numpy(np.stack([masks[i % 4] for i in range(64)])).to(device)
+        live = store._device[: store.count]
+        for tier in ("exact", "int8"):
+            got = [_hits_to_topk(filtered[(tier, i)], 50) for i in range(64)]
+            got_v = torch.from_numpy(np.stack([g[0] for g in got])).to(device)
+            got_i = torch.from_numpy(np.stack([g[1] for g in got])).to(device)
+            if tier == "int8":
+                ref_v, ref_i = _int8_search_reference(store, queries, 51, kloc=50, cand=100, keep=keep)
+                name = "int8_grouped_block_topk"
+            else:
+                ref = [to.exact_search_plain(live, queries[i:i + 1].to(torch.bfloat16), 51, metric="ip",
+                                             mask=keep[i].to(torch.int8)) for i in range(64)]
+                ref_v, ref_i = torch.cat([r[0] for r in ref]), torch.cat([r[1] for r in ref])
+                name = "grouped_block_topk"
+            _ERRORS[name] = max(_ERRORS[name], check_topk(f"online filtered search ({tier})", got_v, got_i,
+                                                          ref_v, ref_i))
+        # the image searches' vector results (exact and int8) against the plain versions
+        queries = torch.from_numpy(np.stack([store.reconstruct(i) for i in picks[:4]])).to(device)
+        for quantized in (False, True):
+            index.quantized = quantized
+            dists, idx = index.raw_search_batch(queries.cpu().numpy(), 50)
+            got_v, got_i = torch.from_numpy(dists).to(device), torch.from_numpy(idx).to(device)
+            if quantized:
+                ref_v, ref_i = _int8_search_reference(store, queries, 51, kloc=50, cand=100)
+                name = "int8_block_topk"
+            else:
+                ref_v, ref_i = to.exact_search_plain(live, queries.to(torch.bfloat16), 51, metric="ip")
+                name = "block_topk"
+            _ERRORS[name] = max(_ERRORS[name], check_topk(f"online image search ({name})", got_v, got_i,
+                                                          ref_v, ref_i))
+        log("[online] filtered and image searches agree with the plain scans of the stand-in's vectors "
+            "(exact and int8)")
+        del index, store, live, services
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the tools (migrate, recall_eval) on the card
+# ---------------------------------------------------------------------------
+
+
+def _fake_faiss_dir(path: str, rows: int, dim: int) -> None:
+    """A reference-format corpus: a FAISS flat binary as
+    ``tests/test_migrate.py`` fakes one (a junk header, the int64 element
+    count, the float32 rows, a junk tail), its sidecar, and a metadata.json
+    whose time_info is stringified as the reference stores it.  The rows
+    come in bursts of 16 shots of one scene (a photo library's bursts and
+    near-duplicates), so that a row's 10th and 11th neighbours are not
+    within float32 rounding of each other and exact recall is 1.0 in any
+    summation order."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    scenes = rng.normal(size=(rows // 16, dim)).astype(np.float32)
+    spread = rng.uniform(0.2, 1.0, size=(rows, 1)).astype(np.float32)
+    vectors = np.repeat(scenes, 16, axis=0) + spread * rng.normal(size=(rows, dim)).astype(np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "photo_search.index"), "wb") as f:
+        f.write(b"IHNf" + rng.bytes(64))
+        f.write(struct.pack("<q", rows * dim))
+        f.write(vectors.astype(np.float32).tobytes())
+        f.write(rng.bytes(32))
+    with open(os.path.join(path, "photo_search.index.meta.json"), "w", encoding="utf-8") as f:
+        json.dump({"metric": "cosine", "dimension": dim}, f)
+    metadata = [{"photo_path": f"/photos/{i}.jpg", "description": f"burst {i // 16} shot {i % 16}",
+                 "time_info": str({"season": _SEASONS[1 + (i * 7) % 12], "year": 2020 + i % 5})}
+                for i in range(rows)]
+    with open(os.path.join(path, "metadata.json"), "w", encoding="utf-8") as f:
+        json.dump(metadata, f, ensure_ascii=False)
+
+
+def phase_tools(rows: int = 1_000_000, dim: int = 1536, faiss_rows: int = 8192, nlist: int = 1024,
+                small_rows: int = 262_144) -> None:
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.models.ivf import IVFIndex
+    from photo_search_engine_tpu_torch.tools import migrate, recall_eval
+
+    if os.environ.get("PSE_PLATFORM", "").strip().lower() not in ("", "gpu", "cuda"):
+        raise AssertionError("phase tools runs the tools on their default device: unset PSE_PLATFORM")
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="pse_tools_") as tmp:
+        _fake_faiss_dir(os.path.join(tmp, "faiss"), faiss_rows, dim)
+        t = time.perf_counter()
+        report = migrate.migrate(os.path.join(tmp, "faiss", "photo_search.index"),
+                                 os.path.join(tmp, "faiss", "metadata.json"), os.path.join(tmp, "migrated"))
+        log(f"[tools] migrate: {report['count']} x {report['dimension']} ({report['metric']}) in "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        got = recall_eval.evaluate(os.path.join(tmp, "migrated"), k=10, nprobe=8)
+        log(f"[tools] evaluate in {time.perf_counter() - t:.1f} s: {json.dumps(got)}")
+    if got["exact_recall_at_k"] != 1.0:
+        raise AssertionError(f"recall_eval.evaluate: exact recall {got['exact_recall_at_k']} is not 1.0")
+    if not got["masked_search_checks"] or got["masked_search_correct"] != got["masked_search_checks"]:
+        raise AssertionError(f"recall_eval.evaluate: masked checks {got['masked_search_correct']} of "
+                             f"{got['masked_search_checks']}")
+    evaluated = read_launches()
+    for name in ("block_topk", "int8_block_topk", "ivf_block_topk"):
+        if evaluated[name] <= 0:
+            raise AssertionError(f"recall_eval.evaluate never launched {name}: it did not run on the card")
+
+    t = time.perf_counter()
+    synthetic = recall_eval.evaluate_synthetic(rows, dim=dim, intrinsic=32, nlist=nlist,
+                                               sweep=[16, 32, 64], sweep_batches=[1, 8, 128])
+    seconds = time.perf_counter() - t
+    log(f"[tools] evaluate_synthetic {rows} x {dim}, intrinsic 32, nlist {nlist} in {seconds:.1f} s: tuned nprobe "
+        f"{synthetic['tuned_nprobe']}, recall@10 against the exact scan (kernel 1) "
+        f"{synthetic['recall_at_k_vs_exact']} (phase ivf's at nprobe 64, 128 other held-out queries: "
+        f"{_IVF_RECALL or 'not run'}), build {synthetic['ivf_build_seconds']} s, tune {synthetic['tune_seconds']} s, "
+        f"batch 8 at the tuned nprobe {synthetic['latency_ms_per_batch']} ms ({synthetic['qps']} QPS)")
+    for row in synthetic["sweep"]:
+        log(f"[tools]   nprobe {row['nprobe']:3d} batch {row['batch']:3d}: recall@10 {row['recall_at_k']}, "
+            f"{row['latency_ms_per_batch']} ms per batch ({row['qps']} QPS; CUDA events, 32 launches of "
+            f"device_search_fn)")
+    if not synthetic["recall_at_k_vs_exact"] >= 0.5:
+        raise AssertionError(f"evaluate_synthetic: recall@10 {synthetic['recall_at_k_vs_exact']}")
+
+    # device_search_fn reads nothing back: one call of each tier under
+    # sync debug mode "error", held against IVFIndex.search
+    from photo_search_engine_tpu_torch.ops.topk import l2_normalize
+
+    corpus, _ = recall_eval.synthetic_corpus(small_rows, dim, 32, np.random.default_rng(SEED + 8), 0,
+                                             torch.device(DEVICE), torch.bfloat16)
+    index = IVFIndex.build_on_device(corpus, 256, seed=0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    picks = torch.randint(0, corpus.shape[0], (64,), generator=gen, device=DEVICE)
+    queries = l2_normalize(corpus[picks].float() + 0.05 * torch.randn((64, dim), generator=gen, device=DEVICE))
+    del corpus
+    for quantized in (False, True):
+        index.quantized = quantized
+        fn = index.device_search_fn(10, 32, 64)
+        before = read_launches()["ivf_block_topk"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vals, slots = fn(queries)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if read_launches()["ivf_block_topk"] != before + 1:
+            raise AssertionError("device_search_fn did not launch kernel 7 once")
+        got_d, got_i = index._to_rows(vals.cpu().numpy(), slots.cpu().numpy())
+        want_d, want_i = index.search(queries.cpu().numpy(), 10, nprobe=32)
+        if not (np.array_equal(got_i, want_i) and np.allclose(got_d, want_d, rtol=0, atol=1e-5)):
+            raise AssertionError(f"device_search_fn ({'int8' if quantized else 'bf16'}) differs from IVFIndex.search")
+    log(f"[tools] device_search_fn under torch.cuda.set_sync_debug_mode('error'), bf16 and int8 tiers, 64 "
+        f"queries at nprobe 32 over {small_rows} x {dim}, nlist 256: no host sync, ids equal to "
+        f"IVFIndex.search, values within 1e-5")
+    del index
+    launches = read_launches()
+    log(f"[tools] launches {launches}")
+    for name in ("block_topk", "int8_block_topk", "ivf_block_topk"):
+        _LAUNCHES[name] += launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="device,kernels,app,scale,ivf",
-                        help="comma-separated subset of device,kernels,app,scale,ivf")
+    parser.add_argument("--phases", default="device,kernels,app,scale,ivf,online,tools",
+                        help="comma-separated subset of device,kernels,app,scale,ivf,online,tools")
     args = parser.parse_args(argv)
     import torch
 
@@ -2040,7 +2470,8 @@ def main(argv=None) -> int:
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
     started = time.perf_counter()
     phase_device()
-    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "ivf": phase_ivf}
+    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "ivf": phase_ivf,
+               "online": phase_online, "tools": phase_tools}
     for name in phases:
         if name in runners:
             t = time.perf_counter()

@@ -7,14 +7,26 @@ indexer, keyword index, time parser, query formatter, vision) are this
 package's copies of the JAX package's, which differ only in their import
 lines; the port imports nothing of the JAX package.
 
-The offline profile is what is ported, with the micro-batcher
-(``SEARCH_MICROBATCH_ENABLED``, on by default) wired as in the JAX app,
-and both vector indexes: ``VECTOR_INDEX_TYPE=flat`` and ``ivf`` (``hnsw``
-maps to ``ivf``; ``IVF_NLIST``, ``IVF_NPROBE`` and ``IVF_TARGET_RECALL``
-as in the JAX app).  These configurations raise ``NotImplementedError``
-at startup, naming what they wait for in ROADMAP.md: an
-OpenAI-compatible embedding backend, an API-backed text or visual rerank,
-``MESH_DEVICES != 0`` and ``DIST_*``.
+Both profiles of the JAX app are served on one device:
+
+* offline: the hashing embedder, the local text and visual reranks;
+* online: an OpenAI-compatible embedding backend (``EMBEDDING_BACKEND=
+  openai``, or ``auto`` with ``EMBEDDING_BASE_URL``), the API text rerank
+  (``TEXT_RERANK_BACKEND`` ``api`` or ``chat``, or ``auto`` with
+  ``TEXT_RERANK_BASE_URL``) and the LLM visual rerank
+  (``VISUAL_RERANK_BASE_URL`` with ``VISUAL_RERANK_API_KEY``).
+
+Each rerank service is built inside try/except: one that fails to build
+is served as ``None`` with a ``[WARN]`` line, as in the JAX app.  The
+micro-batcher (``SEARCH_MICROBATCH_ENABLED``, on by default) coalesces
+concurrent scans into one device scan and concurrent query embeds into
+one ``generate_embedding_batch`` call (one ``/v1/embeddings`` request
+with a list input on the online profile).  Both vector indexes are
+served: ``VECTOR_INDEX_TYPE=flat`` and ``ivf`` (``hnsw`` maps to
+``ivf``; ``IVF_NLIST``, ``IVF_NPROBE`` and ``IVF_TARGET_RECALL`` as in the
+JAX app).  ``MESH_DEVICES != 0`` and ``DIST_*`` raise
+``NotImplementedError`` at startup, naming the ROADMAP.md section they
+wait for.
 
 Run:  PSE_PLATFORM=gpu python -m photo_search_engine_tpu_torch.api.app
 """
@@ -42,10 +54,13 @@ from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, 
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.models.hash_embedder import HashingEmbeddingService
-from photo_search_engine_tpu_torch.services.embedding import DeviceTextRerankService
-from photo_search_engine_tpu_torch.services.rerank import LocalVisualRerankService
+from photo_search_engine_tpu_torch.services.embedding import (
+    DeviceTextRerankService,
+    OpenAICompatibleEmbeddingService,
+    TextRerankService,
+)
+from photo_search_engine_tpu_torch.services.rerank import LocalVisualRerankService, VisualRerankService
 
-_ONLINE = 'ROADMAP.md, "Modules still to port": online services'
 _MESH = 'ROADMAP.md, "Modules still to port": mesh, multi-host and sharded saves'
 
 
@@ -55,16 +70,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_ported(config: Dict[str, Any]) -> None:
     """Raise for every configuration the port does not serve yet."""
-    backend = str(config.get("EMBEDDING_BACKEND") or "auto").strip().lower()
-    if backend == "openai" or (backend == "auto" and config.get("EMBEDDING_BASE_URL")):
-        raise _not_ported("the OpenAI-compatible embedding backend", _ONLINE)
-    backend = str(config.get("TEXT_RERANK_BACKEND") or "auto").strip().lower()
-    if backend in {"api", "chat"} or (backend == "auto" and config.get("TEXT_RERANK_BASE_URL")):
-        raise _not_ported("the API-backed text rerank", _ONLINE)
-    if config.get("VISUAL_RERANK_ENABLED", True) and (
-        config.get("VISUAL_RERANK_BASE_URL") and config.get("VISUAL_RERANK_API_KEY")
-    ):
-        raise _not_ported("the API-backed visual rerank", _ONLINE)
     if int(config.get("MESH_DEVICES") or 0) != 0:
         raise _not_ported("MESH_DEVICES != 0", _MESH)
     if config.get("DIST_COORDINATOR"):
@@ -87,6 +92,54 @@ def load_config(overrides: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
         os.environ.clear()
         os.environ.update(saved)
         reset_config_cache()
+
+
+def _build_embedding_service(config: Dict[str, Any], device):
+    backend = str(config.get("EMBEDDING_BACKEND") or "auto").strip().lower()
+    if backend == "auto":
+        backend = "openai" if config.get("EMBEDDING_BASE_URL") else "local"
+    if backend == "openai":
+        return OpenAICompatibleEmbeddingService(
+            api_key=config.get("EMBEDDING_API_KEY") or "",
+            model_name=config["EMBEDDING_MODEL"],
+            base_url=config["EMBEDDING_BASE_URL"],
+            timeout=config["TIMEOUT"],
+            max_retries=config["MAX_RETRIES"],
+            dimension=config.get("EMBEDDING_DIMENSION"),
+        )
+    return HashingEmbeddingService(dimension=config.get("EMBEDDING_DIMENSION") or 1536, device=device)
+
+
+def _build_text_rerank_service(config: Dict[str, Any], device):
+    backend = str(config.get("TEXT_RERANK_BACKEND") or "auto").strip().lower()
+    if backend in {"api", "chat"} or (backend == "auto" and config.get("TEXT_RERANK_BASE_URL")):
+        return TextRerankService(
+            api_key=config.get("TEXT_RERANK_API_KEY") or "",
+            model_name=config["TEXT_RERANK_MODEL"],
+            base_url=config["TEXT_RERANK_BASE_URL"],
+            timeout=config["TEXT_RERANK_TIMEOUT"],
+            max_retries=config["MAX_RETRIES"],
+            backend=backend,
+        )
+    # device: deterministic embedding cross-similarity
+    return DeviceTextRerankService(dimension=config.get("EMBEDDING_DIMENSION") or 1536, device=device)
+
+
+def _build_visual_rerank_service(config: Dict[str, Any], device):
+    if config.get("VISUAL_RERANK_BASE_URL") and config.get("VISUAL_RERANK_API_KEY"):
+        return VisualRerankService(
+            api_key=config["VISUAL_RERANK_API_KEY"],
+            model_name=config["VISUAL_RERANK_MODEL"],
+            base_url=config["VISUAL_RERANK_BASE_URL"],
+            reasoning_effort=config["VISUAL_RERANK_REASONING_EFFORT"],
+            timeout=config["VISUAL_RERANK_TIMEOUT"],
+            max_retries=config["MAX_RETRIES"],
+            image_max_size=config["RERANK_IMAGE_MAX_SIZE"],
+            image_quality=config["RERANK_IMAGE_QUALITY"],
+            image_format=config["RERANK_IMAGE_FORMAT"],
+            max_images=config["RERANK_MAX_IMAGES"],
+        )
+    return LocalVisualRerankService(dimension=config.get("EMBEDDING_DIMENSION") or 1536, device=device)
 
 
 def _build_vision_service(config: Dict[str, Any]):
@@ -128,7 +181,6 @@ def initialize_services(
     config = config or get_config()
     _check_ported(config)
     device = resolve_device(config.get("PSE_PLATFORM")) if device is None else device
-    dimension = config.get("EMBEDDING_DIMENSION") or 1536
     microbatch = config.get("SEARCH_MICROBATCH_ENABLED")
     batch_options = {
         "max_batch": config.get("SEARCH_MICROBATCH_MAX_BATCH", 128),
@@ -136,7 +188,7 @@ def initialize_services(
         "pipeline": config.get("SEARCH_MICROBATCH_PIPELINE", 2),
     }
 
-    embedding_service = HashingEmbeddingService(dimension=dimension, device=device)
+    embedding_service = _build_embedding_service(config, device)
     installed = vector_index is not None
     vector_index = vector_index if installed else VectorIndex(
         dimension=config.get("EMBEDDING_DIMENSION"),
@@ -200,12 +252,19 @@ def initialize_services(
             print(f"[WARN] query formatter disabled: {exc}")
             query_formatter = None
 
-    text_rerank_service = DeviceTextRerankService(dimension=dimension, device=device)
-    visual_rerank_service = (
-        LocalVisualRerankService(dimension=dimension, device=device)
-        if config.get("VISUAL_RERANK_ENABLED", True)
-        else None
-    )
+    try:
+        text_rerank_service = _build_text_rerank_service(config, device)
+    except Exception as exc:  # noqa: BLE001 — the rerank is optional
+        print(f"[WARN] text rerank disabled: {exc}")
+        text_rerank_service = None
+
+    visual_rerank_service = None
+    if config.get("VISUAL_RERANK_ENABLED", True):
+        try:
+            visual_rerank_service = _build_visual_rerank_service(config, device)
+        except Exception as exc:  # noqa: BLE001 — the rerank is optional
+            print(f"[WARN] visual rerank disabled: {exc}")
+            visual_rerank_service = None
     indexer = Indexer(
         photo_dir=config.get("PHOTO_DIR") or "",
         vector_index=vector_index,
@@ -220,11 +279,12 @@ def initialize_services(
         worker_python_executable=sys.executable,
         worker_entrypoint=["-m", "photo_search_engine_tpu_torch.api.app"],
     )
-    # concurrent query embeds coalesce into one batch call, as the scans
-    # coalesce into one device scan (attach_microbatcher below)
-    search_embedding = (
-        BatchedEmbeddingService(embedding_service, **batch_options) if microbatch else embedding_service
-    )
+    # concurrent query embeds coalesce into one batch call (one device
+    # embed, or one /v1/embeddings request), as the scans coalesce into one
+    # device scan (attach_microbatcher below)
+    search_embedding = embedding_service
+    if microbatch and embedding_service is not None and hasattr(embedding_service, "generate_embedding_batch"):
+        search_embedding = BatchedEmbeddingService(embedding_service, **batch_options)
     searcher = Searcher(
         embedding=search_embedding,
         time_parser=time_parser,

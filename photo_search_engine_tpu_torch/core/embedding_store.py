@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
+from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import grouped_mask as grouped_ops
 from photo_search_engine_tpu_torch.ops import quantized as quant_ops
 from photo_search_engine_tpu_torch.ops import topk as topk_ops
@@ -58,7 +59,7 @@ class EmbeddingStore:
         self,
         dimension: int,
         *,
-        device="cpu",
+        device=None,
         metric: str = "cosine",
         store_dtype: str = "float32",
         block_rows: Optional[int] = None,
@@ -67,7 +68,7 @@ class EmbeddingStore:
         if metric not in {"cosine", "l2", "ip"}:
             raise ValueError("metric must be cosine, l2 or ip")
         self.dimension = int(dimension)
-        self.device = torch.device(device)
+        self.device = resolve_device() if device is None else torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.metric = metric
@@ -348,7 +349,30 @@ class EmbeddingStore:
             self._mask_lru.clear()
 
     @classmethod
-    def from_state(cls, state: Dict[str, object], *, device="cpu") -> "EmbeddingStore":
+    def from_array(
+        cls,
+        array,
+        *,
+        metric: str = "cosine",
+        store_dtype: str = "float32",
+        block_rows: Optional[int] = None,
+        already_normalized: bool = False,
+        quantized=False,
+        device=None,
+    ) -> "EmbeddingStore":
+        """A store holding the rows of ``array`` on ``device`` (default: the
+        one ``PSE_PLATFORM`` names), appended as :meth:`append` appends
+        them.  ``already_normalized`` is accepted as in the JAX store:
+        normalization is idempotent, so normalized rows are safe either way."""
+        array = np.asarray(array, np.float32)
+        store = cls(array.shape[1], device=device, metric=metric, store_dtype=store_dtype,
+                    block_rows=block_rows, quantized=quantized)
+        del already_normalized
+        store.append(array)
+        return store
+
+    @classmethod
+    def from_state(cls, state: Dict[str, object], *, device=None) -> "EmbeddingStore":
         """A store holding exactly the rows of ``state`` (see
         ``core/convert.py``): the same float32 rows, capacity, metric, dtype
         and, when present, the same int8 shadow."""

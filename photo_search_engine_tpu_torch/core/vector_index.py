@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
+from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.models.ivf import IVFIndex
 from photo_search_engine_tpu_torch.ops.quantized import resolve_store_quantized
 from photo_search_engine_tpu_torch.ops.topk import resolve_store_dtype
@@ -55,7 +56,7 @@ class VectorIndex:
         store_block_rows: Optional[int] = None,
         quantized: Any = False,
         mesh_devices: int = 0,
-        device="cpu",
+        device=None,
     ) -> None:
         self.dimension = dimension
         self.index_path = index_path
@@ -79,8 +80,8 @@ class VectorIndex:
                 'and sharded saves)'
             )
         self.mesh_devices = 0
-        self.device = device
-        self.store_dtype = resolve_store_dtype(store_dtype, device)
+        self.device = resolve_device() if device is None else device
+        self.store_dtype = resolve_store_dtype(store_dtype, self.device)
         self.store_block_rows = store_block_rows or None
         self.quantized = resolve_store_quantized(quantized)
         self.ivf_nlist = max(1, int(ivf_nlist))

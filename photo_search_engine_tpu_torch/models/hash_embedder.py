@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from photo_search_engine_tpu_torch.core.keyword_index import tokenize
+from photo_search_engine_tpu_torch.device import resolve_device
 
 _SUBLINEAR = True
 
@@ -33,10 +34,10 @@ def _stable_hash(token: str, seed: int) -> int:
 class HashEmbedder:
     """Deterministic text → unit vector embedder."""
 
-    def __init__(self, dimension: int = 1536, seed: int = 7, device="cpu") -> None:
+    def __init__(self, dimension: int = 1536, seed: int = 7, device=None) -> None:
         self.dimension = int(dimension)
         self.seed = int(seed)
-        self.device = torch.device(device)
+        self.device = resolve_device() if device is None else torch.device(device)
 
     def _features(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
         """(bucket indices, signed tf weights) for one text."""
@@ -80,7 +81,7 @@ class HashEmbedder:
 class HashingEmbeddingService:
     """EmbeddingService-shaped adapter over :class:`HashEmbedder`."""
 
-    def __init__(self, dimension: int = 1536, seed: int = 7, device="cpu") -> None:
+    def __init__(self, dimension: int = 1536, seed: int = 7, device=None) -> None:
         self.dimension = int(dimension)
         self._embedder = HashEmbedder(dimension=dimension, seed=seed, device=device)
 

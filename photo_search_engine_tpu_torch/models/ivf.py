@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
+from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import ivf_scan
 from photo_search_engine_tpu_torch.ops.quantized import (
     INT8_MAX_K,
@@ -67,7 +68,8 @@ def _round_up(value: int, multiple: int) -> int:
 
 
 def _device(device) -> torch.device:
-    device = torch.device(device)
+    """``device``, or the one ``PSE_PLATFORM`` names when it is None."""
+    device = resolve_device() if device is None else torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -286,7 +288,7 @@ class IVFIndex:
         metric: str = "ip",
         store_dtype: str = "float32",
         quantized=False,
-        device="cpu",
+        device=None,
     ) -> None:
         self.device = _device(device)
         self.quantized = resolve_store_quantized(quantized)
@@ -344,7 +346,7 @@ class IVFIndex:
         slack: float = 1.5,
         seed: int = 0,
         quantized=False,
-        device="cpu",
+        device=None,
     ) -> "IVFIndex":
         """Train, assign and lay out host float32 rows.  The rows go to the
         device once: each assignment chunk is kept there in the store
@@ -436,7 +438,7 @@ class IVFIndex:
 
     @classmethod
     def from_state(cls, corpus: np.ndarray, state: dict, *, store_dtype: str = "float32", quantized=False,
-                   device="cpu") -> "IVFIndex":
+                   device=None) -> "IVFIndex":
         """Restore a trained index from ``state()`` and the rows in their
         original order, without training."""
         device = _device(device)
@@ -568,12 +570,21 @@ class IVFIndex:
         k = min(k, int((self.perm >= 0).sum()))
         if k == 0:
             return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int64)
-        qdev = torch.from_numpy(queries).to(self.device).to(self._corpus.dtype).contiguous()
         row_valid = self._row_valid
         if mask is not None:
             slot_mask, ratio = self._slot_mask(mask)
             row_valid = row_valid * slot_mask
             nprobe = self._inflate_nprobe(nprobe, ratio, self.nlist)
+        vals, idx = self._scan(torch.from_numpy(queries).to(self.device), k, nprobe, row_valid)
+        return self._to_rows(vals.cpu().numpy(), idx.cpu().numpy())
+
+    def _scan(self, queries: torch.Tensor, k: int, nprobe: int, row_valid: torch.Tensor):
+        """Stages 1 and 2 on the device for ``queries`` on it: kernel-space
+        ``(vals [Q, k], slot ids [Q, k])``, ``-inf`` / ``INT_MAX`` in empty
+        slots; nothing is read back.  The int8 tier runs for ``quantized``
+        and k <= 64 (its shadow is built here on first use)."""
+        q = queries.shape[0]
+        qdev = queries.to(self._corpus.dtype).contiguous()
         probe_ids = self._probe(qdev, nprobe)
         metric = "l2" if self.metric == "l2" else "ip"
         cnorms = self._corpus_norms() if metric == "l2" else None
@@ -602,7 +613,36 @@ class IVFIndex:
             pad = k - vals.shape[1]
             vals = torch.nn.functional.pad(vals, (0, pad), value=float("-inf"))
             idx = torch.nn.functional.pad(idx, (0, pad), value=_INT_MAX)
-        return self._to_rows(vals.cpu().numpy(), idx.cpu().numpy())
+        return vals, idx
+
+    # -- device-only search (benchmark / composition surface) -------------
+    def device_search_fn(self, k: int, nprobe: int, batch: int):
+        """``fn(queries) -> (vals, slot_idx)``: the search of :meth:`search`
+        for ``[batch, D]`` queries already on the index's device, all of it
+        on the device with no host synchronisation, for timing launches
+        back to back and for composing into larger device programs.
+
+        What depends on the shapes is fixed here: k (at most the live
+        rows), nprobe (at most nlist), and the int8 shadow and l2 norms the
+        scan will read, built now.  ``fn`` returns float32 ``[batch, k]``
+        kernel-space values (higher is better; l2 as ``-‖q − c‖²``) and
+        int32 slot ids of the layout (``perm`` maps them to row ids),
+        ``-inf`` / ``INT_MAX`` in empty slots, on the device."""
+        nprobe = max(1, min(nprobe, self.nlist))
+        k = max(1, min(k, int((self.perm >= 0).sum())))
+        if self.quantized and k <= INT8_MAX_K:
+            self._ensure_quantized()
+        if self.metric == "l2":
+            self._corpus_norms()
+        shape = (batch, self.dim)
+
+        def fn(queries: torch.Tensor):
+            if tuple(queries.shape) != shape or queries.device != self.device:
+                raise ValueError(f"device_search_fn: expected {shape} queries on {self.device}, "
+                                 f"got {tuple(queries.shape)} on {queries.device}")
+            return self._scan(queries, k, nprobe, self._row_valid)
+
+        return fn
 
     def _to_rows(self, vals: np.ndarray, idx: np.ndarray):
         """Slot ids → original row ids (-1 where empty), kernel-space

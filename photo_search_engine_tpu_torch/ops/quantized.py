@@ -49,7 +49,7 @@ def resolve_store_quantized(value) -> bool:
     """``STORE_QUANTIZED`` → bool.  ``"auto"`` is False: the int8 tier is
     the TPU serving default, but on CUDA it stays off until the benchmark
     and recall on realistic embeddings show it wins (ROADMAP.md, "Modules
-    still to port": tools, the SPA contract and a benchmark)."""
+    still to port": a benchmark)."""
     if isinstance(value, bool):
         return value
     if value is None:

@@ -6,7 +6,11 @@ search return the same route JSON, timing fields dropped and float fields
 within 1e-5.  Then the port's app runs the same flow in a process where
 importing ``jax`` or the JAX package fails.  The port's own config loader and an index installed
 in memory (as ``chip_smoke.py`` serves its large corpus) are wired by the
-same ``initialize_services``."""
+same ``initialize_services``.  The online profile (OpenAI-compatible
+embeddings, the API text rerank and the LLM visual rerank) is served by
+both apps with the same mocked clients, and by the port over HTTP to a
+local stand-in server; a rerank service that fails to build is served as
+``None`` with the JAX app's ``[WARN]`` line."""
 
 import json
 import os
@@ -25,7 +29,15 @@ from photo_search_engine_tpu_torch.api.app import load_config as port_load_confi
 from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, MicroBatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
-from tests.torch_parity import run_flow, unit_rows
+from tests.torch_parity import (
+    StandInServer,
+    run_flow,
+    run_online_flow,
+    standin_chat,
+    standin_rerank,
+    standin_vector,
+    unit_rows,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -223,13 +235,9 @@ def test_gpu_platform_needs_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "env",
     [
-        {"EMBEDDING_BACKEND": "openai", "EMBEDDING_BASE_URL": "http://localhost:1/v1"},
-        {"TEXT_RERANK_BACKEND": "api"},
-        {"VISUAL_RERANK_BASE_URL": "http://localhost:1/v1", "VISUAL_RERANK_API_KEY": "k"},
         {"VECTOR_INDEX_TYPE": "ivf", "MESH_DEVICES": "2"},  # IVF is ported, the mesh is not
         {"MESH_DEVICES": "2"},
         {"DIST_COORDINATOR": "localhost:1234", "DIST_NUM_PROCESSES": "2", "DIST_PROCESS_ID": "0"},
-        {"EMBEDDING_BASE_URL": "http://localhost:1/v1"},  # the auto backend with a base URL
     ],
 )
 def test_unported_configurations_raise(library, monkeypatch, env):
@@ -237,6 +245,221 @@ def test_unported_configurations_raise(library, monkeypatch, env):
     cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), **env)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         initialize_services(cfg)
+
+
+_ONLINE_KEYS = {"EMBEDDING_API_KEY": "k", "TEXT_RERANK_API_KEY": "k"}
+
+
+@pytest.mark.parametrize(
+    "env, services",
+    [
+        ({"EMBEDDING_BACKEND": "openai", "EMBEDDING_BASE_URL": "http://localhost:1/v1"},
+         ("OpenAICompatibleEmbeddingService", "TextRerankService", "LocalVisualRerankService")),
+        ({"TEXT_RERANK_BACKEND": "api"},  # no base URL and no key: served as None
+         ("HashingEmbeddingService", None, "LocalVisualRerankService")),
+        ({"TEXT_RERANK_BACKEND": "chat", "TEXT_RERANK_BASE_URL": "http://localhost:1/v1"},
+         ("HashingEmbeddingService", "TextRerankService", "LocalVisualRerankService")),
+        ({"VISUAL_RERANK_BASE_URL": "http://localhost:1/v1", "VISUAL_RERANK_API_KEY": "k"},
+         ("HashingEmbeddingService", "DeviceTextRerankService", "VisualRerankService")),
+        ({"EMBEDDING_BASE_URL": "http://localhost:1/v1"},  # the auto backend with a base URL
+         ("OpenAICompatibleEmbeddingService", "TextRerankService", "LocalVisualRerankService")),
+    ],
+)
+def test_online_configurations_are_served_as_jax_serves_them(library, monkeypatch, env, services):
+    """The online profile starts (no request is sent), with the services
+    the JAX app builds for the same configuration."""
+    tmp, photo_dir = library
+    cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), **_ONLINE_KEYS, **env)
+    if env.get("TEXT_RERANK_BACKEND") == "api":
+        cfg["TEXT_RERANK_API_KEY"] = ""
+    port, jax = initialize_services(cfg), jax_initialize(cfg)
+    for wired in (port, jax):
+        built = tuple(None if wired[key] is None else type(wired[key]).__name__
+                      for key in ("embedding_service", "text_rerank_service", "visual_rerank_service"))
+        assert built == services
+    embedder = port["embedding_service"]
+    if hasattr(embedder, "model_name"):
+        for attr in ("model_name", "base_url", "timeout", "max_retries", "dimension", "api_key"):
+            assert getattr(embedder, attr) == getattr(jax["embedding_service"], attr), attr
+
+
+@pytest.mark.parametrize("env", [
+    {"EMBEDDING_BACKEND": "openai", "EMBEDDING_BASE_URL": "https://e.example/v1", "EMBEDDING_API_KEY": "k",
+     "EMBEDDING_MODEL": "Qwen/Qwen3-Embedding-8B", "TIMEOUT": "17", "MAX_RETRIES": "5"},
+    {"EMBEDDING_BASE_URL": "http://localhost:11434"},  # auto, an Ollama URL: keyless
+    {"EMBEDDING_BACKEND": "openai", "EMBEDDING_BASE_URL": "https://e.example/v1", "EMBEDDING_API_KEY": "k",
+     "EMBEDDING_DIMENSION": ""},  # no dimension: the width comes from the first response
+    {"EMBEDDING_BACKEND": "local"},
+    {},
+])
+def test_build_embedding_service_matches_jax(library, monkeypatch, env):
+    from photo_search_engine_tpu.api.app import _build_embedding_service as jax_build
+    from photo_search_engine_tpu_torch.api.app import _build_embedding_service
+
+    tmp, photo_dir = library
+    cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), **env)
+    port, jax = _build_embedding_service(cfg, torch.device("cpu")), jax_build(cfg)
+    assert type(port).__name__ == type(jax).__name__
+    keys = ("model_name", "base_url", "timeout", "max_retries", "api_key") if hasattr(jax, "model_name") else ()
+    for attr in keys + ("dimension",):
+        assert getattr(port, attr) == getattr(jax, attr), attr
+
+
+@pytest.mark.parametrize("broken, line", [
+    ({"TEXT_RERANK_BACKEND": "api", "TEXT_RERANK_BASE_URL": "https://r.example/v1"},
+     "[WARN] text rerank disabled: TEXT_RERANK_API_KEY is not set"),
+    ({"VISUAL_RERANK_BASE_URL": "https://v.example/v1", "VISUAL_RERANK_API_KEY": "k", "VISUAL_RERANK_MODEL": "",
+      "VISION_MODEL": ""},
+     "[WARN] visual rerank disabled: VISUAL_RERANK_MODEL is not set"),
+])
+def test_rerank_that_fails_to_build_is_served_as_none(library, monkeypatch, capsys, broken, line):
+    tmp, photo_dir = library
+    cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), **broken)
+    key = "text_rerank_service" if "TEXT" in line else "visual_rerank_service"
+    for init in (jax_initialize, initialize_services):
+        capsys.readouterr()
+        assert init(cfg)[key] is None
+        assert line in capsys.readouterr().out.splitlines()
+
+
+@pytest.mark.parametrize("service", ["DeviceTextRerankService", "LocalVisualRerankService"])
+def test_local_rerank_that_fails_to_build_is_served_as_none(library, monkeypatch, capsys, service):
+    from photo_search_engine_tpu_torch.api import app as port_app
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no device memory")
+
+    monkeypatch.setattr(port_app, service, broken)
+    tmp, photo_dir = library
+    services = initialize_services(_config(monkeypatch, photo_dir, str(tmp / "data")))
+    key = "text_rerank_service" if service.startswith("Device") else "visual_rerank_service"
+    what = "text" if key.startswith("text") else "visual"
+    assert services[key] is None
+    assert f"[WARN] {what} rerank disabled: no device memory" in capsys.readouterr().out.splitlines()
+    # the app serves without it: an asked-for rerank reports that it did not run
+    client = create_app(services).test_client()
+    run_flow(client, photo_dir)
+    got = client.post("/search_photos", json_body={"query": "beach sunset sea", "top_k": 3,
+                                                   "enable_text_rerank": True, "enable_visual_rerank": True}).get_json()
+    assert got["status"] == "success" and not got[f"{what}_reranked"]
+
+
+class _StandInClient:
+    """An ``OpenAIHttpClient`` stand-in answering by the rules of
+    ``tests/torch_parity.py``'s stand-in server, without a socket."""
+
+    def __init__(self, api_key, base_url, timeout=60):
+        from types import SimpleNamespace
+
+        self.embeddings = SimpleNamespace(create=self._embed)
+        self.chat = SimpleNamespace(completions=SimpleNamespace(create=lambda **kw: standin_chat(kw)))
+
+    @staticmethod
+    def _embed(**kw):
+        inputs = kw["input"] if isinstance(kw["input"], list) else [kw["input"]]
+        return {"data": [{"embedding": standin_vector(t, int(kw.get("dimensions") or 256)).tolist()}
+                         for t in inputs]}
+
+
+class _StandInSession:
+    def post(self, url, json=None, headers=None, timeout=None):
+        from unittest.mock import Mock
+
+        response = Mock()
+        response.json.return_value = standin_rerank(json)
+        response.raise_for_status.return_value = None
+        return response
+
+
+def _patch_online_clients(monkeypatch):
+    from types import SimpleNamespace
+
+    from photo_search_engine_tpu.services import embedding as jax_embedding
+    from photo_search_engine_tpu.services import rerank as jax_rerank
+    from photo_search_engine_tpu_torch.services import embedding as port_embedding
+    from photo_search_engine_tpu_torch.services import rerank as port_rerank
+
+    for module in (jax_embedding, jax_rerank, port_embedding, port_rerank):
+        monkeypatch.setattr(module, "OpenAIHttpClient", _StandInClient)
+    for module in (jax_embedding, port_embedding):
+        monkeypatch.setattr(module, "requests", SimpleNamespace(Session=_StandInSession))
+
+
+def _test_client_post(client):
+    def post(path, body, files=None):
+        if files:
+            return client.post(path, data=body, files=files).get_json()
+        return client.post(path, json_body=body).get_json()
+
+    return post
+
+
+_ONLINE = {"EMBEDDING_BASE_URL": "https://standin.example/v1", "EMBEDDING_API_KEY": "k",
+           "VISUAL_RERANK_BASE_URL": "https://standin.example/v1", "VISUAL_RERANK_API_KEY": "k",
+           "RERANK_MAX_IMAGES": "2"}
+
+
+@pytest.mark.parametrize("text_backend", ["api", "chat"])
+def test_online_route_json_matches_jax_app(library, monkeypatch, text_backend):
+    """The online profile in both apps, with the same mocked clients: the
+    embeddings, the text rerank (``api`` or ``chat``) and the visual rerank
+    (a tournament over chunks of two) give the same route JSON."""
+    import tempfile
+
+    _patch_online_clients(monkeypatch)
+    monkeypatch.setattr(tempfile, "_get_candidate_names", lambda: iter(["pse_upload"]))
+    tmp, photo_dir = library
+    outs = []
+    for init, create, name in ((jax_initialize, jax_create_app, "jax"), (initialize_services, create_app, "port")):
+        services = init(_config(monkeypatch, photo_dir, str(tmp / f"{name}_data"), TEXT_RERANK_BACKEND=text_backend,
+                                **_ONLINE))
+        assert type(services["embedding_service"]).__name__ == "OpenAICompatibleEmbeddingService"
+        client = create(services).test_client()
+        out = run_flow(client, photo_dir)
+        out.update({f"online_{k}": v for k, v in run_online_flow(_test_client_post(client), photo_dir).items()})
+        for key in ("upload", "online_upload"):
+            _drop_upload_temp_paths(out[key])
+        outs.append(out)
+    _assert_close(_normalize(outs[1]), _normalize(outs[0]))
+
+
+def test_online_profile_against_a_local_standin_server(library, monkeypatch):
+    """The port's online profile over real HTTP (``OpenAIHttpClient``) to
+    the stand-in server on 127.0.0.1, the micro-batcher on: the routes run
+    the reranks, and concurrent text searches reach ``/v1/embeddings`` as
+    coalesced list calls."""
+    import threading
+
+    tmp, photo_dir = library
+    with StandInServer(dim=256) as standin:
+        cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), SEARCH_MICROBATCH_ENABLED="1",
+                      SEARCH_MICROBATCH_WINDOW_MS="200", QUERY_CACHE_ENABLED="0", EMBEDDING_CACHE_ENABLED="0",
+                      EMBEDDING_BASE_URL=standin.base_url, EMBEDDING_API_KEY="k", TEXT_RERANK_BACKEND="chat",
+                      VISUAL_RERANK_BASE_URL=standin.base_url, VISUAL_RERANK_API_KEY="k")
+        services = initialize_services(cfg)
+        try:
+            client = create_app(services).test_client()
+            run_flow(client, photo_dir)
+            run_online_flow(_test_client_post(client), photo_dir)
+            assert standin.calls["/v1/chat/completions"] >= 4 and standin.calls["/v1/rerank"] == 0
+            before = len(standin.embed_inputs)
+            start = threading.Barrier(6)
+            answers = {}
+
+            def search(i):
+                start.wait(30)
+                answers[i] = client.post("/search_photos", json_body={"query": f"beach sea {i}", "top_k": 3}).get_json()
+
+            threads = [threading.Thread(target=search, args=(i,)) for i in range(6)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert all(answers[i]["status"] == "success" for i in range(6))
+            sizes = standin.embed_inputs[before:]
+            assert sum(sizes) == 6 and max(sizes) > 1, sizes  # coalesced list calls
+        finally:
+            _close_batchers(services)
 
 
 def test_microbatch_default_attaches_batchers(library, monkeypatch):

@@ -49,7 +49,7 @@ def _indexes(tmp_path, n, seed, quantized=False):
     rows = np.random.default_rng(seed).normal(size=(n, D)).astype(np.float32)
     metas = [{"photo_path": f"/p/{i}.jpg"} for i in range(n)]
     ours = VectorIndex(D, index_path=str(tmp_path / "p.index"), metadata_path=str(tmp_path / "p.json"),
-                       metric="cosine", quantized=quantized)
+                       metric="cosine", quantized=quantized, device="cpu")
     ref = JaxIndex(D, index_path=str(tmp_path / "j.index"), metadata_path=str(tmp_path / "j.json"),
                    metric="cosine", quantized=quantized)
     ours.add_batch(rows, metas)
@@ -229,7 +229,7 @@ def test_quantized_index_grouped_batch(tmp_path):
 def test_l2_index_keeps_the_direct_masked_path(tmp_path):
     rows = unit_rows(np.random.default_rng(6), 20, D)
     index = VectorIndex(D, index_path=str(tmp_path / "l.index"), metadata_path=str(tmp_path / "l.json"),
-                        metric="l2")
+                        metric="l2", device="cpu")
     index.add_batch(rows, [{"photo_path": f"/p/{i}.jpg"} for i in range(20)])
     direct = index.search_masked
     batcher = attach_microbatcher(index, window_s=0.01)
@@ -239,7 +239,7 @@ def test_l2_index_keeps_the_direct_masked_path(tmp_path):
 
 
 def test_batched_embedding_service_under_concurrency():
-    inner = HashingEmbeddingService(dimension=32)
+    inner = HashingEmbeddingService(dimension=32, device="cpu")
     calls = {"n": 0}
     real_batch = inner.generate_embedding_batch
 
@@ -276,7 +276,7 @@ from photo_search_engine_tpu_torch.core.batcher import attach_microbatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 rows = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
 index = VectorIndex(16, index_path=os.path.join(os.environ["TMP"], "i.index"),
-                    metadata_path=os.path.join(os.environ["TMP"], "m.json"), quantized=True)
+                    metadata_path=os.path.join(os.environ["TMP"], "m.json"), quantized=True, device="cpu")
 index.add_batch(rows, [{"photo_path": f"/p/{i}.jpg"} for i in range(64)])
 batcher = attach_microbatcher(index, window_s=0.1)
 masks = [None, np.arange(64) % 2 == 0, np.arange(64) < 20]

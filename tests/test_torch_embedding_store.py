@@ -21,7 +21,7 @@ def _rows(seed, n, d=D):
 
 
 def test_append_growth_and_alignment():
-    store = EmbeddingStore(D)
+    store = EmbeddingStore(D, device="cpu")
     assert store.capacity == 0 and store.count == 0
     store.append(_rows(0, 10))
     assert store.count == 10 and store.capacity == 1024
@@ -34,9 +34,9 @@ def test_append_growth_and_alignment():
     np.testing.assert_allclose(store.snapshot(), host, atol=1e-7)
     np.testing.assert_allclose(store._device[: store.count].numpy(), host, atol=1e-7)
     assert not store._device[store.count :].any()  # rows past count stay zero
-    q = EmbeddingStore(3072, quantized=True)
+    q = EmbeddingStore(3072, quantized=True, device="cpu")
     assert q._capacity_align % q.block_rows == 0 and q._capacity_align % q._i8_block == 0
-    zero = EmbeddingStore(4, metric="cosine")
+    zero = EmbeddingStore(4, metric="cosine", device="cpu")
     zero.append(np.zeros((2, 4), np.float32))
     assert not zero.snapshot().any()  # zero vectors stay as they are
     with pytest.raises(ValueError):
@@ -45,7 +45,7 @@ def test_append_growth_and_alignment():
 
 def test_capacity_error_with_budget(monkeypatch):
     monkeypatch.setenv("PSE_HBM_BYTES", str(2 * 1024 * 1024))
-    store = EmbeddingStore(256, quantized=True)
+    store = EmbeddingStore(256, quantized=True, device="cpu")
     with pytest.raises(tcap.DeviceCapacityError) as err:
         store.append(_rows(0, 3000, d=256))
     assert "STORE_QUANTIZED=0" in str(err.value)
@@ -74,7 +74,7 @@ def test_capacity_arithmetic_matches_jax(quantized, monkeypatch):
 
 def test_load_device_rows_adopts_aligned_rows():
     rows = torch.from_numpy(unit_rows(np.random.default_rng(0), 2048, D))
-    store = EmbeddingStore(D)
+    store = EmbeddingStore(D, device="cpu")
     store.load_device_rows(rows)
     assert store._device is rows and store.count == 2048  # zero-copy adoption
     assert store._host_cache is None  # the mirror downloads lazily
@@ -85,7 +85,7 @@ def test_load_device_rows_adopts_aligned_rows():
         store.load_device_rows(rows)
 
     ragged = torch.from_numpy(unit_rows(np.random.default_rng(1), 1500, D))
-    q = EmbeddingStore(D, store_dtype="bfloat16", quantized=True)
+    q = EmbeddingStore(D, store_dtype="bfloat16", quantized=True, device="cpu")
     q.load_device_rows(ragged)
     assert q._device is not ragged and q.capacity == 2048 and q.count == 1500
     assert q._device.dtype == torch.bfloat16
@@ -98,7 +98,7 @@ def test_load_device_rows_adopts_aligned_rows():
 
 
 def test_mask_lru_is_bounded_and_thread_safe():
-    store = EmbeddingStore(D)
+    store = EmbeddingStore(D, device="cpu")
     store.append(_rows(0, 100))
     m = np.zeros(100, bool)
     m[::2] = True
@@ -138,7 +138,7 @@ def test_from_jax_state_searches_the_same(metric, quantized, dtype):
     jstore.append(corpus[500:])
     state = store_state_from_jax(jstore)
     assert state["count"] == 900 and state["capacity"] == jstore.capacity
-    store = EmbeddingStore.from_state(state)
+    store = EmbeddingStore.from_state(state, device="cpu")
     assert store.count == 900 and store.capacity == jstore.capacity and store.quantized == quantized
     if quantized:
         assert np.array_equal(store._device_i8[:900].numpy(), state["rows_i8"])
@@ -155,7 +155,7 @@ def test_from_jax_state_searches_the_same(metric, quantized, dtype):
 
 
 def test_search_contract_edges():
-    store = EmbeddingStore(D)
+    store = EmbeddingStore(D, device="cpu")
     v, i = store.search(_rows(0, 3), 5)
     assert v.shape == (3, 0) and i.shape == (3, 0)
     store.append(_rows(1, 4))

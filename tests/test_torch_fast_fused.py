@@ -316,7 +316,7 @@ def _stores(metric, dtype, quantized=False, n=900):
     queries = np.concatenate([corpus[[5, 77]], unit_rows(rng, 5, 64)])
     jstore = JaxStore(64, metric=metric, store_dtype=dtype, quantized=quantized)
     jstore.append(corpus)
-    return jstore, EmbeddingStore.from_state(store_state_from_jax(jstore)), queries, rng
+    return jstore, EmbeddingStore.from_state(store_state_from_jax(jstore), device="cpu"), queries, rng
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_fast", "pallas_fused", "lax"])
@@ -351,7 +351,7 @@ def test_store_int8_keeps_its_meaning_and_unknown_impl_raises():
         with pytest.raises(ValueError, match="impl"):
             store.grouped_search(queries, 10, np.ones((1, 900)), np.zeros(7), impl=bad)
     with pytest.raises(ValueError, match="impl"):
-        EmbeddingStore(64).search(queries, 3, impl="bogus")  # even an empty store checks it
+        EmbeddingStore(64, device="cpu").search(queries, 3, impl="bogus")  # even an empty store checks it
 
 
 def test_every_entry_point_has_its_ctypes_signature():

@@ -190,7 +190,7 @@ def test_store_grouped_search_matches_jax(metric, quantized, dtype):
     jstore = JaxStore(D, metric=metric, store_dtype=dtype, quantized=quantized)
     jstore.append(corpus[:500])
     jstore.append(corpus[500:])
-    store = EmbeddingStore.from_state(store_state_from_jax(jstore))
+    store = EmbeddingStore.from_state(store_state_from_jax(jstore), device="cpu")
     table = np.stack([np.ones(900, bool), rng.random(900) > 0.4, np.arange(900) % 7 == 0])
     ids = np.array([0, 1, 2, 1, 0, 2, 1], np.int32)
     impl = "int8" if quantized else "auto"
@@ -203,7 +203,7 @@ def test_store_grouped_search_matches_jax(metric, quantized, dtype):
 
 
 def test_store_grouped_search_edges():
-    store = EmbeddingStore(D)
+    store = EmbeddingStore(D, device="cpu")
     v, i = store.grouped_search(unit_rows(np.random.default_rng(0), 2, D), 3, np.ones((1, 4)), np.zeros(2))
     assert v.shape == (2, 0) and i.shape == (2, 0)
     store.append(unit_rows(np.random.default_rng(1), 4, D))
@@ -223,7 +223,7 @@ def test_raw_grouped_search_batch_matches_jax(tmp_path, quantized):
     rng = np.random.default_rng(3)
     rows = unit_rows(rng, 400, D)
     metas = [{"photo_path": f"/p/{i}.jpg"} for i in range(400)]
-    ours = VectorIndex(D, quantized=quantized, **_paths(tmp_path, "port"))
+    ours = VectorIndex(D, quantized=quantized, **_paths(tmp_path, "port"), device="cpu")
     theirs = JaxIndex(D, quantized=quantized, **_paths(tmp_path, "jax"))
     assert ours.raw_grouped_search_batch(rows[:2], 3, np.ones((1, 400)), np.zeros(2))[1].shape == (2, 0)
     ours.add_batch(rows, metas)
@@ -241,7 +241,7 @@ def test_raw_grouped_search_batch_matches_jax(tmp_path, quantized):
 
 
 def test_raw_grouped_search_batch_checks_row_ids(tmp_path):
-    index = VectorIndex(D, **_paths(tmp_path, "b"))
+    index = VectorIndex(D, **_paths(tmp_path, "b"), device="cpu")
     index.add_batch(unit_rows(np.random.default_rng(0), 20, D), [{"photo_path": f"/p/{i}.jpg"} for i in range(20)])
     index._store.grouped_search = lambda q, k, t, i, **kw: (np.zeros((1, k), np.float32), np.full((1, k), 20, np.int32))
     with pytest.raises(RuntimeError, match="out-of-range"):

@@ -32,7 +32,7 @@ TEXTS = [
 
 @pytest.mark.parametrize("dimension", [64, 256, 1536])
 def test_vectors_match_jax(dimension):
-    got = th.HashEmbedder(dimension=dimension).embed_batch(TEXTS)
+    got = th.HashEmbedder(dimension=dimension, device="cpu").embed_batch(TEXTS)
     ref = jh.HashEmbedder(dimension=dimension).embed_batch(TEXTS)
     assert got.shape == ref.shape == (len(TEXTS), dimension)
     assert got.dtype == np.float32
@@ -43,7 +43,7 @@ def test_vectors_match_jax(dimension):
 
 @pytest.mark.parametrize("seed", [7, 11])
 def test_featurizer_copies_agree(seed):
-    port, ref = th.HashEmbedder(dimension=512, seed=seed), jh.HashEmbedder(dimension=512, seed=seed)
+    port, ref = th.HashEmbedder(dimension=512, seed=seed, device="cpu"), jh.HashEmbedder(dimension=512, seed=seed)
     for text in TEXTS:
         got_i, got_w = port._features(text)
         ref_i, ref_w = ref._features(text)
@@ -52,7 +52,7 @@ def test_featurizer_copies_agree(seed):
 
 
 def test_embedding_service_contract():
-    port, ref = th.HashingEmbeddingService(dimension=128), jh.HashingEmbeddingService(dimension=128)
+    port, ref = th.HashingEmbeddingService(dimension=128, device="cpu"), jh.HashingEmbeddingService(dimension=128)
     np.testing.assert_allclose(port.generate_embedding("海边"), ref.generate_embedding("海边"), atol=1e-6)
     np.testing.assert_allclose(
         port.generate_embedding_batch(["a b", "", "c"]), ref.generate_embedding_batch(["a b", "", "c"]), atol=1e-6
@@ -73,7 +73,7 @@ CANDIDATES = [
 
 
 def test_text_rerank_matches_jax():
-    got = DeviceTextRerankService(dimension=256).rerank("sunset beach", CANDIDATES, 3)
+    got = DeviceTextRerankService(dimension=256, device="cpu").rerank("sunset beach", CANDIDATES, 3)
     ref = JaxTextRerank(dimension=256).rerank("sunset beach", CANDIDATES, 3)
     assert [c["photo_path"] for c in got] == [c["photo_path"] for c in ref]
     assert [c["rank"] for c in got] == [1, 2, 3]
@@ -83,7 +83,7 @@ def test_text_rerank_matches_jax():
 
 
 def test_visual_rerank_text_mode_and_merge_match_jax():
-    got = LocalVisualRerankService(dimension=256).rerank("sunset beach", CANDIDATES, 4)
+    got = LocalVisualRerankService(dimension=256, device="cpu").rerank("sunset beach", CANDIDATES, 4)
     ref = JaxVisualRerank(dimension=256).rerank("sunset beach", CANDIDATES, 4)
     assert [c["photo_path"] for c in got] == [c["photo_path"] for c in ref]
     np.testing.assert_allclose(
@@ -106,6 +106,6 @@ def test_visual_rerank_reference_image_matches_jax(tmp_path):
         paths.append(str(path))
     candidates = [{"photo_path": p, "score": 0.1 * i} for i, p in enumerate(paths[1:])]
     candidates.append({"photo_path": str(tmp_path / "missing.jpg"), "score": 0.9})
-    got = LocalVisualRerankService(dimension=64).rerank_by_reference_image(paths[0], candidates, 3)
+    got = LocalVisualRerankService(dimension=64, device="cpu").rerank_by_reference_image(paths[0], candidates, 3)
     ref = JaxVisualRerank(dimension=64).rerank_by_reference_image(paths[0], candidates, 3)
     assert got == ref

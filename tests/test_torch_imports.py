@@ -44,6 +44,9 @@ COPIED = (
     "core/searcher.py",
     "api/wsgi.py",
     "api/routes.py",
+    "api/spa_contract.py",
+    "tools/__init__.py",
+    "tools/migrate.py",
     "templates/index.html",
 )
 

@@ -45,7 +45,7 @@ def _clustered(rng, n=2000, d=D, centers=20):
 
 def _port_of(jax_index):
     state = ivf_state_from_jax(jax_index)
-    return ivf.IVFIndex.from_state(state["rows"], state, store_dtype=state["dtype"], quantized=state["quantized"])
+    return ivf.IVFIndex.from_state(state["rows"], state, store_dtype=state["dtype"], quantized=state["quantized"], device="cpu")
 
 
 def _assert_same(got, ref, metric):
@@ -128,7 +128,7 @@ def test_build_matches_jax_end_to_end():
     rng = np.random.default_rng(8)
     corpus = _clustered(rng)
     want = jax_ivf.IVFIndex.build(corpus, nlist=16, seed=1)
-    got = ivf.IVFIndex.build(corpus, nlist=16, seed=1)
+    got = ivf.IVFIndex.build(corpus, nlist=16, seed=1, device="cpu")
     np.testing.assert_array_equal(got.perm, want.perm)
     assert got.capacity == want.capacity
     np.testing.assert_allclose(got.centroids, want.centroids, rtol=0, atol=TOL)
@@ -139,7 +139,7 @@ def test_build_matches_jax_end_to_end():
 
 def test_build_on_device_matches_build():
     corpus = _clustered(np.random.default_rng(9))
-    built = ivf.IVFIndex.build(corpus, nlist=16, seed=2)
+    built = ivf.IVFIndex.build(corpus, nlist=16, seed=2, device="cpu")
     on_device = ivf.IVFIndex.build_on_device(torch.from_numpy(corpus), nlist=16, seed=2)
     np.testing.assert_array_equal(on_device.perm, built.perm)
     np.testing.assert_allclose(on_device.centroids, built.centroids, rtol=0, atol=TOL)
@@ -286,12 +286,12 @@ def test_tune_nprobe_matches_jax():
 def test_state_roundtrip_and_foreign_corpus():
     rng = np.random.default_rng(21)
     corpus = unit_rows(rng, 600, D)
-    index = ivf.IVFIndex.build(corpus, nlist=16, metric="l2", seed=3)
-    restored = ivf.IVFIndex.from_state(corpus, index.state())
+    index = ivf.IVFIndex.build(corpus, nlist=16, metric="l2", seed=3, device="cpu")
+    restored = ivf.IVFIndex.from_state(corpus, index.state(), device="cpu")
     assert restored.metric == "l2"
     np.testing.assert_array_equal(restored.search(corpus[:5], 8, nprobe=4)[1], index.search(corpus[:5], 8, nprobe=4)[1])
     with pytest.raises(ValueError, match="beyond the corpus"):
-        ivf.IVFIndex.from_state(corpus[:100], index.state())
+        ivf.IVFIndex.from_state(corpus[:100], index.state(), device="cpu")
 
 
 # ---------------------------------------------------------------------------

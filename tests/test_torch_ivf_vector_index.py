@@ -42,11 +42,16 @@ def _metas(start, n):
     return [{"photo_path": f"/p/{start + i}.jpg"} for i in range(n)]
 
 
+def _on_host(cls):
+    """The port's index is asked for the CPU; the JAX one takes no device."""
+    return {"device": "cpu"} if cls is VectorIndex else {}
+
+
 def _pair(tmp_path, rows, **kw):
     """The same rows in a JAX and a port IVF index."""
     out = []
     for cls, name in ((JaxIndex, "jax"), (VectorIndex, "port")):
-        index = cls(D, index_type="ivf", **_paths(tmp_path, name), **kw)
+        index = cls(D, index_type="ivf", **_paths(tmp_path, name), **_on_host(cls), **kw)
         index.add_batch(rows, _metas(0, rows.shape[0]))
         out.append(index)
     return out
@@ -89,7 +94,7 @@ def test_autotune_report_matches_jax(tmp_path):
     assert report["self_recall_at_10"] >= 0.95 and 0.5 <= report["heldout_recall_at_10"] <= 1.0
     # the report rides the sidecar across a save and a load
     port.save()
-    again = VectorIndex(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path, "port"))
+    again = VectorIndex(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path, "port"), device="cpu")
     assert again.load() and again.describe()["ivf_autotune"] == report
 
 
@@ -104,7 +109,7 @@ def test_describe_and_meta_keys_match_jax(tmp_path):
 
 def test_incremental_append_then_retrain_on_doubling(tmp_path):
     rng = np.random.default_rng(3)
-    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=8, **_paths(tmp_path))
+    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=8, **_paths(tmp_path), device="cpu")
     rows = rng.normal(size=(120, D)).astype(np.float32)
     index.add_batch(rows, _metas(0, 120))
     index.search(rows[0], 1)
@@ -127,14 +132,14 @@ def test_sidecar_loads_across_packages_without_retraining(tmp_path, direction):
     writer_cls, reader_cls, reader_ivf = (
         (JaxIndex, VectorIndex, IVFIndex) if direction == "jax_to_port" else (VectorIndex, JaxIndex, JaxIVF)
     )
-    writer = writer_cls(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path))
+    writer = writer_cls(D, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path), **_on_host(writer_cls))
     writer.add_batch(rows, _metas(0, 320))
     writer.save()
     assert not os.path.exists(writer.ivf_sidecar_path)
     queries = rows[:5] + 0.05 * rng.normal(size=(5, D)).astype(np.float32)
     expected = writer.search_batch(queries, 6)  # the first routed search builds, tunes and persists
     assert os.path.exists(writer.ivf_sidecar_path)
-    reader = reader_cls(None, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path))
+    reader = reader_cls(None, index_type="ivf", ivf_nlist=8, ivf_nprobe=0, **_paths(tmp_path), **_on_host(reader_cls))
     with mock.patch.object(reader_ivf, "build", side_effect=AssertionError("retrained")):
         assert reader.load()
         assert reader._ivf is not None and reader._ivf_built_at == 320
@@ -146,12 +151,12 @@ def test_sidecar_loads_across_packages_without_retraining(tmp_path, direction):
 def test_quantized_flag_consistent_across_restart(tmp_path):
     """A restored int8 deployment probes the int8 shadow, as a fresh build does."""
     rows = _clustered(np.random.default_rng(8))
-    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, quantized=True, **_paths(tmp_path))
+    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, quantized=True, **_paths(tmp_path), device="cpu")
     index.add_batch(rows, _metas(0, 320))
     index.save()
     expected = index.search_batch(rows[:3], 5)
     assert index._ivf.quantized and index._ivf._corpus_i8 is not None
-    again = VectorIndex(None, index_type="ivf", ivf_nlist=8, quantized=True, **_paths(tmp_path))
+    again = VectorIndex(None, index_type="ivf", ivf_nlist=8, quantized=True, **_paths(tmp_path), device="cpu")
     with mock.patch.object(IVFIndex, "build", side_effect=AssertionError("retrained")):
         assert again.load() and again._ivf.quantized
         _same_hits(again.search_batch(rows[:3], 5), expected)
@@ -160,7 +165,7 @@ def test_quantized_flag_consistent_across_restart(tmp_path):
 def test_stale_sidecar_is_removed_on_save(tmp_path):
     rng = np.random.default_rng(5)
     rows = rng.normal(size=(300, D)).astype(np.float32)
-    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path))
+    index = VectorIndex(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path), device="cpu")
     index.add_batch(rows[:200], _metas(0, 200))
     index.save()
     index.search(rows[0], 3)
@@ -168,7 +173,7 @@ def test_stale_sidecar_is_removed_on_save(tmp_path):
     index.add_batch(rows[200:], _metas(200, 100))
     index.save()  # the built IVF no longer matches the rows
     assert not os.path.exists(index.ivf_sidecar_path)
-    again = VectorIndex(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path))
+    again = VectorIndex(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path), device="cpu")
     assert again.load() and again._ivf is None
     with open(index.ivf_sidecar_path, "wb") as f:
         f.write(b"not an npz")
@@ -178,18 +183,18 @@ def test_stale_sidecar_is_removed_on_save(tmp_path):
 
 @pytest.mark.parametrize("writer_cls", [JaxIndex, VectorIndex])
 def test_flat_loader_rejects_ivf_files(tmp_path, writer_cls):
-    writer = writer_cls(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path))
+    writer = writer_cls(D, index_type="ivf", ivf_nlist=8, **_paths(tmp_path), **_on_host(writer_cls))
     writer.add_batch(np.random.default_rng(6).normal(size=(40, D)).astype(np.float32), _metas(0, 40))
     writer.save()
     with pytest.raises(ValueError, match="index type"):
-        VectorIndex(None, index_type="flat", **_paths(tmp_path)).load()
+        VectorIndex(None, index_type="flat", **_paths(tmp_path), device="cpu").load()
 
 
 def test_hnsw_maps_to_ivf(tmp_path, capsys):
-    index = VectorIndex(D, index_type="hnsw", **_paths(tmp_path))
+    index = VectorIndex(D, index_type="hnsw", **_paths(tmp_path), device="cpu")
     assert index.index_type == "ivf" and "using ivf" in capsys.readouterr().out
     with pytest.raises(ValueError, match="index_type"):
-        VectorIndex(D, index_type="annoy", **_paths(tmp_path))
+        VectorIndex(D, index_type="annoy", **_paths(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
@@ -198,7 +203,7 @@ def test_microbatcher_routes_through_ivf(tmp_path, metric):
     the grouped scan of the flat store under cosine (as the JAX batcher
     does) and ``ivf_masked`` under l2 (the batcher leaves them alone)."""
     rows = _clustered(np.random.default_rng(7))
-    index = VectorIndex(D, index_type="ivf", metric=metric, ivf_nlist=8, ivf_nprobe=8, **_paths(tmp_path))
+    index = VectorIndex(D, index_type="ivf", metric=metric, ivf_nlist=8, ivf_nprobe=8, **_paths(tmp_path), device="cpu")
     index.add_batch(rows, _metas(0, 320))
     batcher = attach_microbatcher(index, window_s=0.001)
     try:

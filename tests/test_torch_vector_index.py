@@ -1,7 +1,9 @@
 """The port's flat VectorIndex against the JAX package's: checkpoints load
 across the two packages in both directions (base snapshot plus committed
 segments) and search the same afterwards; out-of-range row ids raise; rows
-installed in memory serve as rows added through ``add_batch`` do."""
+installed in memory serve as rows added through ``add_batch`` do; with no
+device given, the index takes the one ``PSE_PLATFORM`` names, the card when
+it is unset."""
 
 import os
 
@@ -18,6 +20,11 @@ D = 48
 
 def _paths(tmp_path, name):
     return dict(index_path=str(tmp_path / f"{name}.index"), metadata_path=str(tmp_path / f"{name}-meta.json"))
+
+
+def _on_host(cls):
+    """The port's index is asked for the CPU; the JAX one takes no device."""
+    return {"device": "cpu"} if cls is VectorIndex else {}
 
 
 def _metas(start, n):
@@ -56,10 +63,10 @@ def _assert_same_search(a, b, queries, mask):
 def test_checkpoints_load_across_packages(tmp_path, metric, with_segments, direction):
     rng = np.random.default_rng(3)
     writer_cls, reader_cls = (JaxIndex, VectorIndex) if direction == "jax_to_port" else (VectorIndex, JaxIndex)
-    writer = writer_cls(D, metric=metric, **_paths(tmp_path, "idx"))
+    writer = writer_cls(D, metric=metric, **_paths(tmp_path, "idx"), **_on_host(writer_cls))
     _fill(writer, rng, with_segments)
     assert os.path.isdir(tmp_path / "idx.index.segments") == with_segments
-    reader = reader_cls(None, metric=metric, **_paths(tmp_path, "idx"))
+    reader = reader_cls(None, metric=metric, **_paths(tmp_path, "idx"), **_on_host(reader_cls))
     assert reader.load() is True
     assert reader.get_total_items() == writer.get_total_items() == (365 if with_segments else 300)
     assert reader.metadata == writer.metadata and reader.dimension == D
@@ -76,25 +83,25 @@ def test_checkpoints_load_across_packages(tmp_path, metric, with_segments, direc
     # the reader keeps writing segments the writer's package can load back
     reader.add_batch(unit_rows(rng, 5, D), _metas(1000, 5))
     reader.save_incremental()
-    again = writer_cls(None, metric=metric, **_paths(tmp_path, "idx"))
+    again = writer_cls(None, metric=metric, **_paths(tmp_path, "idx"), **_on_host(writer_cls))
     assert again.load() and again.get_total_items() == reader.get_total_items()
     _assert_same_search(again, reader, queries, None)
 
 
 def test_load_validates_sidecar(tmp_path):
-    index = VectorIndex(D, metric="cosine", **_paths(tmp_path, "v"))
+    index = VectorIndex(D, metric="cosine", **_paths(tmp_path, "v"), device="cpu")
     assert index.load() is False
     _fill(index, np.random.default_rng(0), False)
-    other = VectorIndex(None, metric="l2", **_paths(tmp_path, "v"))
+    other = VectorIndex(None, metric="l2", **_paths(tmp_path, "v"), device="cpu")
     with pytest.raises(ValueError, match="metric"):
         other.load()
     os.remove(tmp_path / "v.index.meta.json")
     with pytest.raises(ValueError, match="sidecar"):
-        VectorIndex(None, metric="cosine", **_paths(tmp_path, "v")).load()
+        VectorIndex(None, metric="cosine", **_paths(tmp_path, "v"), device="cpu").load()
 
 
 def test_out_of_range_row_ids_raise(tmp_path):
-    index = VectorIndex(D, **_paths(tmp_path, "b"))
+    index = VectorIndex(D, **_paths(tmp_path, "b"), device="cpu")
     index.add_batch(unit_rows(np.random.default_rng(0), 20, D), _metas(0, 20))
     index._store.search = lambda q, k, **kw: (np.zeros((1, k), np.float32), np.full((1, k), 20, np.int32))
     with pytest.raises(RuntimeError, match="out-of-range"):
@@ -105,7 +112,7 @@ def test_out_of_range_row_ids_raise(tmp_path):
 
 
 def test_routes_and_unported_configurations(tmp_path):
-    index = VectorIndex(D, quantized=True, **_paths(tmp_path, "r"))
+    index = VectorIndex(D, quantized=True, **_paths(tmp_path, "r"), device="cpu")
     assert index.search_batch(np.ones((2, D), np.float32), 3) == [[], []]
     index.add_batch(unit_rows(np.random.default_rng(1), 30, D), _metas(0, 30))
     index.search(np.ones(D, np.float32), 3)
@@ -115,9 +122,9 @@ def test_routes_and_unported_configurations(tmp_path):
     assert index.describe()["count"] == 30
     index.raw_grouped_search_batch(np.ones((1, D)), 3, np.ones((1, 30)), np.zeros(1))
     assert index.last_route["impl"] == "int8_grouped"
-    assert VectorIndex(D, index_type="ivf", **_paths(tmp_path, "i")).index_type == "ivf"  # ported
+    assert VectorIndex(D, index_type="ivf", **_paths(tmp_path, "i"), device="cpu").index_type == "ivf"  # ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorIndex(D, mesh_devices=2, **_paths(tmp_path, "m"))
+        VectorIndex(D, mesh_devices=2, **_paths(tmp_path, "m"), device="cpu")
     index.clear()
     assert index.get_total_items() == 0 and index.metadata == []
 
@@ -126,9 +133,9 @@ def test_routes_and_unported_configurations(tmp_path):
 def test_load_device_rows_serves_like_add_batch(tmp_path, dimension):
     rng = np.random.default_rng(5)
     rows = unit_rows(rng, 120, D)
-    built = VectorIndex(D, **_paths(tmp_path, "a"))
+    built = VectorIndex(D, **_paths(tmp_path, "a"), device="cpu")
     built.add_batch(rows, _metas(0, 120))
-    installed = VectorIndex(dimension, **_paths(tmp_path, "b"))
+    installed = VectorIndex(dimension, **_paths(tmp_path, "b"), device="cpu")
     with pytest.raises(ValueError, match="mismatch"):
         installed.load_device_rows(torch.from_numpy(rows), _metas(0, 119))
     installed.load_device_rows(torch.from_numpy(rows), _metas(0, 120))
@@ -137,3 +144,18 @@ def test_load_device_rows_serves_like_add_batch(tmp_path, dimension):
         installed.get_embedding_by_photo_path("/photos/7.jpg"), rows[7], rtol=0, atol=1e-7
     )
     _assert_same_search(installed, built, unit_rows(rng, 4, D), rng.random(120) > 0.5)
+
+
+def test_no_device_means_the_card_and_raises_without_one(tmp_path, monkeypatch):
+    monkeypatch.delenv("PSE_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="PSE_PLATFORM=cpu"):
+        VectorIndex(dimension=8, **_paths(tmp_path, "card"))
+
+
+def test_pse_platform_cpu_gives_the_host(tmp_path, monkeypatch):
+    monkeypatch.setenv("PSE_PLATFORM", "cpu")
+    index = VectorIndex(dimension=8, **_paths(tmp_path, "host"))
+    assert torch.device(index.device).type == "cpu" and index._store.device.type == "cpu"
+    index.add_batch(unit_rows(np.random.default_rng(2), 4, 8), _metas(0, 4))
+    assert index.search(unit_rows(np.random.default_rng(2), 4, 8)[1], 1)[0]["metadata"]["photo_path"] == "/photos/1.jpg"

@@ -1,13 +1,19 @@
 """Shared helpers of the ``test_torch_*`` parity tests and of
 ``chip_smoke.py``: seeded inputs made with numpy and handed to both
-packages, the top-k comparisons, the kernel-launch checks, and the route
-flow both apps run.  Imports no jax (a test runs it with jax absent)."""
+packages, the top-k comparisons, the kernel-launch checks, the route
+flows both apps run, and a local stand-in for an OpenAI-compatible
+server (embeddings, /rerank, chat completions) with the rules it answers
+by.  Imports no jax (a test runs it with jax absent)."""
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
+import json
 import os
+import re
+import threading
 import time
 
 import numpy as np
@@ -156,3 +162,168 @@ def run_flow(client, photo_dir):
     # the keyword channel's relevance floors may rightly leave this one empty
     assert out["season_text"]["status"] == "success", out["season_text"]
     return out
+
+
+def run_online_flow(post, photo_dir):
+    """The searches of the online profile: a text search with the text and
+    visual reranks, an image search and an upload search with the visual
+    rerank.  ``post(path, body, files=None)`` returns the decoded JSON.
+    Each response must report the reranks it asked for."""
+    out = {}
+    out["text"] = post("/search_photos", {"query": "beach sunset sea", "top_k": 4,
+                                          "enable_text_rerank": True, "enable_visual_rerank": True})
+    out["image"] = post("/search_by_image", {"image_path": os.path.join(photo_dir, "beach_sunset_sea.jpg"),
+                                             "top_k": 3, "enable_visual_rerank": True})
+    out["upload"] = post("/search_by_uploaded_image", {"top_k": "3", "enable_visual_rerank": "1"},
+                         files={"image": ("fresh.jpg", _upload_bytes())})
+    for name, flags in (("text", ("text_reranked", "visual_reranked")), ("image", ("visual_reranked",)),
+                        ("upload", ("visual_reranked",))):
+        payload = out[name]
+        assert payload["status"] == "success" and payload["results"], (name, str(payload)[:300])
+        assert all(payload[flag] for flag in flags), (name, {f: payload.get(f) for f in flags})
+        for flag in flags:
+            field = flag.replace("reranked", "rerank_score")
+            assert all(field in hit for hit in payload["results"]), (name, field)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The stand-in for an OpenAI-compatible server
+# ---------------------------------------------------------------------------
+
+_TOKEN = re.compile(r"[a-z0-9]+|[^\x00-\x7f]")
+
+
+def standin_tokens(text):
+    """Lower-case ASCII words and single non-ASCII characters."""
+    return _TOKEN.findall(str(text).lower())
+
+
+def _seeded(key, dim):
+    seed = int.from_bytes(hashlib.blake2b(key.encode("utf-8"), digest_size=8, key=b"pse-standin").digest(), "little")
+    return np.random.default_rng(seed).normal(size=dim)
+
+
+def standin_vector(text, dim):
+    """The stand-in's embedding: the sum of one seeded Gaussian vector per
+    token (the text itself when it has none), as a float32 unit vector, so
+    that texts sharing words lie close."""
+    tokens = standin_tokens(text) or [str(text)]
+    vec = np.zeros(dim)
+    for token in tokens:
+        vec += _seeded(token, dim)
+    vec = vec.astype(np.float32)
+    return vec / np.linalg.norm(vec)
+
+
+def standin_scores(query, documents):
+    """The share of the query's tokens in each document (the rule of
+    /rerank and of the text chat rerank)."""
+    want = set(standin_tokens(query))
+    return [len(want & set(standin_tokens(doc))) / max(len(want), 1) for doc in documents]
+
+
+def standin_rerank(body):
+    """The answer of ``POST /rerank``: every document scored, best first,
+    ties to the smaller index, ``top_n`` kept."""
+    scores = standin_scores(body["query"], body["documents"])
+    order = sorted(range(len(scores)), key=lambda i: (-scores[i], i))[: int(body.get("top_n") or len(scores))]
+    return {"results": [{"index": i, "relevance_score": round(scores[i], 4)} for i in order]}
+
+
+def standin_chat(body):
+    """The answer of ``POST /chat/completions``: a JSON ``ranking``.  A
+    visual prompt (a content list, or the JSON string of one) ranks its
+    candidate images by a seeded hash of their data URLs; a text rerank
+    prompt ranks its documents by :func:`standin_scores`."""
+    content = body["messages"][0]["content"]
+    if isinstance(content, str) and content.startswith("["):
+        content = json.loads(content)
+    if isinstance(content, list):
+        urls = []
+        for part, after in zip(content, content[1:]):
+            if part.get("type") == "text" and str(part.get("text", "")).startswith("候选图片"):
+                image = after.get("image_url")
+                urls.append(image["url"] if isinstance(image, dict) else image)
+        ranking = sorted(range(1, len(urls) + 1),
+                         key=lambda i: hashlib.blake2b(urls[i - 1].encode(), digest_size=8).digest())
+        answer = {"ranking": ranking}
+    else:
+        query = re.search(r"^query: (.*)$", content, re.M).group(1)
+        documents = json.loads(re.search(r"^documents: (.*)$", content, re.M).group(1))
+        scores = standin_scores(query, [d["text"] for d in documents])
+        order = sorted(range(len(scores)), key=lambda i: (-scores[i], i))
+        answer = {"ranking": [{"index": documents[i]["index"], "score": round(scores[i], 4)} for i in order]}
+    return {"choices": [{"message": {"role": "assistant", "content": json.dumps(answer)}}]}
+
+
+class StandInServer:
+    """A local stand-in for an OpenAI-compatible server on 127.0.0.1, in a
+    thread: ``/v1/embeddings`` (:func:`standin_vector` of each input, of
+    the requested ``dimensions``, else ``dim``), ``/v1/rerank``
+    (:func:`standin_rerank`) and ``/v1/chat/completions``
+    (:func:`standin_chat`).  It counts the calls of each path and the
+    inputs of each embeddings call.  Use it as a context manager."""
+
+    def __init__(self, dim=1536):
+        self.dim = dim
+        self.calls = {"/v1/embeddings": 0, "/v1/rerank": 0, "/v1/chat/completions": 0}
+        self.embed_inputs = []  # inputs of each /v1/embeddings call
+        self._lock = threading.Lock()
+        self._server = None
+        self._thread = None
+
+    @property
+    def base_url(self):
+        return f"http://127.0.0.1:{self._server.server_address[1]}/v1"
+
+    def _answer(self, path, body):
+        if path == "/v1/embeddings":
+            inputs = body["input"] if isinstance(body["input"], list) else [body["input"]]
+            with self._lock:
+                self.embed_inputs.append(len(inputs))
+            dim = int(body.get("dimensions") or self.dim)
+            return {"object": "list", "model": body.get("model"),
+                    "data": [{"object": "embedding", "index": i, "embedding": standin_vector(t, dim).tolist()}
+                             for i, t in enumerate(inputs)]}
+        if path == "/v1/rerank":
+            return standin_rerank(body)
+        if path == "/v1/chat/completions":
+            return standin_chat(body)
+        return None
+
+    def __enter__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — the http.server hook
+                body = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)) or b"{}")
+                answer = outer._answer(self.path, body)
+                if answer is None:
+                    self.send_error(404)
+                    return
+                with outer._lock:
+                    outer.calls[self.path] += 1
+                data = json.dumps(answer).encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(10)
+        return False

@@ -122,11 +122,34 @@ Phases; each prints its results on lines of its own and raises on failure:
              torch.cuda.set_sync_debug_mode("error"), equal to
              IVFIndex.search.  The tools find the card as their default
              device: PSE_PLATFORM must be unset.
+8. mesh    - the mesh tier: (a) a MeshEmbeddingStore over four shards of
+             the card (make_mesh(devices=[cuda:0] * 4)) at 1M x 1536 bf16
+             unit rows from a seed, with the int8 shadow: search(impl=
+             "auto") (kernel 1), search(impl="int8") (kernel 2) and
+             grouped_search over five predicates keeping 50 / 25 / 5 /
+             0.1 / 0 % (kernel 5, then kernel 6) at batches 1, 8 and 128,
+             top-50, each call launching its kernel once per shard, held
+             against the single-device EmbeddingStore on the same rows and
+             against the same search on the kernels' plain versions, host
+             to host ms beside the single store's; (b) a ShardedIVFIndex
+             on the same four shards (intrinsic-32 rows, nlist 1024,
+             nprobe 64): build seconds, kernel 7 once per shard per search
+             against its plain version under the same probes, recall@10
+             against the exact mesh scan; (c) the app with MESH_DEVICES=-1
+             (one card: the degenerate mesh of 1), flat and ivf, image,
+             text and season-filtered searches (the grouped scan), then a
+             restart that loads the saved mesh index and its IVF sidecar;
+             (d) two ranks on the card(s): the sharded search with each
+             rank uploading only its rows (a numpy oracle), and two app
+             instances joined through DIST_* (rank 0 over HTTP, rank 1's
+             replays); gloo when the ranks share a card (NCCL refuses
+             that), NCCL with a card per rank.
 
 The launch counters are set to 0 before the route runs of phases 3-6 (and
-before the store's impl routes in phase 4) and before phase 7, and read
-after every client thread has joined; a kernel that its path never
-launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
+before the store's impl routes in phase 4), before phase 7 and before each
+mesh call of phase 8, and read after every client thread has joined (in
+phase 8, after the call: it must have launched its kernel once per
+shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
 kernel's route, launches, error, times, bound (the larger of its bytes
 over 3.35 TB/s and its operations over the peak of their type: 989 TFLOP/s
 bf16, 67 TFLOP/s f32, 1,979 TOP/s int8) and library time; the last is
@@ -137,6 +160,7 @@ Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
                                         or under $CUDA_HOME or /usr/local/cuda)
       python3 chip_smoke.py --phases device,kernels
       python3 chip_smoke.py --phases device,online,tools
+      python3 chip_smoke.py --phases device,mesh
 """
 
 from __future__ import annotations
@@ -161,7 +185,7 @@ _NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_b
 _FLAT = _NAMES[:4]
 _IMPL_ROUTES = _NAMES[5:]  # driven through the store's impl values in phase 4
 _DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",), "online": _FLAT,
-           "tools": ("block_topk", "int8_block_topk", "ivf_block_topk")}  # what each phase must launch
+           "tools": ("block_topk", "int8_block_topk", "ivf_block_topk"), "mesh": _FLAT + ("ivf_block_topk",)}  # what each phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
@@ -2450,12 +2474,289 @@ def phase_tools(rows: int = 1_000_000, dim: int = 1536, faiss_rows: int = 8192, 
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the mesh tier
+# ---------------------------------------------------------------------------
+
+_MESH_SHARDS = 4
+_MESH_KERNELS = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_block_topk")
+
+
+def _counted(name, shards, call):
+    """``call()`` with the launch counters set to 0 just before; it must
+    have launched kernel ``name`` once per shard and nothing else of the
+    mesh's kernels.  The launches go into the JSON line's counts."""
+    import torch
+
+    reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {n: (shards if n == name else 0) for n in _MESH_KERNELS + ("ivf_block_topk",)}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"mesh: expected {name} once per shard ({shards}), launches {got}")
+    _LAUNCHES[name] += shards
+    return out
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Mean host-to-host milliseconds of ``fn`` (results on the host), after a warm-up."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+def _host_rows(corpus):
+    """A device corpus as float32 host rows, in chunks."""
+    import numpy as np
+
+    out = np.empty(tuple(corpus.shape), np.float32)
+    for start in range(0, corpus.shape[0], 131072):
+        out[start : start + 131072] = corpus[start : start + 131072].float().cpu().numpy()
+    return out
+
+
+def phase_mesh(rows: int = 1_000_000, dim: int = 1536) -> None:
+    mesh_flat(rows, dim)
+    mesh_ivf(rows, dim)
+    mesh_app()
+    mesh_ranks()
+
+
+def mesh_flat(rows: int, dim: int) -> None:
+    """(a) MeshEmbeddingStore over four shards of the card against the
+    single-device EmbeddingStore on the same rows, and against the plain
+    per-shard scans."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
+    from photo_search_engine_tpu_torch.core.mesh_store import MeshEmbeddingStore
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from photo_search_engine_tpu_torch.parallel.sharded import make_mesh
+    from tests.torch_parity import plain_scan
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    corpus = torch.empty((rows, dim), dtype=torch.bfloat16, device=DEVICE)
+    for start in range(0, rows, 131072):
+        stop = min(rows, start + 131072)
+        corpus[start:stop] = _unit_rows(stop - start, dim, gen, torch.bfloat16)
+    host = _host_rows(corpus)
+    queries = _unit_rows(128, dim, gen, torch.float32).cpu().numpy()
+    rng = np.random.default_rng(SEED + 5)
+    keeps = (0.5, 0.25, 0.05, 0.001, 0.0)
+    table = np.stack([rng.random(rows) < frac for frac in keeps]).astype(np.int8)
+    log(f"[mesh] {rows} x {dim} bf16 unit rows (metric ip: unit rows, so cosine) from a seed on the card, "
+        f"{len(keeps)} predicates keeping {keeps} of them, in {time.perf_counter() - t0:.1f} s")
+
+    t = time.perf_counter()
+    mesh = make_mesh(devices=[torch.device(DEVICE, 0)] * _MESH_SHARDS)
+    store = MeshEmbeddingStore(dim, metric="ip", store_dtype="bfloat16", quantized=True, mesh=mesh)
+    store.append(host)
+    store._sharded._sync()
+    torch.cuda.synchronize()
+    appended = time.perf_counter() - t
+    single = EmbeddingStore(dim, device=torch.device(DEVICE), metric="ip", store_dtype="bfloat16", quantized=True)
+    single.load_device_rows(corpus)  # the same bf16 rows; its int8 shadow from quantize_rows
+    del host
+    sharded = store._sharded
+    log(f"[mesh] MeshEmbeddingStore on {mesh}: append + first sync {appended:.1f} s (shard capacity "
+        f"{sharded._capacity}, counts {sharded.counts.tolist()}, int8 block {_int8_block(sharded)}); "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with the single-device store")
+
+    calls = (  # kernel, what, the call, (module, the kernel's plain version)
+        ("block_topk", "auto", lambda s, q, ids, k: s.search(q, k, impl="auto"), (to, to.exact_block_topk_plain)),
+        ("int8_block_topk", "int8", lambda s, q, ids, k: s.search(q, k, impl="int8"),
+         (qo, qo.int8_block_topk_plain)),
+        ("grouped_block_topk", "grouped", lambda s, q, ids, k: s.grouped_search(q, k, table, ids),
+         (go, go.grouped_block_topk_plain)),
+        ("int8_grouped_block_topk", "grouped int8",
+         lambda s, q, ids, k: s.grouped_search(q, k, table, ids, impl="int8"), (qo, qo.int8_grouped_block_topk_plain)),
+    )
+    for batch in (1, 8, 128):
+        q = queries[:batch]
+        ids = np.arange(batch, dtype=np.int32) % len(keeps)
+        for name, what, call, (module, plain) in calls:
+            got_v, got_i = _counted(name, _MESH_SHARDS, lambda: call(store, q, ids, 50))
+            # the references at k + 1: their last column is the cut (check_topk)
+            ref_v, ref_i = call(single, q, ids, 51)
+            err = check_topk(f"mesh {what} against the single-device store", got_v, got_i, ref_v, ref_i)
+            with plain_scan(module, name, plain):
+                plain_v, plain_i = call(store, q, ids, 51)
+            err = max(err, check_topk(f"mesh {what} against the plain per-shard scans", got_v, got_i,
+                                      plain_v, plain_i))
+            _ERRORS[name] = max(_ERRORS[name], err)
+            if "grouped" in what and not (got_i[4::5] == -1).all():
+                raise AssertionError(f"mesh {what}: the empty predicate returned rows")
+            single_ms, mesh_ms = (_host_ms(lambda: call(single, q, ids, 50)),
+                                  _host_ms(lambda: call(store, q, ids, 50)))
+            mesh_ms2, single_ms2 = (_host_ms(lambda: call(store, q, ids, 50)),
+                                    _host_ms(lambda: call(single, q, ids, 50)))
+            log(f"[mesh] batch {batch} {what} top-50: {name} x{_MESH_SHARDS}; ids equal to the single-device "
+                f"store's and to the plain per-shard scans (max |err| {err:.3g}); host to host ms mesh "
+                f"{(mesh_ms + mesh_ms2) / 2:.3f} ({mesh_ms:.3f}, {mesh_ms2:.3f}) against single "
+                f"{(single_ms + single_ms2) / 2:.3f} ({single_ms:.3f}, {single_ms2:.3f})")
+    del store, single, sharded, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _int8_block(sharded) -> int:
+    from photo_search_engine_tpu_torch.parallel.sharded import _shard_block_n
+
+    return _shard_block_n(sharded._capacity, sharded.dimension)
+
+
+def mesh_ivf(rows: int, dim: int) -> None:
+    """(b) ShardedIVFIndex over the same four shards: intrinsic-32 rows,
+    global nlist 1024, nprobe 64; kernel 7 once per shard per search,
+    against its plain version under the same probes; recall@10 against the
+    exact mesh scan."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from photo_search_engine_tpu_torch.parallel.sharded import ShardedEmbeddingStore, make_mesh
+    from photo_search_engine_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from tests.torch_parity import plain_scan
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    corpus, basis = _intrinsic_rows(rows, dim, gen)
+    rng = np.random.default_rng(SEED + 6)
+    picks = torch.from_numpy(rng.choice(rows, size=128, replace=False)).to(DEVICE)
+    noise = torch.randn((128, basis.shape[0]), generator=gen, device=DEVICE) @ basis
+    queries = to.l2_normalize(corpus[picks].float() + 0.1 * noise).cpu().numpy()
+    mesh = make_mesh(devices=[torch.device(DEVICE, 0)] * _MESH_SHARDS)
+    store = ShardedEmbeddingStore(dim, mesh, metric="ip", store_dtype="bfloat16")
+    store.append(_host_rows(corpus))
+    store._sync()
+    del corpus
+    torch.cuda.synchronize()
+    log(f"[mesh] {rows} x {dim} bf16 rows of intrinsic dimension 32 in a four-shard ShardedEmbeddingStore in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    ivf = ShardedIVFIndex.build(store, 1024)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t
+    log(f"[mesh] ShardedIVFIndex.build: nlist {ivf.nlist}, L {ivf.lrows} slots a cluster per shard, "
+        f"{ivf.n_shards} shards, in {build:.1f} s (data-parallel k-means, 8 steps over every row; placement; "
+        f"layout gathers); {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    for batch in (1, 128):
+        q = queries[:batch]
+        got_v, got_i = _counted("ivf_block_topk", _MESH_SHARDS, lambda: ivf.search(q, 50, 64))
+        with plain_scan(io_, "ivf_block_topk"):
+            ref_v, ref_i = ivf.search(q, 51, 64)
+        err = check_topk(f"mesh ivf batch {batch}", got_v, got_i, ref_v, ref_i)
+        _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+        ms = _host_ms(lambda: ivf.search(q, 50, 64))
+        log(f"[mesh] ShardedIVFIndex.search batch {batch}, top-50, nprobe 64: ivf_block_topk x{_MESH_SHARDS}, ids "
+            f"equal to kernel 7's plain version under the same probes (max |err| {err:.3g}); {ms:.3f} ms host to host")
+    _, got = ivf.search(queries, 10, 64)
+    _, want = _counted("block_topk", _MESH_SHARDS, lambda: store.search(queries, 10))
+    recall = float(np.mean([len(set(g.tolist()) & set(w.tolist())) / 10 for g, w in zip(got, want)]))
+    log(f"[mesh] sharded IVF recall@10 at nprobe 64 against the exact mesh scan (kernel 1 x{_MESH_SHARDS}), 128 "
+        f"held-out queries: {recall:.4f}")
+    if not recall > 0.5:
+        raise AssertionError(f"mesh ivf: recall@10 {recall:.4f}")
+    del ivf, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_app() -> None:
+    """(c) The app with MESH_DEVICES=-1: one card resolves to a mesh of 1
+    (the degenerate mesh, the same code path), flat and IVF, and a restart
+    that loads the saved mesh index and its IVF sidecar."""
+    import numpy as np
+
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+
+    demo = _demo()
+    with tempfile.TemporaryDirectory(prefix="pse_mesh_") as tmp:
+        for index_type in ("flat", "ivf"):
+            env = _app_env(os.path.join(tmp, index_type), "0", keyword_backend="none")
+            env.update(MESH_DEVICES="-1", VECTOR_INDEX_TYPE=index_type, IVF_NPROBE="4")
+            services = initialize_services(load_config(env))
+            index = services["vector_index"]
+            if index.mesh_devices != 1 or index._store.n_shards != 1:
+                raise AssertionError(f"MESH_DEVICES=-1 on one card: mesh_devices {index.mesh_devices}")
+            server, port = _serve(create_app(services))
+            base = f"http://127.0.0.1:{port}"
+            try:
+                demo._post(base, "/init_index", {"mode": "full"})
+                _wait_ready(demo, base, f"mesh app ({index_type})")
+                photo = os.path.join(services["config"]["PHOTO_DIR"], "beach_sunset_sea.jpg")
+                reset_launches()
+                counts = {"image": _results("mesh image", demo._post(base, "/search_by_image",
+                                                                      {"image_path": photo, "top_k": 3}))}
+                image_route = dict(index.last_route)
+                counts["text"] = _results("mesh text", demo._post(base, "/search_photos",
+                                                                   {"query": "beach sunset sea", "top_k": 6}))
+                counts["season_text"] = _results("mesh season", demo._post(
+                    base, "/search_photos", {"query": "夏天 海边", "top_k": 6}), allow_empty=True)
+                launches = read_launches()
+            finally:
+                server.shutdown()
+                server.server_close()
+                close_batchers(services)
+            want = "ivf_block_topk" if index_type == "ivf" else "block_topk"
+            log(f"[mesh] app MESH_DEVICES=-1 ({index_type}): results {counts}, image route {image_route}, "
+                f"launches {launches}")
+            if image_route.get("mesh_devices") != 1 or launches[want] <= 0 or launches["grouped_block_topk"] <= 0:
+                raise AssertionError(f"mesh app ({index_type}): route {image_route}, launches {launches}")
+            for name in (want, "grouped_block_topk"):
+                _LAUNCHES[name] += launches[name]
+        # a restart: the saved mesh index and its IVF sidecar load without retraining
+        restarted = initialize_services(load_config(env))
+        index = restarted["vector_index"]
+        try:
+            if not restarted["searcher"].load_index() or index._ivf is None:
+                raise AssertionError("mesh app restart: the index or its IVF sidecar did not load")
+            with np.load(index.ivf_sidecar_path) as payload:
+                kind = json.loads(str(payload["__meta__"]))["kind"]
+            hits = index.search(index.get_embedding_by_photo_path(photo), 3)
+        finally:
+            close_batchers(restarted)
+        if kind != "mesh" or not hits or index.last_route.get("mesh_devices") != 1:
+            raise AssertionError(f"mesh app restart: sidecar kind {kind}, route {index.last_route}")
+        log(f"[mesh] app restart: the saved mesh index ({index.get_total_items()} rows) and its IVF sidecar "
+            f"(kind {kind!r}) loaded without retraining; route {index.last_route}")
+
+
+def mesh_ranks() -> None:
+    """(d) Two ranks on the card(s): the bare sharded search (each rank
+    uploads only its rows; a numpy oracle) and the app deployment through
+    DIST_*.  With one card both ranks share it and the collectives run on
+    gloo; with two or more each rank takes its own card and NCCL."""
+    import torch
+
+    from photo_search_engine_tpu_torch.parallel.multihost import launch_app_dryrun, launch_dryrun
+
+    cards = torch.cuda.device_count()
+    log(f"[mesh] two ranks on {cards} card(s): device collectives on "
+        f"{'nccl (a card per rank)' if cards >= 2 else 'gloo (the ranks share cuda:0; NCCL refuses that, so the NCCL path is not run on one card)'}")
+    for what, run in (("sharded search, 2 x 2 shards", lambda: launch_dryrun(2, 2, timeout=180.0, device=DEVICE)),
+                      ("app deployment via DIST_*", lambda: launch_app_dryrun(2, 1, timeout=240.0, device=DEVICE))):
+        t = time.perf_counter()
+        if not run():
+            raise AssertionError(f"mesh: two ranks, {what}, failed")
+        log(f"[mesh] two ranks, {what}: passed in {time.perf_counter() - t:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="device,kernels,app,scale,ivf,online,tools",
-                        help="comma-separated subset of device,kernels,app,scale,ivf,online,tools")
+    parser.add_argument("--phases", default="device,kernels,app,scale,ivf,online,tools,mesh",
+                        help="comma-separated subset of device,kernels,app,scale,ivf,online,tools,mesh")
     args = parser.parse_args(argv)
     import torch
 
@@ -2471,7 +2772,7 @@ def main(argv=None) -> int:
     started = time.perf_counter()
     phase_device()
     runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "ivf": phase_ivf,
-               "online": phase_online, "tools": phase_tools}
+               "online": phase_online, "tools": phase_tools, "mesh": phase_mesh}
     for name in phases:
         if name in runners:
             t = time.perf_counter()

@@ -24,9 +24,16 @@ one ``generate_embedding_batch`` call (one ``/v1/embeddings`` request
 with a list input on the online profile).  Both vector indexes are
 served: ``VECTOR_INDEX_TYPE=flat`` and ``ivf`` (``hnsw`` maps to
 ``ivf``; ``IVF_NLIST``, ``IVF_NPROBE`` and ``IVF_TARGET_RECALL`` as in the
-JAX app).  ``MESH_DEVICES != 0`` and ``DIST_*`` raise
-``NotImplementedError`` at startup, naming the ROADMAP.md section they
-wait for.
+JAX app).
+
+``MESH_DEVICES`` row-shards the corpus over a mesh (``parallel/``): 0 one
+device, N the first N cards (clamped, with a warning, to those visible),
+-1 every visible card; the host holds any number of logical shards (-1
+there is one a process).  ``DIST_COORDINATOR`` (``host:port``),
+``DIST_NUM_PROCESSES`` and ``DIST_PROCESS_ID`` join a ``torch.distributed``
+job (``parallel/sharded.init_distributed``): rank 0 serves HTTP over an
+``SPMDVectorIndex`` and the other ranks replay its device ops
+(``parallel/spmd_serving.py``).
 
 Run:  PSE_PLATFORM=gpu python -m photo_search_engine_tpu_torch.api.app
 """
@@ -38,6 +45,8 @@ import os
 import socket
 import sys
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from photo_search_engine_tpu_torch.api.routes import register_routes
 from photo_search_engine_tpu_torch.api.wsgi import App
@@ -54,27 +63,13 @@ from photo_search_engine_tpu_torch.core.batcher import BatchedEmbeddingService, 
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.models.hash_embedder import HashingEmbeddingService
+from photo_search_engine_tpu_torch.parallel.sharded import distributed, init_distributed, shutdown_distributed
 from photo_search_engine_tpu_torch.services.embedding import (
     DeviceTextRerankService,
     OpenAICompatibleEmbeddingService,
     TextRerankService,
 )
 from photo_search_engine_tpu_torch.services.rerank import LocalVisualRerankService, VisualRerankService
-
-_MESH = 'ROADMAP.md, "Modules still to port": mesh, multi-host and sharded saves'
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch port yet ({item})")
-
-
-def _check_ported(config: Dict[str, Any]) -> None:
-    """Raise for every configuration the port does not serve yet."""
-    if int(config.get("MESH_DEVICES") or 0) != 0:
-        raise _not_ported("MESH_DEVICES != 0", _MESH)
-    if config.get("DIST_COORDINATOR"):
-        raise _not_ported("DIST_* multi-host serving", _MESH)
-
 
 def load_config(overrides: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """The runtime configuration (environment + ``.env``), with
@@ -168,6 +163,47 @@ def _build_vision_service(config: Dict[str, Any]):
     return LocalVisionService()
 
 
+def _resolve_mesh_devices(requested, device) -> int:
+    """``MESH_DEVICES``: 0 one device, N >= 1 a mesh of N shards, -1 every
+    visible device.  On CUDA the visible devices are the cards (one a rank
+    in a ``torch.distributed`` job), and N above them is clamped with the
+    JAX app's warning; the host holds any number of logical shards, and -1
+    there is one a process."""
+    requested = int(requested or 0)
+    if requested == 0:
+        return 0
+    context = distributed()
+    world = context.world if context else 1
+    if torch.device(device).type != "cuda":
+        return requested if requested > 0 else world
+    available = world if context else torch.cuda.device_count()
+    if requested < 0:
+        return available
+    if requested > available:
+        print(f"[WARN] MESH_DEVICES={requested} but only {available} device(s) visible; using {available}")
+        return available
+    return requested
+
+
+def _vector_index_class_and_knobs(config: Dict[str, Any], device):
+    """``VectorIndex`` in one process; in a ``torch.distributed`` job
+    ``SPMDVectorIndex`` (the rank-0 fan-in), whose mesh must span every
+    rank (``MESH_DEVICES=0`` there takes one shard a rank, with a warning).
+    ``index_type`` passes through: the IVF build is the same on every rank
+    (replicated host mirror, seeded k-means, the same collectives in the
+    same order)."""
+    mesh_devices = _resolve_mesh_devices(config.get("MESH_DEVICES", 0), device)
+    context = distributed()
+    if context is None or context.world <= 1:
+        return VectorIndex, mesh_devices
+    from photo_search_engine_tpu_torch.parallel.spmd_serving import SPMDVectorIndex
+
+    if mesh_devices == 0:
+        mesh_devices = context.world
+        print(f"[WARN] multi-process run with MESH_DEVICES=0; using one shard a rank ({mesh_devices})")
+    return SPMDVectorIndex, mesh_devices
+
+
 def initialize_services(
     config: Optional[Dict[str, Any]] = None,
     device=None,
@@ -179,7 +215,6 @@ def initialize_services(
     adopted on the card by ``EmbeddingStore.load_device_rows``): it is
     served as it is instead of one loaded from ``INDEX_PATH``."""
     config = config or get_config()
-    _check_ported(config)
     device = resolve_device(config.get("PSE_PLATFORM")) if device is None else device
     microbatch = config.get("SEARCH_MICROBATCH_ENABLED")
     batch_options = {
@@ -190,7 +225,8 @@ def initialize_services(
 
     embedding_service = _build_embedding_service(config, device)
     installed = vector_index is not None
-    vector_index = vector_index if installed else VectorIndex(
+    index_cls, mesh_devices = _vector_index_class_and_knobs(config, device)
+    vector_index = vector_index if installed else index_cls(
         dimension=config.get("EMBEDDING_DIMENSION"),
         index_path=config["INDEX_PATH"],
         metadata_path=config["METADATA_PATH"],
@@ -202,6 +238,7 @@ def initialize_services(
         ivf_target_recall=config.get("IVF_TARGET_RECALL", 0.98),
         store_block_rows=config.get("TOPK_BLOCK_N") or None,
         quantized=config.get("STORE_QUANTIZED", "auto"),
+        mesh_devices=mesh_devices,
         device=device,
     )
 
@@ -364,6 +401,21 @@ def pick_port(host: str, preferred: int, attempts: int = 10) -> Tuple[int, bool]
     raise OSError(f"no free port near {preferred}")
 
 
+def _apply_distributed(config: Dict[str, Any]) -> int:
+    """Join the ``torch.distributed`` job the ``DIST_*`` triplet names;
+    returns this process's rank (0 without one).  Runs before any device
+    use: each rank takes its card by rank."""
+    coordinator = config.get("DIST_COORDINATOR") or ""
+    if not coordinator:
+        return 0
+    num_processes = int(config.get("DIST_NUM_PROCESSES") or 0)
+    process_id = int(config.get("DIST_PROCESS_ID", -1))
+    if num_processes < 2 or process_id < 0:
+        raise ValueError("DIST_COORDINATOR is set but DIST_NUM_PROCESSES/DIST_PROCESS_ID are not a valid pair")
+    init_distributed(f"tcp://{coordinator}", num_processes, process_id, config.get("PSE_PLATFORM"))
+    return process_id
+
+
 def main(argv: Optional[list] = None) -> int:
     parser = argparse.ArgumentParser(description="photo_search_engine_tpu_torch server")
     parser.add_argument("--index-worker", action="store_true")
@@ -375,13 +427,28 @@ def main(argv: Optional[list] = None) -> int:
     config = load_config()
     if not config.get("PHOTO_DIR"):
         raise ValueError("PHOTO_DIR 未配置，请设置要索引的照片目录")
-    services = initialize_services(config)
     if args.index_worker:
+        services = initialize_services(config)
         status = services["indexer"].build_index(
             force_rebuild=args.force_rebuild, lock_already_held=True
         )
         return 0 if status.get("status") in {"success", "ready"} else 1
+    rank = _apply_distributed(config)
+    try:
+        return _serve_rank(args, config, initialize_services(config), rank)
+    finally:
+        shutdown_distributed()
 
+
+def _serve_rank(args, config: Dict[str, Any], services: Dict[str, Any], rank: int) -> int:
+    """Rank 0 (or the only process) serves HTTP; another rank replays rank
+    0's device ops until it broadcasts shutdown."""
+    index = services["vector_index"]
+    if rank != 0:
+        print(f"[INFO] dist follower {rank} entering replay loop", flush=True)
+        replayed = index.follow()
+        print(f"[INFO] dist follower {rank} replayed {replayed} ops", flush=True)
+        return 0
     app = create_app(services)
     host = args.host or config["SERVER_HOST"]
     port, fell_back = pick_port(host, args.port or config["SERVER_PORT"])
@@ -401,6 +468,9 @@ def main(argv: Optional[list] = None) -> int:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
+    finally:
+        if hasattr(index, "shutdown_followers"):
+            index.shutdown_followers()
     return 0
 
 

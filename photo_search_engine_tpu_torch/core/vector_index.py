@@ -16,8 +16,11 @@ micro-batcher, filtered ones scan only the probed clusters (kernel 7).
 scan of the flat store for queries with different predicates
 (``core/batcher.py``).
 
-Not ported yet (it raises ``NotImplementedError``): a device mesh
-(``mesh_devices != 0``).
+``mesh_devices`` N >= 1 row-shards the corpus over a mesh of N shards
+(``core/mesh_store.py``, ``parallel/sharded.py``; 1 is the degenerate mesh
+on the same code path), and ``index_type=ivf`` then builds the sharded IVF
+on the mesh (``parallel/sharded_ivf.py``); its sidecar says ``"kind":
+"mesh"``.
 """
 
 from __future__ import annotations
@@ -31,16 +34,19 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
+from photo_search_engine_tpu_torch.core.mesh_store import MeshEmbeddingStore, MeshIVFAdapter
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.models.ivf import IVFIndex
 from photo_search_engine_tpu_torch.ops.quantized import resolve_store_quantized
 from photo_search_engine_tpu_torch.ops.topk import resolve_store_dtype
+from photo_search_engine_tpu_torch.parallel.sharded import distributed
 
 _FORMAT_VERSION = 1
 
 
 class VectorIndex:
-    """Flat or IVF vector index over one device (reference VectorStore API)."""
+    """Flat or IVF vector index over one device or a mesh (reference
+    VectorStore API)."""
 
     def __init__(
         self,
@@ -73,13 +79,8 @@ class VectorIndex:
             self.index_type = "ivf"
         if self.index_type not in {"flat", "ivf"}:
             raise ValueError("index_type must be flat, ivf, or hnsw")
-        if int(mesh_devices or 0) != 0:
-            raise NotImplementedError(
-                "mesh_devices != 0 is not ported yet; the PyTorch port serves "
-                'one device (ROADMAP.md, "Modules still to port": mesh, multi-host '
-                'and sharded saves)'
-            )
-        self.mesh_devices = 0
+        # 0: one device; N >= 1: row-shard the corpus over a mesh of N shards
+        self.mesh_devices = max(0, int(mesh_devices or 0))
         self.device = resolve_device() if device is None else device
         self.store_dtype = resolve_store_dtype(store_dtype, self.device)
         self.store_block_rows = store_block_rows or None
@@ -109,7 +110,16 @@ class VectorIndex:
         # the lock keeps them from running two IVF builds
         self._ivf_lock = threading.Lock()
 
-    def _create_store(self, dimension: int) -> EmbeddingStore:
+    def _create_store(self, dimension: int):
+        if self.mesh_devices:
+            return MeshEmbeddingStore(
+                dimension,
+                metric=self.metric,
+                store_dtype=self.store_dtype,
+                mesh_devices=self.mesh_devices,
+                quantized=self.quantized,
+                device=self.device,
+            )
         return EmbeddingStore(
             dimension,
             device=self.device,
@@ -196,10 +206,15 @@ class VectorIndex:
                 return self._ivf
         nlist = max(1, min(self.ivf_nlist, count // 8 or 1))
         snapshot = self._store.snapshot()
-        self._ivf = IVFIndex.build(
-            snapshot, nlist=nlist, metric="ip" if self.metric == "cosine" else self.metric,
-            store_dtype=self.store_dtype, quantized=self.quantized, device=self.device,
-        )
+        if self.mesh_devices:
+            # a mesh store builds the IVF on the mesh (per-shard layouts,
+            # kernel 7 on every shard, the gathered merge)
+            self._ivf = MeshIVFAdapter(self._store, nlist)
+        else:
+            self._ivf = IVFIndex.build(
+                snapshot, nlist=nlist, metric="ip" if self.metric == "cosine" else self.metric,
+                store_dtype=self.store_dtype, quantized=self.quantized, device=self.device,
+            )
         self._ivf_built_at = count
         self._ivf_trained_at = count
         if self.ivf_nprobe == 0:
@@ -523,7 +538,11 @@ class VectorIndex:
         next to the ``.npy`` so that ``load`` restores it without
         retraining; written atomically, and removed when there is no current
         trained index (a stale sidecar must never outlive the rows it
-        indexed).  The format is the JAX package's."""
+        indexed).  The format is the JAX package's.  In a multi-process job
+        every rank holds the same index and rank 0 alone writes."""
+        context = distributed()
+        if context is not None and context.rank != 0:
+            return
         current = self.index_type == "ivf" and self._ivf is not None and self._ivf_built_at == self.get_total_items()
         if not current:
             if os.path.exists(self.ivf_sidecar_path):
@@ -532,7 +551,7 @@ class VectorIndex:
         state = dict(self._ivf.state())
         meta = {
             "format_version": _FORMAT_VERSION,
-            "kind": "single",
+            "kind": "mesh" if self.mesh_devices else "single",
             "metric": str(state.pop("metric", self.metric)),
             "mesh_devices": self.mesh_devices,
             "built_at": self._ivf_built_at,
@@ -556,16 +575,19 @@ class VectorIndex:
                 meta = json.loads(str(payload["__meta__"]))
                 state = {key: payload[key] for key in payload.files if key != "__meta__"}
             if (
-                meta.get("kind") != "single"
-                or int(meta.get("mesh_devices", 0)) != 0
+                meta.get("kind") != ("mesh" if self.mesh_devices else "single")
+                or int(meta.get("mesh_devices", 0)) != self.mesh_devices
                 or int(meta.get("built_at", -1)) != self.get_total_items()
             ):
                 raise ValueError("IVF sidecar does not match the loaded index")
             state["metric"] = meta.get("metric", self.metric)
-            self._ivf = IVFIndex.from_state(
-                self._store.snapshot(), state, store_dtype=self.store_dtype,
-                quantized=self.quantized, device=self.device,
-            )
+            if self.mesh_devices:
+                self._ivf = MeshIVFAdapter.from_state(self._store, state)
+            else:
+                self._ivf = IVFIndex.from_state(
+                    self._store.snapshot(), state, store_dtype=self.store_dtype,
+                    quantized=self.quantized, device=self.device,
+                )
             self._ivf_built_at = int(meta["built_at"])
             self._ivf_trained_at = int(meta.get("trained_at", meta["built_at"]))
             nprobe_auto = meta.get("nprobe_auto")

@@ -108,14 +108,36 @@ def _close_batchers(services):
         services["searcher"].embedding_service._batcher.close()
 
 
-def _compare_apps(library, monkeypatch, grouped_route=None, **extra):
+_TIED = 0.5  # the vector_score of a row whose cosine to the query is exactly 0
+
+
+def _blank_exact_ties(value):
+    """The route JSON with the identity of every result whose similarity to
+    the query is exactly 0 blanked (its scores stay).  The hashing embedder
+    gives rows that share no token with the query a cosine of exactly 0, so
+    such rows tie; which of them fills a slot is the merge's tie order, and
+    the JAX package's sharded top_k orders +0.0 above -0.0, whose sign is
+    that of XLA's accumulation order (it changed under a loaded host)."""
+    if isinstance(value, dict):
+        out = {k: _blank_exact_ties(v) for k, v in value.items()}
+        if out.get("vector_score") == _TIED and "photo_path" in out:
+            out.update({k: "<tie>" for k in ("photo_path", "file_name", "description", "photo_url",
+                                              "match_summary") if k in out})
+        return out
+    if isinstance(value, list):
+        return [_blank_exact_ties(v) for v in value]
+    return value
+
+
+def _compare_apps(library, monkeypatch, grouped_route=None, canonical=None, **extra):
     """Run the flow through the JAX app and the port's app on the same
     library and config; the route JSON must agree.  Returns both services.
 
     ``grouped_route``: the route name the port reports for the season
     search with text, which the micro-batcher runs as a grouped scan.  It
     is taken out of both debugs first: the JAX grouped path leaves
-    ``last_route`` as the previous search set it."""
+    ``last_route`` as the previous search set it.  ``canonical``, when
+    given, is applied to both outputs before they are compared."""
     tmp, photo_dir = library
     # the upload route analyses its temporary copy, whose name feeds the
     # local analysis: give both apps the same name
@@ -133,6 +155,8 @@ def _compare_apps(library, monkeypatch, grouped_route=None, **extra):
     if grouped_route is not None:
         jax_out["season_text"]["search_debug"].pop("index_route")
         assert port_out["season_text"]["search_debug"].pop("index_route")["impl"] == grouped_route
+    if canonical is not None:
+        jax_out, port_out = canonical(jax_out), canonical(port_out)
     _assert_close(_normalize(port_out), _normalize(jax_out))
     return jax_services, services
 
@@ -235,16 +259,66 @@ def test_gpu_platform_needs_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "env",
     [
-        {"VECTOR_INDEX_TYPE": "ivf", "MESH_DEVICES": "2"},  # IVF is ported, the mesh is not
+        {"VECTOR_INDEX_TYPE": "ivf", "MESH_DEVICES": "2"},
         {"MESH_DEVICES": "2"},
         {"DIST_COORDINATOR": "localhost:1234", "DIST_NUM_PROCESSES": "2", "DIST_PROCESS_ID": "0"},
     ],
 )
 def test_unported_configurations_raise(library, monkeypatch, env):
+    """The configurations the port once refused are served now: a mesh of
+    two host shards (flat and IVF), and a ``DIST_*`` config, which only
+    ``main`` joins (``initialize_services`` alone serves one process, as
+    in the JAX app); ``_apply_distributed`` refuses an invalid triplet."""
     tmp, photo_dir = library
     cfg = _config(monkeypatch, photo_dir, str(tmp / "data"), **env)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initialize_services(cfg)
+    services = initialize_services(cfg)
+    index = services["vector_index"]
+    out = run_flow(create_app(services).test_client(), photo_dir)
+    assert all(out[k]["results"] for k in ("text", "image")), out
+    assert index.mesh_devices == (0 if "DIST_COORDINATOR" in env else 2)
+    assert index.last_route["mesh_devices"] == index.mesh_devices
+    assert type(index._store).__name__ == ("EmbeddingStore" if "DIST_COORDINATOR" in env else "MeshEmbeddingStore")
+    if "DIST_COORDINATOR" in env:
+        from photo_search_engine_tpu_torch.api.app import _apply_distributed
+
+        with pytest.raises(ValueError, match="DIST_NUM_PROCESSES"):
+            _apply_distributed(dict(cfg, DIST_NUM_PROCESSES=1))
+
+
+@pytest.mark.parametrize("mesh_devices, want", [("0", 0), ("3", 3), ("-1", 1)])
+def test_mesh_devices_on_the_host(mesh_devices, want):
+    """The host holds any number of logical shards; -1 there is one."""
+    from photo_search_engine_tpu_torch.api.app import _resolve_mesh_devices
+
+    assert _resolve_mesh_devices(mesh_devices, torch.device("cpu")) == want
+
+
+def test_mesh_devices_on_cards_are_clamped(monkeypatch, capsys):
+    from photo_search_engine_tpu_torch.api.app import _resolve_mesh_devices
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert _resolve_mesh_devices(-1, torch.device("cuda", 0)) == 2
+    assert _resolve_mesh_devices(1, torch.device("cuda", 0)) == 1
+    assert _resolve_mesh_devices(4, torch.device("cuda", 0)) == 2
+    assert "MESH_DEVICES=4 but only 2 device(s) visible" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [{}, {"SEARCH_MICROBATCH_ENABLED": "1", "KEYWORD_BACKEND": "none"},
+                                   {"VECTOR_INDEX_TYPE": "ivf", "IVF_NPROBE": "4"}],
+                         ids=["flat", "microbatched_grouped", "ivf"])
+def test_route_json_matches_jax_app_on_a_mesh(library, monkeypatch, extra):
+    """``MESH_DEVICES=4`` in both apps (JAX: 4 of its 8 CPU devices; the
+    port: 4 host shards): the same route JSON, ``mesh_devices`` 4 in the
+    routes the searches report.  Results that tie at a similarity of
+    exactly 0 are compared by their scores (``_blank_exact_ties``)."""
+    grouped = "exact_grouped" if extra.get("KEYWORD_BACKEND") == "none" else None
+    jax_services, services = _compare_apps(library, monkeypatch, grouped_route=grouped,
+                                           canonical=_blank_exact_ties, MESH_DEVICES="4", **extra)
+    index = services["vector_index"]
+    assert index.mesh_devices == 4 and index._store.n_shards == 4
+    assert index.last_route["mesh_devices"] == 4
+    _close_batchers(jax_services)
+    _close_batchers(services)
 
 
 _ONLINE_KEYS = {"EMBEDDING_API_KEY": "k", "TEXT_RERANK_API_KEY": "k"}

@@ -115,3 +115,12 @@ def test_copied_module_matches_the_jax_file(path):
     with open(os.path.join(PORT_PKG, path), encoding="utf-8") as f:
         got = f.read()
     assert got == want, f"{path} drifted from photo_search_engine_tpu/{path}"
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["parallel/__init__.py", "parallel/sharded.py", "parallel/sharded_ivf.py", "parallel/spmd_serving.py",
+     "parallel/multihost.py", "core/mesh_store.py"],
+)
+def test_the_mesh_tier_is_among_the_checked_modules(module):
+    assert os.path.join("photo_search_engine_tpu_torch", module) in _port_sources()

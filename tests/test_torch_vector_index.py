@@ -123,8 +123,11 @@ def test_routes_and_unported_configurations(tmp_path):
     index.raw_grouped_search_batch(np.ones((1, D)), 3, np.ones((1, 30)), np.zeros(1))
     assert index.last_route["impl"] == "int8_grouped"
     assert VectorIndex(D, index_type="ivf", **_paths(tmp_path, "i"), device="cpu").index_type == "ivf"  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorIndex(D, mesh_devices=2, **_paths(tmp_path, "m"), device="cpu")
+    mesh = VectorIndex(D, mesh_devices=2, **_paths(tmp_path, "m"), device="cpu")  # ported: a mesh of 2 host shards
+    mesh.add_batch(unit_rows(np.random.default_rng(1), 30, D), _metas(0, 30))
+    mesh.search(np.ones(D, np.float32), 3)
+    assert mesh.last_route == {"impl": "exact", "nprobe": None, "mesh_devices": 2}
+    assert mesh._store.n_shards == 2 and mesh.describe()["mesh_devices"] == 2
     index.clear()
     assert index.get_total_items() == 0 and index.metadata == []
 

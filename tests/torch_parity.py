@@ -116,11 +116,12 @@ def launch_on_loop(wrapper, loop, call):
 
 
 @contextlib.contextmanager
-def plain_scan(module, name):
-    """Inside, ``module.name`` is its plain version (``name + "_plain"``):
-    the search around the scan (probes, merge, rescore) runs the same code."""
+def plain_scan(module, name, plain=None):
+    """Inside, ``module.name`` is its plain version (``plain``, default
+    ``module.<name>_plain``): the search around the scan (probes, merge,
+    rescore) runs the same code."""
     kernel = getattr(module, name)
-    setattr(module, name, getattr(module, name + "_plain"))
+    setattr(module, name, plain or getattr(module, name + "_plain"))
     try:
         yield
     finally:

@@ -9,7 +9,9 @@ Phases; each prints its results on lines of its own and raises on failure:
              5, kernel 1 also for kernel 4's ranges; int8 kernels 2 and 6;
              bf16 and int8 kernel 7) and their HGMMA (bf16 wgmma),
              IGMMA (int8 wgmma) and UTMALDG (TMA) counts in the SASS, which
-             must not be 0.
+             must not be 0; and of the f32 ring's kernels (float32 kernels
+             1, 3, 3 grouped, 5 and 7 at BQ 8 and 32): FFMA and UTMALDG
+             above 0, no HGMMA.
 2. kernels - kernel 1 (block_topk) and kernel 2 (int8_block_topk) against
              their plain PyTorch versions on the card: ip, l2, masked with
              a live count, float32 and bfloat16, k in {1, 10, 50, 64}, and a
@@ -21,26 +23,33 @@ Phases; each prints its results on lines of its own and raises on failure:
              kernels 1 and 5 across their query tiles (Q 1/8/9/32/33/128/
              256), D 1536 and 1000 on the tensor cores and 1001 on the FMA
              loop (each launch checked on its loop), k 1/50/64, and an
-             all-masked block; then the int8 kernels 2 and 6 the same way,
-             identical to their plain versions: D 1536 and 1008 on the
+             all-masked block; then the float32 kernels 1, 3, 4 and 5 the
+             same way, D 1536 and 1000 on the f32 ring and 1001 and 1002 on
+             the FMA loop, k 1/10/50/64, each on the ring bit for bit the
+             FMA loop's on the same inputs; then the int8 kernels 2 and 6
+             the same way, identical to their plain versions: D 1536 and 1008 on the
              tensor cores and 1000 on the __dp4a loop, ip, l2 and masked, an
              all-masked block and duplicate rows; then kernel 7
              (ivf_block_topk, the IVF probed-cluster scan) on float32,
              bfloat16 and int8 layouts, ip and l2, k in {1, 10, 50, 64}
              (and 500 on the float layouts), Q in {1, 9, 33, 128}, nprobe
-             in {1, 8, 64}, bf16 and int8 on the tensor cores at k <= 64
-             and every other case on the FMA / __dp4a loop (each launch
-             checked on its loop), with padding slots, a slot mask, a query
+             in {1, 8, 64}, bf16 and int8 on the tensor cores and f32 on its
+             ring at k <= 64 (each f32 result also bit for bit the FMA
+             loop's at the same tile), k 500 on the FMA / __dp4a loop (each
+             launch checked on its loop), with padding slots, a slot mask, a query
              whose probed clusters are all masked out, duplicate rows,
              probe ids outside the layout, and one call of each loop under
-             torch.cuda.set_sync_debug_mode("error"); then
+             torch.cuda.set_sync_debug_mode("error"); f32 kernel 7 launched
+             200 times at each of the tiles of 367 and 1100 slots and
+             groups of 8 and 32, every launch bit for bit the FMA loop's;
+             then
              kernel 3 (fast_block_topk, the packed-key scan, and
              fast_grouped_block_topk, through kernel 5's body) and kernel 4
              (fused_topk, the fused running top-k): the searches through
              them against the same searches on their plain versions, with
              an empty predicate or mask, a live count below n and k = 64,
-             each launch on its loop (bf16 the tensor cores, f32 the FMA
-             loop); kernel 3's bf16 partials bit for bit against the plain
+             each launch on its loop (bf16 the tensor cores, f32 its ring);
+             kernel 3's bf16 and f32 partials bit for bit against the plain
              version's on exact products, flat and grouped, a last block
              shorter than k included; kernel 4's range partials and result
              bit for bit against kernel 1's partials merged by range and
@@ -51,6 +60,18 @@ Phases; each prints its results on lines of its own and raises on failure:
              index, with STORE_QUANTIZED=0 and =1, answering a text, a
              season, a season-with-text (the grouped scan), an image and an
              upload search.
+f32        - STORE_DTYPE=float32 (phase f32, run after scale): a 1M x 1536
+             float32 corpus made on the card from a seed, served by the
+             app's wiring with the micro-batcher on: 32 concurrent
+             /search_by_image (kernel 1), 64 concurrent filtered searches
+             over five predicates (kernel 5), the store's impl routes
+             (kernels 3, 4 and grouped 3), every launch on the f32 ring (the
+             TMA ring with fmaf consumers), results against plain searches;
+             each f32 kernel's time against its plain version, bound and
+             library (cuBLAS float32, TF32 off, + torch.topk) at batches 1,
+             8, 128 and 256 and store.search host to host; then a float32
+             IVF (nlist 1024, nprobe 64, intrinsic-32 rows): its build, and
+             kernel 7 on the f32 ring against its plain version and timed.
 4. scale   - a 1M x 1536 bfloat16 corpus with an int8 shadow and seeded
              season metadata, made on the card from a seed, installed in a
              VectorIndex and served by the app's own wiring
@@ -145,8 +166,9 @@ Phases; each prints its results on lines of its own and raises on failure:
              replays); gloo when the ranks share a card (NCCL refuses
              that), NCCL with a card per rank.
 
-The launch counters are set to 0 before the route runs of phases 3-6 (and
-before the store's impl routes in phase 4), before phase 7 and before each
+The launch counters are set to 0 before the route runs of phases 3-6 and
+f32 (and before the store's impl routes in phase 4, and before the float32
+IVF's first search in phase f32), before phase 7 and before each
 mesh call of phase 8, and read after every client thread has joined (in
 phase 8, after the call: it must have launched its kernel once per
 shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
@@ -159,6 +181,7 @@ non-zero and prints no result.
 Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
                                         or under $CUDA_HOME or /usr/local/cuda)
       python3 chip_smoke.py --phases device,kernels
+      python3 chip_smoke.py --phases device,f32
       python3 chip_smoke.py --phases device,online,tools
       python3 chip_smoke.py --phases device,mesh
 """
@@ -185,7 +208,8 @@ _NAMES = ("block_topk", "int8_block_topk", "grouped_block_topk", "int8_grouped_b
 _FLAT = _NAMES[:4]
 _IMPL_ROUTES = _NAMES[5:]  # driven through the store's impl values in phase 4
 _DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",), "online": _FLAT,
-           "tools": ("block_topk", "int8_block_topk", "ivf_block_topk"), "mesh": _FLAT + ("ivf_block_topk",)}  # what each phase must launch
+           "tools": ("block_topk", "int8_block_topk", "ivf_block_topk"), "mesh": _FLAT + ("ivf_block_topk",),
+           "f32": ("block_topk", "grouped_block_topk", "ivf_block_topk") + _IMPL_ROUTES}  # what each phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
@@ -412,11 +436,45 @@ def phase_device() -> None:
     if any(ops["IGMMA" if "int8" in _tc_label(name) else "HGMMA"] == 0 or ops["UTMALDG"] == 0
            for name, ops in sass7.items()):
         raise AssertionError(f"kernel 7 tensor-core kernels without wgmma or UTMALDG in their SASS: {sass7}")
+    # the f32 ring (kernels 1, 3, 3 grouped, 5 and 7 on float32 rows): TMA
+    # loads, fmaf, no wgmma; registers and spills of each instantiation
+    ring = _cuda.sass_counts(F32_RING_KERNEL, ("HGMMA", "FFMA", "UTMALDG"))
+    for name, ops in sorted(ring.items(), key=lambda item: _ring_label(item[0])):
+        regs, stores, loads = ptxas.get(name, ("?", "?", "?"))
+        log(f"[device] {_ring_label(name)}: {regs} registers, {stores}/{loads} bytes spill stores/loads; "
+            f"SASS {ops['FFMA']} FFMA, {ops['UTMALDG']} UTMALDG, {ops['HGMMA']} HGMMA")
+    labels = {_ring_label(name) for name in ring}
+    for kernel in ("kernel 1", "kernel 3", "kernel 3 grouped", "kernel 5", "kernel 7"):
+        for bq in (8, 32):
+            if not any(label.startswith(f"{kernel} f32 ring") and f"BQ {bq}," in label for label in labels):
+                raise AssertionError(f"no f32 ring instantiation of {kernel} at BQ {bq}: {sorted(labels)}")
+    if any(ops["FFMA"] == 0 or ops["UTMALDG"] == 0 or ops["HGMMA"] != 0 for ops in ring.values()):
+        raise AssertionError(f"f32 ring kernels without FFMA or UTMALDG, or with HGMMA, in their SASS: {ring}")
 
 
 TC_KERNEL = "tc_block_topk_kernel"
 TC_INT8_KERNEL = "tc_int8_block_topk_kernel"
 TC_IVF_KERNEL = "tc_ivf_topk_kernel"
+F32_RING_KERNEL = "fma_ring_"  # fma_ring_block_topk_kernel<BQ, grouped, keys>, fma_ring_ivf_topk_kernel<BQ>
+
+
+def _ring_label(mangled: str) -> str:
+    """``fma_ring_block_topk_kernel<BQ, grouped, keys>`` or
+    ``fma_ring_ivf_topk_kernel<BQ>`` from its mangled name.  Kernel 1's
+    instantiation also scans kernel 4's ranges."""
+    import re
+
+    found = re.search(r"fma_ring_block_topk_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if found:
+        bq, grouped, keys = found.groups()
+        kernel = {("0", "0"): "kernel 1", ("1", "0"): "kernel 5", ("0", "1"): "kernel 3",
+                  ("1", "1"): "kernel 3 grouped"}[(grouped, keys)]
+        fused = " (also kernel 4's ranges)" if kernel == "kernel 1" else ""
+        return f"{kernel} f32 ring, BQ {bq}, threshold selection{fused}"
+    found = re.search(r"fma_ring_ivf_topk_kernelILi(\d+)E", mangled)
+    if found:
+        return f"kernel 7 f32 ring, BQ {found.group(1)}, threshold selection"
+    return mangled
 
 
 def _tc_label(mangled: str) -> str:
@@ -596,8 +654,10 @@ def phase_kernels() -> None:
         f"(max |err| {_ERRORS['int8_block_topk']:.3g})")
     check_grouped_kernels(gen, n, d)
     check_tensor_core_kernels(gen)
+    check_f32_ring_kernels(gen)
     check_int8_tensor_core_kernels(gen)
     check_ivf_kernel(gen, d)
+    check_f32_ivf_repeats(gen, d)
     check_fast_kernels(gen, n, d)
     check_fused_kernel(gen, n, d)
 
@@ -759,6 +819,101 @@ def check_tensor_core_kernels(gen) -> None:
         f"an all-masked block gives empty slots")
 
 
+def check_f32_ring_kernels(gen) -> None:
+    """The float32 kernels 1, 3, 4 and 5 across their query tiles and
+    widths: D 1536 and 1000 on the f32 ring and 1001 and 1002 on the FMA
+    loop (each launch checked on its loop), Q 1/8/9/32/33/128/256, k
+    1/10/50/64 cycling through ip, l2 and masked with a live count below n,
+    kernel 5 with ids outside [0, M).  Each against its plain version
+    (kernel 3 as the packed-key partials, bit for bit where the scores are
+    the plain ones: :func:`check_fast_partials`; here against the FMA
+    loop's); on the ring's widths each bit for bit against the FMA loop on
+    the same inputs (kernels 1, 3 and 5's partials, kernel 4's range
+    partials and result at the same blocks per range); kernel 4's range
+    partials against kernel 1's merged by range; then duplicate rows and an
+    all-masked block."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, fma_loop, launch_on_loop
+
+    n, count = 2500, 2400  # blocks of 1024, 1024 and a ragged 452
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = same = 0
+    for d in (1536, 1000, 1001, 1002):
+        corpus = _unit_rows(n, d, gen, torch.float32)
+        cnorms = to.row_sq_norms(corpus)
+        loop = to.scoring_loop(corpus)
+        ring = loop == "fma_ring"
+        if loop != ("fma_ring" if d % 4 == 0 else "fma"):
+            raise AssertionError(f"f32 D={d}: scoring loop {loop}")
+        for i, q in enumerate((1, 8, 9, 32, 33, 128, 256)):
+            queries = _unit_rows(q, d, gen, torch.float32)
+            table, ids = _predicates(gen, 3, n, q)
+            for j, k in enumerate((1, 10, 50, 64)):
+                variant = ("ip", "l2", "masked")[(i + j) % 3]
+                mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.5).to(torch.int8) if variant == "masked" else None
+                kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=cnorms, block_n=1024)
+                name = f"f32 {variant} D={d} q={q} k={k} ({loop})"
+                k1 = launch_on_loop(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
+                _ERRORS["block_topk"] = max(_ERRORS["block_topk"], check_topk(
+                    f"block_topk {name}", *k1, *to.exact_block_topk_plain(corpus, queries, k + 1, **kw)))
+                check_scores(f"block_topk {name}", *k1, _plain_scores(corpus, queries, kw["metric"], count, mask))
+                k5 = launch_on_loop(go.grouped_block_topk, loop,
+                                    lambda: go.grouped_block_topk(corpus, queries, table, ids, k, count=count, block_n=1024))
+                ref = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, count=count, block_n=1024)
+                _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"],
+                                                    check_topk(f"grouped_block_topk M=3 {name}", *k5, *ref))
+                k3 = launch_on_loop(to.fast_block_topk, loop, lambda: to.fast_block_topk(corpus, queries, k, **kw))
+                per = to.fused_ranges(q, 3, sms, loop=loop)[1]
+                k4 = launch_on_loop(to.fused_topk, loop,
+                                    lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
+                assert_same_bits(f"fused_topk {name} ranges against kernel 1's", k4[2:], to.range_partials(*k1, per, k))
+                assert_same_bits(f"fused_topk {name} against kernel 1", k4[:2], to.merge_partials(*k1, k))
+                _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], check_topk(
+                    f"fused_topk {name}", *k4[:2], *to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per,
+                                                                        **kw)[:2]))
+                cases += 4
+                if ring:  # the ring sums as the FMA loop does: the same bits
+                    with fma_loop():
+                        assert_same_bits(f"block_topk {name} against the FMA loop", k1, launch_on_loop(
+                            to.block_topk, "fma", lambda: to.block_topk(corpus, queries, k, **kw)))
+                        assert_same_bits(f"grouped_block_topk {name} against the FMA loop", k5, launch_on_loop(
+                            go.grouped_block_topk, "fma", lambda: go.grouped_block_topk(
+                                corpus, queries, table, ids, k, count=count, block_n=1024)))
+                        assert_same_bits(f"fast_block_topk {name} against the FMA loop", k3, launch_on_loop(
+                            to.fast_block_topk, "fma", lambda: to.fast_block_topk(corpus, queries, k, **kw)))
+                        f4 = launch_on_loop(to.fused_topk, "fma", lambda: to.fused_topk(
+                            corpus, queries, k, blocks_per_range=per, **kw))
+                    assert_same_bits(f"fused_topk {name} against the FMA loop", k4[:2], f4[:2])
+                    assert_same_bits(f"fused_topk {name} ranges against the FMA loop", k4[2:], f4[2:])
+                    same += 4
+    # duplicate rows across a block edge and in the ragged block; a block whose rows are all masked out
+    corpus = _unit_rows(n, 1536, gen, torch.float32)
+    dups = list(range(1000, 1062)) + [2100, 2490]
+    corpus[dups] = corpus[7].clone()
+    for impl in ("pallas", "pallas_fast", "pallas_fused"):
+        for k in (1, 10, 50, 64):
+            _, idx = to.exact_search(corpus, corpus[7:8].clone(), k, metric="ip", impl=impl)
+            if idx[0].tolist() != ([7] + dups)[:k]:
+                raise AssertionError(f"f32 ring duplicate-row ties {impl} k={k}: {idx[0].tolist()[:8]}...")
+    queries = _unit_rows(40, 1536, gen, torch.float32)
+    mask = torch.ones(n, dtype=torch.int8, device=DEVICE)
+    mask[1024:2048] = 0
+    got_v, got_i = launch_on_loop(to.block_topk, "fma_ring",
+                                  lambda: to.block_topk(corpus, queries, 50, count=n, mask=mask, block_n=1024))
+    check_topk("block_topk f32 ring all-masked block", got_v, got_i,
+               *to.exact_block_topk_plain(corpus, queries, 51, count=n, mask=mask, block_n=1024))
+    if not (torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()):
+        raise AssertionError("block_topk f32 ring: an all-masked block returned rows")
+    log(f"[kernels] f32 kernels 1, 3, 4 and 5: {cases} cases over Q 1/8/9/32/33/128/256, D 1536/1000 (f32 ring) "
+        f"and 1001/1002 (FMA loop), k 1/10/50/64 agree with the plain versions; {same} results on the ring bit for "
+        f"bit the FMA loop's on the same inputs; kernel 4 = kernel 1 merged by range, bit for bit; each took its "
+        f"loop; duplicate rows tie to the smallest row (pallas, pallas_fast, pallas_fused); an all-masked block "
+        f"gives empty slots")
+
+
 def check_int8_tensor_core_kernels(gen) -> None:
     """The int8 kernels 2 and 6 across their query tiles and widths, each
     result identical to the plain version: Q in {1, 8, 9, 32, 33, 128, 256},
@@ -876,27 +1031,78 @@ def _ivf_layout(gen, nlist, lrows, d):
     return corpus, row_valid, dups
 
 
+F32_IVF_REPEATS = 200  # launches of each tile and group size in check_f32_ivf_repeats
+
+
+def check_f32_ivf_repeats(gen, d) -> None:
+    """Float32 kernel 7 on the ring, launched :data:`F32_IVF_REPEATS`
+    times at each of the tiles of 367 and 1100 slots (passes of fewer than
+    four row tiles, where a shared stage rotation once let a warp pair read
+    a stale box) and groups of 8 and 32, ip and l2 in turn, every launch
+    bit for bit the FMA loop's at the same tile and group: a race that
+    fails a few launches in a thousand shows here, where one launch a case
+    would pass it."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import fma_loop, launch_on_loop
+
+    nlist, lrows, q, nprobe, k = 24, 1100, 33, 8, 64
+    corpus, row_valid, _ = _ivf_layout(gen, nlist, lrows, d)
+    cnorms = to.row_sq_norms(corpus)
+    queries = _unit_rows(q, d, gen, torch.float32)
+    probes = torch.stack([torch.randperm(nlist, generator=gen, device=DEVICE)[:nprobe] for _ in range(q)])
+    probes = torch.sort(probes, dim=1).values.to(torch.int32).contiguous()
+    if io_.ivf_scoring_loop(corpus, k) != "fma_ring":
+        raise AssertionError("f32 kernel 7 repeats: not on the f32 ring")
+    summary = []
+    for block_n in (367, 1100):
+        for bq in (8, 32):
+            kws = [dict(lrows=lrows, metric=metric, cnorms=cnorms, block_n=block_n, bq=bq) for metric in ("ip", "l2")]
+            with fma_loop():
+                refs = [launch_on_loop(io_.ivf_block_topk, "fma", lambda: io_.ivf_block_topk(
+                    corpus, queries, probes, row_valid, k, **kw)) for kw in kws]
+            differ = torch.zeros((), dtype=torch.int64, device=DEVICE)
+            before = io_.ivf_block_topk.launches_by_loop["fma_ring"]
+            for rep in range(F32_IVF_REPEATS):
+                got = io_.ivf_block_topk(corpus, queries, probes, row_valid, k, **kws[rep % 2])
+                ref = refs[rep % 2]
+                differ += ((got[0].view(torch.int32) != ref[0].view(torch.int32)) | (got[1] != ref[1])).any().long()
+            launched = io_.ivf_block_topk.launches_by_loop["fma_ring"] - before
+            bad = int(differ)  # one read-back for the whole series
+            if launched != F32_IVF_REPEATS or bad:
+                raise AssertionError(f"f32 kernel 7 repeats, tile {block_n}, BQ {bq}: {bad} of {launched} ring "
+                                     "launches differ from the FMA loop's bits")
+            summary.append(f"tile {block_n} / BQ {bq}: 0 of {launched}")
+    log(f"[kernels] f32 ivf_block_topk repeats (ip and l2 in turn, k={k}, q={q}, nprobe {nprobe}, D={d}): "
+        f"launches that differ from the FMA loop's bits: {'; '.join(summary)}")
+
+
 def check_ivf_kernel(gen, d) -> None:
-    """Kernel 7 against its plain version: float32 (the FMA loop), bfloat16
-    and int8 (the tensor cores at k <= 64, the FMA / __dp4a loop above)
-    layouts, ip and l2, k 1/10/50/64 (and 500 on the float layouts), Q
-    1/9/33/128, nprobe 1/8/64, with padding slots, each launch checked on
-    its loop; then a slot mask, a query whose probed clusters are all
-    masked out, duplicate rows, probe ids outside the layout, and one call
-    of each loop under ``torch.cuda.set_sync_debug_mode("error")`` (the
-    wrapper reads nothing back to the host)."""
+    """Kernel 7 against its plain version: float32 (the f32 ring at k <=
+    64, each result also bit for bit the FMA loop's at the same tile and
+    group size), bfloat16 and int8 (the tensor cores at k <= 64) layouts,
+    k 500 on the FMA / __dp4a loop; ip and l2, k 1/10/50/64 (and 500 on the
+    float layouts), Q 1/9/33/128, nprobe 1/8/64, with padding slots and a
+    slot mask, each launch checked on its loop; then a query whose probed
+    clusters are all masked out, duplicate rows, probe ids outside the
+    layout, and one call of each loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the wrapper reads nothing
+    back to the host)."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import launch_on_loop
+    from tests.torch_parity import assert_same_bits, fma_loop, launch_on_loop
 
     nlist, lrows = 96, 1100  # whole-cluster tiles end in a ragged pass of 76 rows; the FMA tiles of 256 in one of 76
     base, row_valid, dups = _ivf_layout(gen, nlist, lrows, d)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {"float32": 0, "bfloat16": 0, "int8": 0}
-    loops = {"tensor_core": 0, "fma": 0}
+    loops = dict.fromkeys(to.SCORING_LOOPS, 0)
+    same_bits = 0
     shapes = ((1, 1, 1), (10, 9, 8), (50, 33, 64), (64, 128, 8), (50, 128, 64), (500, 9, 8), (500, 1, 64))
     for tier in cases:
         ref_rows = base.to(torch.bfloat16 if tier != "float32" else torch.float32)
@@ -928,11 +1134,18 @@ def check_ivf_kernel(gen, d) -> None:
                     plain = lambda kk: io_.ivf_block_topk_plain(corpus, queries, probes, valid.to(torch.int8), kk, **kw)  # noqa: E731
                     err = check_partials(name, got, plain, k, exact=tier == "int8")
                     _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
+                    if loop == "fma_ring":  # the f32 ring sums as the FMA loop does: the same bits, tile for tile
+                        with fma_loop():
+                            fma = launch_on_loop(io_.ivf_block_topk, "fma", lambda: io_.ivf_block_topk(
+                                corpus, queries, probes, valid.to(torch.int8), k, **kw))
+                        assert_same_bits(f"{name} against the FMA loop", got, fma)
+                        same_bits += 1
                     cases[tier] += 1
                     loops[loop] += 1
     log(f"[kernels] ivf_block_topk: {cases['float32'] + cases['bfloat16']} float cases agree with the plain "
         f"version (max |err| {_ERRORS['ivf_block_topk']:.3g}, tol {TOL}), {cases['int8']} int8 cases identical; "
-        f"{loops['tensor_core']} on the tensor cores, {loops['fma']} on the FMA / __dp4a loop")
+        f"{loops['tensor_core']} on the tensor cores, {loops['fma_ring']} on the f32 ring ({same_bits} of them "
+        f"bit for bit the FMA loop's at the same tile), {loops['fma']} on the FMA / __dp4a loop")
 
     # a query whose probed clusters are all masked out; duplicates of slot 7
     # come out at the smallest slots, across clusters; ids outside the
@@ -965,17 +1178,19 @@ def check_ivf_kernel(gen, d) -> None:
     queries = _unit_rows(33, d, gen, torch.bfloat16)
     c8, cs = qo.quantize_rows(corpus)
     q8, qs = io_.quantize_ivf_queries(queries.float())
+    f32, qf = base, queries.float().contiguous()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         io_.ivf_block_topk(corpus, queries, probes, row_valid, 50, lrows=lrows)
         io_.ivf_block_topk(c8, q8, probes, row_valid, 64, lrows=lrows, qscales=qs, cscales=cs)
+        io_.ivf_block_topk(f32, qf, probes, row_valid, 50, lrows=lrows)
         io_.ivf_block_topk(corpus, queries, probes, row_valid, 500, lrows=lrows)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log('[kernels] ivf_block_topk: bf16 and int8 on the tensor cores and bf16 k=500 on the FMA loop ran under '
-        'torch.cuda.set_sync_debug_mode("error"): no host sync')
+    log('[kernels] ivf_block_topk: bf16 and int8 on the tensor cores, f32 on its ring and bf16 k=500 on the FMA '
+        'loop ran under torch.cuda.set_sync_debug_mode("error"): no host sync')
 
 
 def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
@@ -996,11 +1211,12 @@ def check_fast(name, got_v, got_i, ref_v, ref_i, scores):
 
 
 def check_fast_partials(gen) -> None:
-    """bf16 kernel 3 on the tensor cores, flat and grouped, on exact products
-    (rows with one nonzero bf16 lane, queries with one 1.0 lane, many equal
-    scores): quantized partials bit for bit against the plain version's, ip
-    and l2, masked rows, a live count, and a last block of 40 rows, shorter
-    than k = 64, whose slots past its rows hold its -inf lanes."""
+    """Kernel 3 on the tensor cores (bf16) and on the f32 ring, flat and
+    grouped, on exact products (rows with one nonzero lane, queries with
+    one 1.0 lane, many equal scores): quantized partials bit for bit
+    against the plain version's, ip and l2, masked rows, a live count, and
+    a last block of 40 rows, shorter than k = 64, whose slots past its rows
+    hold its -inf lanes."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
@@ -1008,43 +1224,45 @@ def check_fast_partials(gen) -> None:
     from tests.torch_parity import assert_same_bits, launch_on_loop
 
     n, k, cases = 2 * 1024 + 40, 64, 0
-    corpus = torch.zeros((n, 64), device=DEVICE)
-    corpus[torch.arange(n), torch.arange(n) % 64] = torch.rand(n, generator=gen, device=DEVICE)
-    corpus[::7] = 0.0
-    corpus = corpus.to(torch.bfloat16)
+    base = torch.zeros((n, 64), device=DEVICE)
+    base[torch.arange(n), torch.arange(n) % 64] = torch.rand(n, generator=gen, device=DEVICE)
+    base[::7] = 0.0
+    base = base.to(torch.bfloat16).float()  # values exact in bf16 and f32
     mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.8).to(torch.int8)
-    for q in (3, 40):
-        queries = torch.zeros((q, 64), device=DEVICE)
-        queries[torch.arange(q), torch.arange(q) % 3] = 1.0
-        queries = queries.to(torch.bfloat16)
-        for metric in ("ip", "l2"):
-            kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-            got = launch_on_loop(to.fast_block_topk, "tensor_core", lambda: to.fast_block_topk(corpus, queries, k, **kw))
-            assert_same_bits(f"fast_block_topk exact products {metric} q={q}", got,
-                             to.fast_block_topk_plain(corpus, queries, k, **kw))
-            tail = 2048 + torch.arange(40, 64, device=DEVICE, dtype=torch.int32)
-            if not ((got[1][:, 2, 40:] == tail).all() and torch.isneginf(got[0][:, 2, 40:]).all()):
-                raise AssertionError("fast_block_topk: the short last block's slots are not its -inf lanes")
+    for dtype, loop in ((torch.bfloat16, "tensor_core"), (torch.float32, "fma_ring")):
+        corpus = base.to(dtype)
+        for q in (3, 40):
+            queries = torch.zeros((q, 64), device=DEVICE)
+            queries[torch.arange(q), torch.arange(q) % 3] = 1.0
+            queries = queries.to(dtype)
+            for metric in ("ip", "l2"):
+                kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+                got = launch_on_loop(to.fast_block_topk, loop, lambda: to.fast_block_topk(corpus, queries, k, **kw))
+                assert_same_bits(f"fast_block_topk {str(dtype)[6:]} exact products {metric} q={q}", got,
+                                 to.fast_block_topk_plain(corpus, queries, k, **kw))
+                tail = 2048 + torch.arange(40, 64, device=DEVICE, dtype=torch.int32)
+                if not ((got[1][:, 2, 40:] == tail).all() and torch.isneginf(got[0][:, 2, 40:]).all()):
+                    raise AssertionError("fast_block_topk: the short last block's slots are not its -inf lanes")
+                cases += 1
+            table, ids = _predicates(gen, 3, n, q)
+            kw = dict(count=n - 10, block_n=1024)
+            got = launch_on_loop(go.fast_grouped_block_topk, loop,
+                                 lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
+            assert_same_bits(f"fast_grouped_block_topk {str(dtype)[6:]} exact products q={q}", got,
+                             go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
             cases += 1
-        table, ids = _predicates(gen, 3, n, q)
-        kw = dict(count=n - 10, block_n=1024)
-        got = launch_on_loop(go.fast_grouped_block_topk, "tensor_core",
-                             lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
-        assert_same_bits(f"fast_grouped_block_topk exact products q={q}", got,
-                         go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
-        cases += 1
-    log(f"[kernels] fast_block_topk / fast_grouped_block_topk bf16 on the tensor cores: {cases} cases of exact "
-        f"products bit for bit with the plain partials (ip, l2, masked, a last block shorter than k)")
+    log(f"[kernels] fast_block_topk / fast_grouped_block_topk (bf16 on the tensor cores, f32 on its ring): {cases} "
+        f"cases of exact products bit for bit with the plain partials (ip, l2, masked, a last block shorter than k)")
 
 
 def check_fast_kernels(gen, n, d) -> None:
     """Kernel 3 through exact_search(impl="pallas_fast") and grouped kernel 3
     through grouped_mask_search(impl="pallas_fast"), against the same
     searches on their plain versions (:func:`check_fast`), each launch on
-    its loop (bf16 the tensor cores, f32 the FMA loop): float32 and
-    bfloat16; ip, l2 and masked with a live count below n; an empty
-    predicate and ids outside [0, M); k 1/10/50/64; then duplicate rows and
-    the bit-for-bit partials of :func:`check_fast_partials`."""
+    its loop (bf16 the tensor cores, f32 its ring): float32 and bfloat16;
+    ip, l2 and masked with a live count below n; an empty predicate and ids
+    outside [0, M); k 1/10/50/64; then duplicate rows and the bit-for-bit
+    partials of :func:`check_fast_partials`."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
@@ -1053,8 +1271,8 @@ def check_fast_kernels(gen, n, d) -> None:
 
     cases = {"fast_block_topk": 0, "fast_grouped_block_topk": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        loop = "tensor_core" if dtype == torch.bfloat16 else "fma"
         corpus = _unit_rows(n, d, gen, dtype)
+        loop = to.scoring_loop(corpus)
         for variant in ("ip", "l2", "masked", "empty"):
             metric = "l2" if variant == "l2" else "ip"
             count, mask = n, None
@@ -1100,8 +1318,8 @@ def check_fast_kernels(gen, n, d) -> None:
     log(f"[kernels] fast_block_topk: {cases['fast_block_topk']} searches, fast_grouped_block_topk: "
         f"{cases['fast_grouped_block_topk']} searches agree with their plain versions (ids within the "
         f"2^-12 window of the k-th score; max |err| {_ERRORS['fast_block_topk']:.3g} / "
-        f"{_ERRORS['fast_grouped_block_topk']:.3g}, tol {TOL}; bf16 on the tensor cores, f32 on the FMA "
-        f"loop); duplicate-row ties at the smallest row")
+        f"{_ERRORS['fast_grouped_block_topk']:.3g}, tol {TOL}; bf16 on the tensor cores, f32 on its ring); "
+        f"duplicate-row ties at the smallest row")
     check_fast_partials(gen)
 
 
@@ -1110,7 +1328,7 @@ def check_fused_kernel(gen, n, d) -> None:
     :func:`check_topk`'s rule) and bit for bit against kernel 1 on the same
     batch, its partials merged by range (range_partials) and over ranges
     (merge_partials): kernel 4 scores with kernel 1's loop (bf16 the tensor
-    cores, f32 fmaf) and selects exactly.  float32 and bfloat16, each
+    cores, f32 its ring) and selects exactly.  float32 and bfloat16, each
     launch on its loop; ip, l2, masked with a live count below n, and an
     empty mask; k 1/10/50/64; 1, 2 and the default blocks per range; then
     duplicate rows."""
@@ -1123,8 +1341,8 @@ def check_fused_kernel(gen, n, d) -> None:
     nb = -(-n // 1024)
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        loop = "tensor_core" if dtype == torch.bfloat16 else "fma"
         corpus = _unit_rows(n, d, gen, dtype)
+        loop = to.scoring_loop(corpus)
         cnorms = to.row_sq_norms(corpus)
         for variant in ("ip", "l2", "masked", "empty"):
             metric = "l2" if variant == "l2" else "ip"
@@ -1158,7 +1376,7 @@ def check_fused_kernel(gen, n, d) -> None:
                 raise AssertionError(f"fused duplicate-row ties {str(dtype)[6:]} k={k}: {idx[0].tolist()[:8]}...")
     log(f"[kernels] fused_topk: {cases} cases agree with the plain version, ranges and result (max |err| "
         f"{_ERRORS['fused_topk']:.3g}, tol {TOL}), and are kernel 1's partials merged, bit for bit (bf16 on "
-        f"the tensor cores, f32 on the FMA loop); duplicate-row ties at the smallest row")
+        f"the tensor cores, f32 on its ring); duplicate-row ties at the smallest row")
 
 
 # ---------------------------------------------------------------------------
@@ -1980,8 +2198,9 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str, timing) -> None:
 def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
     """Kernel 7 at the ivf phase's shapes (batches 1, 8, 128 and 256 of
     the held-out queries ``timing``, nprobe 64, top-50; the int8 tier
-    nominates 64), each checked against its plain version and timed
-    against it, its bound and the library composition; then
+    nominates 64) on the layout's ring (the tensor cores for bf16 and int8,
+    the f32 ring for float32), each checked against its plain version and
+    timed against it, its bound and the library composition; then
     ``IVFIndex.search`` host to host at batches 1 and 128."""
     import torch
 
@@ -1994,8 +2213,9 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
     # kernel) and the query gather, which the path pays on every call;
     # nothing is read back to the host.
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    f32 = ivf._corpus.dtype == torch.float32
     for batch in (1, 8, 128, 256):
-        qb = torch.from_numpy(timing[:batch]).to(device).to(torch.bfloat16).contiguous()
+        qb = torch.from_numpy(timing[:batch]).to(device).to(ivf._corpus.dtype).contiguous()
         probes = ivf._probe(qb, 64)
         if int8:
             ivf._ensure_quantized()
@@ -2004,7 +2224,8 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
             kw = dict(lrows=ivf.capacity, metric="ip", qscales=qs, cscales=ivf._cscales)
             kk, name = 64, "ivf_block_topk int8"  # top-50 nominates min(2k, 64) = 64
         else:
-            args, kw, kk, name = (ivf._corpus, qb, probes, ivf._row_valid), dict(lrows=ivf.capacity, metric="ip"), 50, "ivf_block_topk"
+            args, kw, kk = (ivf._corpus, qb, probes, ivf._row_valid), dict(lrows=ivf.capacity, metric="ip"), 50
+            name = "ivf_block_topk f32" if f32 else "ivf_block_topk"
         loop = io_.ivf_scoring_loop(args[0], kk)
         bn, bq = io_.ivf_geometry(batch, 64, ivf.nlist, ivf.capacity, loop, sms)
         kw["block_n"] = bn  # the plain version takes the kernel's tile
@@ -2021,14 +2242,14 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
         rest = nbytes(*args[1:3]) + pairs * tiles * kk * 8  # queries, probes, partials
         moved = rows_moved + rest
         gflop = 2 * scored * dim / 1e9
-        unit = "int8" if int8 else "bf16"
+        unit = "int8" if int8 else "f32" if f32 else "bf16"
         padded_bound = bound_ms(padded + rest, 2.0 * pairs * ivf.capacity * dim, unit)[0]
         library, lib_label = _ivf_library(ivf, probes, qb, int8)
         ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
             (name, batch, 50), kernel, plain, library, moved, gflop * 1e9, unit, reps=5)
         by_loop = {lp: n - before[lp] for lp, n in io_.ivf_block_topk.launches_by_loop.items()}
-        if by_loop["fma"] or not by_loop["tensor_core"]:
-            raise AssertionError(f"{name} batch {batch}: timed launches left the tensor cores: {by_loop}")
+        if not by_loop[loop] or sum(by_loop.values()) != by_loop[loop]:
+            raise AssertionError(f"{name} batch {batch}: timed launches left the {loop} loop: {by_loop}")
         groups = io_.ivf_work_list(probes, ivf.nlist, bq)[0]  # on the card; read here for the log only
         live = int((groups[:, 2] > 0).sum())
         fill = (f"{live} groups of up to {bq} pairs (bound {groups.shape[0]}), {pairs / (live * bq):.0%} full, "
@@ -2044,7 +2265,7 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
             f"{by_loop}")
     # the search host to host (IVFIndex.search: probe, kernel 7, merge or rescore, download)
     times = {batch: cuda_ms(lambda b=batch: ivf.search(timing[:b], 50, nprobe=64), reps=3) for batch in (1, 128)}
-    log(f"[ivf] {'int8' if int8 else 'exact'} IVFIndex.search top-50 nprobe 64, host to host: "
+    log(f"[ivf] {'int8' if int8 else 'f32' if f32 else 'exact'} IVFIndex.search top-50 nprobe 64, host to host: "
         + ", ".join(f"batch {b} {t:.3f} ms" for b, t in times.items()))
 
 
@@ -2091,6 +2312,268 @@ def _ivf_library(ivf, probes, qb, int8: bool, chunk: int = 8):
         return out
 
     return chunks, label
+
+
+# ---------------------------------------------------------------------------
+# phase f32: STORE_DTYPE=float32 at 1M x 1536 (the f32 ring)
+# ---------------------------------------------------------------------------
+
+_F32_FLAT = ("block_topk", "grouped_block_topk", "fast_block_topk", "fast_grouped_block_topk", "fused_topk")
+_F32_LAUNCHES = {}  # kernel: launches of the f32 phase's routes, all on the f32 ring
+
+
+def phase_f32(rows: int = 1_000_000, dim: int = 1536) -> None:
+    """STORE_DTYPE=float32: a ``rows`` x ``dim`` float32 store (made on the
+    card from a seed) served by the app's wiring, micro-batcher on, no
+    keyword index: concurrent /search_by_image (kernel 1), concurrent
+    search_masked over five predicates (kernel 5), the store's impl routes
+    (kernels 3, 4 and grouped 3), every launch on the f32 ring; the results
+    against plain searches; each kernel's time against its plain version,
+    bound and library at batches 1, 8, 128 and 256, and ``store.search`` host
+    to host; then a float32 IVF (nlist 1024, nprobe 64) on rows of intrinsic
+    dimension 32: built by its first routed search, kernel 7 on the f32 ring,
+    timed as phase ``ivf`` times it."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, plain_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick at full precision, as the kernels
+    demo = _demo()
+    device = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory(prefix="pse_f32_") as tmp:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        corpus = torch.empty((rows, dim), dtype=torch.float32, device=DEVICE)
+        for start in range(0, rows, 131072):
+            corpus[start:start + 131072] = _unit_rows(min(131072, rows - start), dim, gen, torch.float32)
+        index = VectorIndex(
+            dimension=dim, index_path=os.path.join(tmp, "f32.index"), metadata_path=os.path.join(tmp, "f32-meta.json"),
+            metric="cosine", store_dtype="float32", quantized=False, device=device,
+        )
+        index.load_device_rows(corpus, _metadata(rows))
+        del corpus
+        store = index._store
+        torch.cuda.synchronize()
+        log(f"[f32] {rows} x {dim} float32 rows on the card ({store._device.dtype}, scoring loop "
+            f"{to.scoring_loop(store._device)}), season metadata on the host, in {time.perf_counter() - t0:.1f} s")
+        config = load_config({
+            "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu", "STORE_DTYPE": "float32",
+            "STORE_QUANTIZED": "0", "SEARCH_MICROBATCH_ENABLED": "1", "KEYWORD_BACKEND": "none",
+            "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10",
+            "QUERY_EXPANSION_ENABLED": "0", "QUERY_CACHE_ENABLED": "0", "EMBEDDING_CACHE_ENABLED": "0",
+        })
+        services = initialize_services(config, device=device, vector_index=index)
+        batcher = index._microbatcher
+        server, port = _serve(create_app(services))
+        base = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(SEED + 5)
+        picks = [int(x) for x in rng.integers(0, rows, size=32)]
+        masks = [rng.random(rows) < frac for frac in (0.5, 0.25, 0.05, 0.001, 0.0)]
+        filtered_q = _unit_rows(64, dim, gen, torch.float32).cpu().numpy()
+        impl_q = {b: _unit_rows(b, dim, gen, torch.float32).cpu().numpy() for b in (1, 128)}
+        table = np.stack(masks)
+        ids = (np.arange(128) % len(masks)).astype(np.int32)
+        filtered = {}
+        try:
+            reset_launches()
+            t = time.perf_counter()
+            run_threads(lambda i: _results("f32 /search_by_image", demo._post(
+                base, "/search_by_image", {"image_path": f"/photos/{i}.jpg", "top_k": 10})), [(i,) for i in picks])
+            image_wall = time.perf_counter() - t
+            t = time.perf_counter()
+            run_threads(lambda i: filtered.__setitem__(i, index.search_masked(filtered_q[i], 50, masks[i % len(masks)])),
+                        [(i,) for i in range(len(filtered_q))])
+            masked_wall = time.perf_counter() - t
+            got = {(impl, b): store.search(impl_q[b], 50, impl=impl) for b in (1, 128)
+                   for impl in ("pallas", "pallas_fast", "pallas_fused")}
+            got[("grouped", 128)] = store.grouped_search(impl_q[128], 50, table, ids, impl="pallas_fast")
+            launches, loops = read_launches(), read_loops()
+        finally:
+            server.shutdown()
+            server.server_close()
+            close_batchers(services)
+        log(f"[f32] 32 concurrent /search_by_image {image_wall:.2f} s wall; 64 concurrent search_masked(k=50) over "
+            f"{len(masks)} predicates {masked_wall:.2f} s wall; micro-batcher: batches_run {batcher.batches_run}, "
+            f"grouped_batches_run {batcher.grouped_batches_run}, requests_served {batcher.requests_served}; store "
+            f"impl routes pallas / pallas_fast / pallas_fused at batch 1 and 128, grouped pallas_fast at 128")
+        log(f"[f32] route launches {launches}; by scoring loop {loops}")
+        for name in _F32_FLAT:
+            if launches[name] <= 0 or loops[name]["fma_ring"] != launches[name]:
+                raise AssertionError(f"f32 routes: {name} launched {launches[name]} times, by loop {loops[name]}: "
+                                     "every launch must be on the f32 ring")
+            _LAUNCHES[name] += launches[name]
+            _F32_LAUNCHES[name] = launches[name]
+
+        # results against plain searches: the filtered ones per query under
+        # its predicate, the image searches' own rows first, kernel 4 bit for
+        # bit kernel 1, kernel 3 against the same search on its plain version
+        live = store._device[: store.count]
+        norms = np.linalg.norm(filtered_q, axis=1, keepdims=True)
+        queries = torch.from_numpy(filtered_q / np.maximum(norms, 1e-30)).to(device)
+        got_f = [_hits_to_topk(filtered[i], 50) for i in range(len(filtered_q))]
+        ref = [to.exact_search_plain(live, queries[i:i + 1], 51, metric="ip",
+                                     mask=torch.from_numpy(masks[i % len(masks)]).to(device).to(torch.int8))
+               for i in range(len(filtered_q))]
+        err = check_topk("f32 filtered search", torch.from_numpy(np.stack([g[0] for g in got_f])).to(device),
+                         torch.from_numpy(np.stack([g[1] for g in got_f])).to(device),
+                         torch.cat([r[0] for r in ref]), torch.cat([r[1] for r in ref]))
+        _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"], err)
+        rq = torch.from_numpy(np.stack([store.reconstruct(i) for i in picks[:4]])).to(device)
+        dists, idx = index.raw_search_batch(rq.cpu().numpy(), 50)
+        ref_v, ref_i = to.exact_search_plain(live, rq, 51, metric="ip")
+        _ERRORS["block_topk"] = max(_ERRORS["block_topk"], check_topk(
+            "f32 image search", torch.from_numpy(dists).to(device), torch.from_numpy(idx).to(device), ref_v, ref_i))
+        if idx[:, 0].tolist() != picks[:4]:
+            raise AssertionError("f32 image search: a query row is not its own nearest neighbour")
+        for b in (1, 128):
+            assert_same_bits(f"f32 fused search batch {b} against kernel 1",
+                             tuple(torch.from_numpy(x) for x in got[("pallas_fused", b)]),
+                             tuple(torch.from_numpy(x) for x in got[("pallas", b)]))
+        with plain_scan(to, "fast_block_topk"):
+            ref = store.search(impl_q[128], 50, impl="pallas_fast")
+        qn = torch.from_numpy(impl_q[128] / np.linalg.norm(impl_q[128], axis=1, keepdims=True)).to(device)
+        scores = _chunked_ip_scores(live, qn)
+        _ERRORS["fast_block_topk"] = max(_ERRORS["fast_block_topk"], check_fast(
+            "f32 fast search batch 128", *(torch.from_numpy(x).to(device) for x in (*got[("pallas_fast", 128)], *ref)),
+            scores))
+        del scores
+        log("[f32] results agree with plain searches (filtered under each predicate, image searches with their own "
+            "rows first); pallas_fused bit for bit kernel 1's; pallas_fast agrees with its plain version")
+        f32_kernel_times(store, masks, gen)
+        del index, services, batcher, store, live
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32_ivf(rows, dim)
+
+
+def f32_kernel_times(store, masks, gen) -> None:
+    """The f32 kernels 1, 3, 4, 5 and grouped 3 at batches 1, 8, 128 and
+    256, top-50, on the store's rows: each against its plain version (the
+    partials of kernels 1, 4 and 5 at k + 1, kernel 3's through the search
+    above), its time (plain, kernel, kernel, plain), bound and library
+    (cuBLAS float32 product, TF32 off, then torch.topk), every launch on
+    the f32 ring; then ``store.search`` host to host."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask as go
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    device, (cap, dim) = store._device.device, store._device.shape
+    rows, corpus = store.count, store._device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    table = torch.zeros((len(masks), cap), dtype=torch.int8, device=device)
+    table[:, :rows] = torch.from_numpy(np.stack(masks)).to(device)
+    kw = dict(count=rows, metric="ip", block_n=store.block_rows)
+    kg = dict(count=rows, block_n=store.block_rows)
+    nb = -(-cap // store.block_rows)
+    k = 50
+    before = read_loops()
+    for batch in (1, 8, 128, 256):
+        qb = _unit_rows(batch, dim, gen, torch.float32)
+        ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
+        per = to.fused_ranges(batch, nb, sms, block_n=store.block_rows, k=k, loop=to.scoring_loop(corpus))[1]
+        ranges = -(-nb // per)
+        dense = lambda: torch.matmul(qb, corpus.T)  # noqa: E731
+        keep = lambda: table[ids.long()] > 0  # noqa: E731
+        moved = nbytes(corpus, qb) + batch * nb * k * 8
+        flops = 2.0 * batch * cap * dim
+        runs = {  # name: (kernel, plain, library, bytes moved)
+            "block_topk": (lambda kk: to.block_topk(corpus, qb, kk, **kw),
+                           lambda kk: to.exact_block_topk_plain(corpus, qb, kk, **kw),
+                           lambda: torch.topk(dense(), k), moved),
+            "fast_block_topk": (lambda kk: to.fast_block_topk(corpus, qb, kk, **kw),
+                                lambda kk: to.fast_block_topk_plain(corpus, qb, kk, **kw),
+                                lambda: torch.topk(dense(), k), moved),
+            "fused_topk": (lambda kk: to.fused_topk(corpus, qb, kk, blocks_per_range=per, **kw)[:2],
+                           lambda kk: to.fused_topk_plain(corpus, qb, kk, blocks_per_range=per, **kw)[:2],
+                           lambda: torch.topk(dense(), k), nbytes(corpus, qb) + batch * (ranges + 1) * k * 8),
+            "grouped_block_topk": (lambda kk: go.grouped_block_topk(corpus, qb, table, ids, kk, **kg),
+                                   lambda kk: go.grouped_block_topk_plain(corpus, qb, table, ids, kk, **kg),
+                                   lambda: torch.topk(torch.where(keep(), dense(), float("-inf")), k),
+                                   moved + nbytes(table, ids)),
+            "fast_grouped_block_topk": (lambda kk: go.fast_grouped_block_topk(corpus, qb, table, ids, kk, **kg),
+                                        lambda kk: go.fast_grouped_block_topk_plain(corpus, qb, table, ids, kk, **kg),
+                                        lambda: torch.topk(torch.where(keep(), dense(), float("-inf")), k),
+                                        moved + nbytes(table, ids)),
+        }
+        for name, (kernel, plain, library, moved_bytes) in runs.items():
+            err = 0.0
+            if not name.startswith("fast"):
+                err = check_topk(f"f32 {name} batch {batch} top-{k}", *kernel(k), *plain(k + 1))
+                _ERRORS[name] = max(_ERRORS[name], err)
+            ms, pms, bound, by, lib_ms, (a, b, c, d) = time_kernel(
+                (name + " f32", batch, k), lambda: kernel(k), lambda: plain(k), library, moved_bytes, flops, "f32")
+            agree = "" if name.startswith("fast") else f"agrees with the plain version (max |err| {err:.3g}); "
+            log(f"[f32] {name} f32 batch {batch} top-{k} at {rows}x{dim}: " + agree
+                + f"kernel {ms:.3f} ms, plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{d:.3f}); bound "
+                f"{bound:.3f} ms by {by} ({moved_bytes / 1e9:.3f} GB, {flops / 1e12:.3f} T f32 ops); library "
+                f"{lib_ms:.3f} ms (cuBLAS f32, TF32 off, + torch.topk)"
+                + (f"; {ranges} ranges of {per} blocks" if name == "fused_topk" else ""))
+        k1_ms = cuda_ms(lambda: runs["block_topk"][0](1), reps=3)  # the selection's share
+        k50_ms = _TIMES[("block_topk f32", batch, k)][0]
+        log(f"[f32] block_topk f32 batch {batch} at {rows}x{dim}: k=1 {k1_ms:.3f} ms, k={k} {k50_ms:.3f} ms: "
+            f"selection of top-{k} adds {k50_ms - k1_ms:.3f} ms ({(k50_ms - k1_ms) / k50_ms:.0%})")
+        q_host = qb.cpu().numpy()
+        times = {impl: cuda_ms(lambda impl=impl: store.search(q_host, k, impl=impl), reps=3)
+                 for impl in ("auto", "pallas_fast", "pallas_fused")}
+        log(f"[f32] store.search batch {batch} top-{k}, host to host: "
+            + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items()))
+    after = read_loops()
+    for name in _F32_FLAT:
+        off = {lp: after[name][lp] - before[name][lp] for lp in after[name] if lp != "fma_ring"}
+        if any(off.values()):
+            raise AssertionError(f"f32 times: {name} launched off the f32 ring: {off}")
+    log("[f32] every timed launch of the f32 kernels 1, 3, 4 and 5 ran on the f32 ring")
+
+
+def f32_ivf(rows: int, dim: int) -> None:
+    """A float32 IVF (nlist 1024, nprobe 64) over ``rows`` unit rows of
+    intrinsic dimension 32: the first routed search builds it; kernel 7 on
+    the f32 ring against its plain version and timed (``_ivf_kernel_times``)."""
+    import numpy as np
+    import torch
+
+    from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    corpus, basis = _intrinsic_rows(rows, dim, gen)
+    corpus = corpus.float()
+    rng = np.random.default_rng(SEED + 6)
+    picks = torch.from_numpy(rng.choice(rows, size=256, replace=False)).to(DEVICE)
+    noise = torch.randn((256, basis.shape[0]), generator=gen, device=DEVICE) @ basis
+    timing = to.l2_normalize(corpus[picks] + 0.1 * noise).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="pse_f32_ivf_") as tmp:
+        index = VectorIndex(
+            dimension=dim, index_path=os.path.join(tmp, "ivf.index"), metadata_path=os.path.join(tmp, "ivf-meta.json"),
+            metric="cosine", index_type="ivf", store_dtype="float32", ivf_nlist=1024, ivf_nprobe=64, quantized=False,
+            device=torch.device(DEVICE),
+        )
+        index.load_device_rows(corpus, _metadata(rows))
+        del corpus
+        reset_launches()
+        t = time.perf_counter()
+        hits = index.search(timing[0], 10)
+        built = time.perf_counter() - t
+        launches, loops = read_launches()["ivf_block_topk"], dict(io_.ivf_block_topk.launches_by_loop)
+        ivf = index._ivf
+        log(f"[f32] float32 IVF: the first routed search built it in {built:.1f} s (nlist {ivf.nlist}, L "
+            f"{ivf.capacity}, {ivf._corpus.dtype}) and returned {len(hits)} hits; kernel 7 launches {launches}, by loop "
+            f"{loops}; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        if launches <= 0 or loops["fma_ring"] != launches:
+            raise AssertionError(f"f32 IVF search: kernel 7 must run on the f32 ring: {loops}")
+        _LAUNCHES["ivf_block_topk"] += launches
+        _F32_LAUNCHES["ivf_block_topk"] = launches
+        _ivf_kernel_times(ivf, timing, False, rows)
+        del index, ivf
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2755,8 +3238,8 @@ def mesh_ranks() -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="device,kernels,app,scale,ivf,online,tools,mesh",
-                        help="comma-separated subset of device,kernels,app,scale,ivf,online,tools,mesh")
+    parser.add_argument("--phases", default="device,kernels,app,scale,f32,ivf,online,tools,mesh",
+                        help="comma-separated subset of device,kernels,app,scale,f32,ivf,online,tools,mesh")
     args = parser.parse_args(argv)
     import torch
 
@@ -2771,7 +3254,7 @@ def main(argv=None) -> int:
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
     started = time.perf_counter()
     phase_device()
-    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "ivf": phase_ivf,
+    runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "f32": phase_f32, "ivf": phase_ivf,
                "online": phase_online, "tools": phase_tools, "mesh": phase_mesh}
     for name in phases:
         if name in runners:
@@ -2802,10 +3285,16 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces, batch) in sources.items():
         ms, plain_ms, bound, by, lib_ms = _TIMES.get((name, batch, 50), (None,) * 5)
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": _LAUNCHES[name], "max_abs_err": _ERRORS[name],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib_ms, "batch": batch, "top_k": 50})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": _LAUNCHES[name], "max_abs_err": _ERRORS[name],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                 "library_ms": lib_ms, "batch": batch, "top_k": 50}
+        f32 = {b: _TIMES[(name + " f32", b, 50)] for b in (1, 8, 128, 256) if (name + " f32", b, 50) in _TIMES}
+        if f32:  # the same kernel on float32 rows (the f32 ring), by batch
+            entry["f32"] = {"launches": _F32_LAUNCHES.get(name, 0), "by_batch": {
+                str(b): {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
+                for b, t in f32.items()}}
+        kernels.append(entry)
     log(f"[done] phases {phases} passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 // fused_topk.cu.  One call scores the BQ queries of one CTA against one
 // block of `bn` corpus rows and leaves the scores in a [BQ, bn] shared-memory
 // tile, -inf where the row is invalid.  Every caller accumulates in the same
-// order, so the kernels built on it give bit-identical scores.
+// order, so the kernels built on it give bit-identical scores; the f32 ring
+// (the F32 operand of block_score_tc.cuh) sums in this order too.
 //
 // Each thread keeps a TQ x 8 register tile of f32 accumulators (fmaf, IEEE,
 // no TF32, no tensor cores yet; bf16 is widened with __bfloat162float), and D

@@ -3,7 +3,9 @@
 // block_topk.cu), kernel 4 (bf16, fused_topk.cu) and kernels 2 and 6 (int8,
 // int8_block_topk.cu); and of kernel 7, the IVF probed-cluster scan (bf16
 // and int8, ivf_topk.cu), whose CTAs take their rows, queries and lists
-// from a work list of probe pairs (IvfWork).  TMA loads into a ring of
+// from a work list of probe pairs (IvfWork).  The same ring feeds the f32
+// scans (kernels 1, 3, 4, 5 and 7 on float32 rows with D % 4 == 0): the F32
+// operand swaps wgmma for IEEE fmaf consumers (ffma_pass, below).  TMA loads into a ring of
 // shared-memory stages, one
 // producer warp, two consumer warpgroups that run wgmma (bf16 with f32
 // accumulators, or s8 with s32 accumulators), an epilogue into a score
@@ -74,7 +76,11 @@
 // a tolerance (max |err| 4.8e-7 at 1536-d unit rows against the f32
 // product).  s8: the s32 sum is exact (|sum| <= 127^2 * d < 2^31 for d <
 // 133,000), so the order does not matter and kernels 2 and 6 equal their
-// plain versions bit for bit.
+// plain versions bit for bit.  f32 (F32): fmaf over d = 0 .. D - 1 in order
+// from +0.0, the FMA loop's order (block_score.cuh), the columns TMA fills
+// past d being its zero-staged ones, so the f32 ring's scores are the FMA
+// loop's bit for bit.  Its CTA at BQ 32 holds kFfmaLargeDepth boxes a row
+// tile (156,840 bytes: one CTA an SM), at BQ 8 the tensor cores' 107,752.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, the library does not link -lcuda
@@ -309,6 +315,7 @@ struct WgmmaS8<32> {
 // for l2 -(|q|^2 + |c|^2 - 2 q.c), as in the TPU kernel.
 struct Bf16 {
   using Acc = float;
+  static constexpr bool kFfma = false;  // wgmma consumers
   static constexpr int kBytes = 2;
   static constexpr int kBoxK = kSwizzleBytes / kBytes;  // 64 elements a box row
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -339,6 +346,7 @@ struct Bf16 {
 // query norm is constant per query).
 struct S8 {
   using Acc = int;
+  static constexpr bool kFfma = false;
   static constexpr int kBytes = 1;
   static constexpr int kBoxK = kSwizzleBytes / kBytes;  // 128 elements a box row
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // bytes: TMA only copies them
@@ -362,6 +370,185 @@ struct S8 {
     return l2 ? __fsub_rn(__fmul_rn(2.f, v), r.cn) : v;
   }
 };
+
+// ---------------------------------------------------------------------------
+// The f32 consumers (F32): one pass of kPassRows rows in IEEE fmaf
+// ---------------------------------------------------------------------------
+
+constexpr int kFfmaRows = 8;        // rows a thread keeps: r0 + 16 i of its warp pair's row tile
+constexpr int kFfmaStep = 2;        // f32 chunks of a box a loop step
+constexpr int kFfmaLargeDepth = 2;  // f32 boxes in flight a row tile at BQ 32
+constexpr int kFfmaTileThreads = kConsumers / kPassTiles;  // a warp pair a row tile
+static_assert(kFfmaTileThreads * kFfmaRows * kSmallBQ / 4 == kRowTile * kSmallBQ, "a warp pair covers its tile");
+
+// float32 (kernels 1, 3, 4, 5 and 7 on rows with D % 4 == 0): no tensor
+// cores.  The ring is the same (an f32 box row is 32 floats, 128 bytes) and
+// the consumers run IEEE fmaf on it (ffma_pass).  The score is bf16's, and
+// kernel 7's l2 score (no query norms: its caller subtracts |q|^2) is the
+// FMA loop's 2 acc - |c|^2, so that a zero keeps its sign.
+struct F32 {
+  using Acc = float;
+  static constexpr bool kFfma = true;  // fmaf consumers
+  static constexpr int kBytes = 4;
+  static constexpr int kBoxK = kSwizzleBytes / kBytes;  // 32 elements a box row
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  using Scales = Bf16::Scales;
+  using Row = Bf16::Row;
+  __device__ __forceinline__ static Row row(const Scales& s, int col, bool valid, int l2) {
+    return Bf16::row(s, col, valid, l2);
+  }
+  __device__ __forceinline__ static float score(float acc, const Scales& s, const Row& r, int gq, int q,
+                                                bool l2) {
+    if (l2 && s.qnorms == nullptr) return __fsub_rn(__fmul_rn(2.f, acc), r.cn);
+    return Bf16::score(acc, s, r, gq, q, l2);
+  }
+};
+
+// The f32 ring: each row tile has its own stages t, t + kPassTiles, ...,
+// one a chunk in turn, so the warp pair that reads tile t consumes every
+// fill of its stages in order.  (A shared rotation, the wgmma consumers'
+// way, would let a pass of fewer than kPassTiles tiles give a stage's
+// fills to different warp pairs, and one pair could wait on a parity two
+// fills ahead of the barrier and read a stale box.)  BQ 8: one stage a
+// tile, two CTAs an SM (16 accumulators and 2 queries' 8 floats a thread
+// fit the cap of 96 registers).  BQ 32: 64 accumulators and the 32 floats
+// of 8 queries do not (with 4 queries at once they spilled and ran
+// slower), so one CTA an SM (a cap of 168: 9 warps over 4
+// SMSPs' register files), whose shared memory holds kFfmaLargeDepth boxes
+// a tile.
+template <int BQ>
+__host__ __device__ constexpr int ffma_stages() {
+  return kPassTiles * (BQ > kSmallBQ ? kFfmaLargeDepth : 1);
+}
+
+template <int BQ>
+__host__ __device__ constexpr int ffma_ctas() {
+  return BQ > kSmallBQ ? 1 : 2;
+}
+
+template <int kStagesT>
+__device__ __forceinline__ int ffma_stage(int chunk, int tile) {
+  return (chunk % (kStagesT / kPassTiles)) * kPassTiles + tile;
+}
+
+// The products of this thread's rows and queries over one box (32 floats of
+// D): `rows` is its first row r0 in the corpus box (rows r0 + 16 i are 16
+// box rows apart, r0 % 8 == rl), `qbox` the query box; queries qg + 4 j.
+// Each output is acc = fmaf(q[d], c[d], acc), d in order: the FMA loop's
+// order (block_score.cuh).  The 128-byte swizzle puts 16-byte chunk c of
+// box row r at chunk c ^ (r % 8), so a load's 8 rows (r % 8 = 0..7) lie in
+// 8 bank quads and its 4 queries (q % 8 = qg or qg + 4) in 4, each read by
+// 4 or 8 lanes at once (a broadcast).  A thread holds its queries' 4
+// floats of a chunk and streams its rows': at BQ 32, 16 16-byte loads for
+// 256 fmaf.  (Loads spread through the fmaf stream by hand, or all rows'
+// and queries' chunks held for 4 outer products, ran no faster on the H100.)
+template <int kQ>
+__device__ __forceinline__ void ffma_box(float (&acc)[kFfmaRows][kQ], const float* rows, const float* qbox,
+                                         int rl, int qg) {
+  const float* qrow = qbox + qg * 32;
+#pragma unroll 1
+  for (int c0 = 0; c0 < 8; c0 += kFfmaStep) {  // the box row's 16-byte chunks
+#pragma unroll
+    for (int c = c0; c < c0 + kFfmaStep; ++c) {
+      const int cr = (c ^ rl) * 4;
+      const int cq0 = (c ^ qg) * 4, cq1 = (c ^ (qg + 4)) * 4;  // queries qg + 4 j, j even / odd
+      float4 qv[kQ];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) qv[j] = *reinterpret_cast<const float4*>(qrow + j * 128 + ((j & 1) ? cq1 : cq0));
+#pragma unroll
+      for (int i = 0; i < kFfmaRows; ++i) {
+        const float4 cv = *reinterpret_cast<const float4*>(rows + i * 16 * 32 + cr);
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          float a = acc[i][j];
+          a = fmaf(qv[j].x, cv.x, a);
+          a = fmaf(qv[j].y, cv.y, a);
+          a = fmaf(qv[j].z, cv.z, a);
+          a = fmaf(qv[j].w, cv.w, a);
+          acc[i][j] = a;
+        }
+      }
+    }
+  }
+}
+
+// One pass of the f32 consumers, and its epilogue into the score tile.
+// Warps 2t and 2t + 1 own row tile t of every chunk: they wait for that
+// box only (in stage ffma_stage(chunk, t)), and release it
+// (kFfmaTileThreads arrivals) once read; every consumer releases the query
+// box.  Lane l keeps rows r0 + 16 i, r0 = 8 (warp % 2) + l % 8, and
+// queries l / 8 + 4 j, j < BQ / 4: 8 x 8 f32 accumulators at BQ 32, 8 x 2
+// at BQ 8.  `chunk` counts the chunks of every pass so far and bit s of
+// `full_bits` is the parity of stage s's next fill, as the producer keeps
+// them.
+template <typename Op, int BQ, int kStagesT, bool kGrouped>
+__device__ __forceinline__ void ffma_pass(const uint8_t* ring, const uint8_t* qring, uint64_t* cfull,
+                                          uint64_t* cempty, uint64_t* qfull, uint64_t* qempty, int& chunk,
+                                          uint32_t& full_bits, int& qs, uint32_t& qph, int chunks, int ptiles,
+                                          int prows, float* scores, const typename Op::Scales& scales,
+                                          const int8_t* __restrict__ mask, const Predicates& pred, int prow0,
+                                          int q0, int q, int n, int count, int l2) {
+  constexpr int kQ = BQ / 4;
+  constexpr int kPitch = kListSlots + kPassRows + kPitchPad;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tile = warp / 2;
+  const int rl = lane % 8;
+  const int r0 = (warp % 2) * 8 + rl;
+  const int qg = lane / 8;
+  static_assert(kStagesT % kPassTiles == 0 && kStagesT <= 32, "whole sub-rings, one parity bit a stage");
+  float acc[kFfmaRows][kQ];
+#pragma unroll
+  for (int i = 0; i < kFfmaRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) acc[i][j] = 0.f;
+  for (int c = 0; c < chunks; ++c, ++chunk) {
+    mbar_wait(&qfull[qs], qph);
+    if (tile < ptiles) {
+      const int s = ffma_stage<kStagesT>(chunk, tile);
+      mbar_wait(&cfull[s], (full_bits >> s) & 1);
+      full_bits ^= 1u << s;
+      ffma_box<kQ>(acc, reinterpret_cast<const float*>(ring + s * kRowTile * kSwizzleBytes) + r0 * 32,
+                   reinterpret_cast<const float*>(qring + qs * BQ * kSwizzleBytes), rl, qg);
+      mbar_arrive(&cempty[s]);
+    }
+    mbar_arrive(&qempty[qs]);
+    if (++qs == kQueryStages) {
+      qs = 0;
+      qph ^= 1;
+    }
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // every consumer is done with the ring
+
+  // epilogue, as the wgmma consumers' (tc_block_topk): -inf past count,
+  // where mask <= 0 or where the query's predicate drops the row; l2
+  // compiled out of the grouped kernels at BQ 32
+  const int use_l2 = (kGrouped && BQ > kSmallBQ) ? 0 : l2;
+  const int8_t* pred_row[kQ] = {};
+  if constexpr (kGrouped) {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int gq = q0 + qg + 4 * j;
+      const int id = gq < q ? pred.ids[gq] : -1;
+      pred_row[j] = (id >= 0 && id < pred.m) ? pred.table + static_cast<size_t>(id) * n : nullptr;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kFfmaRows; ++i) {
+    const int lp = tile * kRowTile + r0 + 16 * i;  // the row's place in the pass
+    if (lp >= prows) continue;
+    const int col = prow0 + lp;
+    const bool valid = col < count && (mask == nullptr || mask[col] > 0);
+    const typename Op::Row rterms = Op::row(scales, col, valid, use_l2);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int ql = qg + 4 * j;
+      bool keep = valid;
+      if constexpr (kGrouped) keep = keep && pred_row[j] != nullptr && pred_row[j][col] > 0;
+      const float s = Op::score(acc[i][j], scales, rterms, q0 + ql, q, use_l2 && keep);
+      scores[ql * kPitch + kListSlots + lp] = keep ? s : -CUDART_INF_F;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Where a CTA's rows, queries and lists come from.  FlatWork (kernels 1-6):
@@ -445,7 +632,8 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStagesT; ++s) {
       mbar_init(&cfull[s], 1);            // the producer's arrive, plus the box's bytes
-      mbar_init(&cempty[s], kConsumers);  // every consumer thread, after its wgmma wait
+      // every consumer thread, after its wgmma wait; f32: the row tile's warp pair
+      mbar_init(&cempty[s], Op::kFfma ? kFfmaTileThreads : kConsumers);
     }
     for (int s = 0; s < kQueryStages; ++s) {
       mbar_init(&qfull[s], 1);
@@ -460,6 +648,8 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
     if (threadIdx.x == kConsumers) {
       int cs = 0, qs = 0;
       uint32_t cph = 0, qph = 0;
+      [[maybe_unused]] int chunk = 0;           // f32: chunks loaded, over every pass
+      [[maybe_unused]] uint32_t full_bits = 0;  // f32: bit s, the parity of stage s's next fill
       for (int p = 0; p < passes; ++p) {
         if (tile_over_ring<BQ>() && p > 0) mbar_wait(pass_free, (p - 1) & 1);  // the tile is selected
         const int pass0 = p * kPassRows;
@@ -473,15 +663,24 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
             qph ^= 1;
           }
           for (int t = 0; t < ptiles; ++t) {
-            mbar_wait(&cempty[cs], cph ^ 1);
-            mbar_expect_tx(&cfull[cs], kCorpusBox);
-            tma_load_2d(ring + cs * kCorpusBox, corpus_map, &cfull[cs], c * kBoxK,
-                        row0 + pass0 + t * kRowTile);
-            if (++cs == kStagesT) {
-              cs = 0;
-              cph ^= 1;
+            if constexpr (Op::kFfma) {  // row tile t's own stages (ffma_stage)
+              const int st = ffma_stage<kStagesT>(chunk, t);
+              mbar_wait(&cempty[st], ((full_bits >> st) & 1) ^ 1);
+              full_bits ^= 1u << st;
+              mbar_expect_tx(&cfull[st], kCorpusBox);
+              tma_load_2d(ring + st * kCorpusBox, corpus_map, &cfull[st], c * kBoxK, row0 + pass0 + t * kRowTile);
+            } else {
+              mbar_wait(&cempty[cs], cph ^ 1);
+              mbar_expect_tx(&cfull[cs], kCorpusBox);
+              tma_load_2d(ring + cs * kCorpusBox, corpus_map, &cfull[cs], c * kBoxK,
+                          row0 + pass0 + t * kRowTile);
+              if (++cs == kStagesT) {
+                cs = 0;
+                cph ^= 1;
+              }
             }
           }
+          if constexpr (Op::kFfma) ++chunk;
         }
       }
     }
@@ -505,88 +704,96 @@ __device__ __forceinline__ void tc_block_topk(const CUtensorMap* corpus_map,
   [[maybe_unused]] const int lm = kKeys ? (1 << max(10, 32 - __clz(bn - 1))) - 1 : 0;
   int cs = 0, qs = 0;
   uint32_t cph = 0, qph = 0;
+  [[maybe_unused]] int chunk = 0;           // f32: as the producer's
+  [[maybe_unused]] uint32_t full_bits = 0;
   for (int p = 0; p < passes; ++p) {
     const int pass0 = p * kPassRows;
     const int prows = min(kPassRows, ncols - pass0);
     const int ptiles = (prows + kRowTile - 1) / kRowTile;
-    Acc acc[kPassTiles][BQ / 2];
+    if constexpr (Op::kFfma) {
+      ffma_pass<Op, BQ, kStagesT, kGrouped>(ring, qring, cfull, cempty, qfull, qempty, chunk, full_bits, qs, qph,
+                                            chunks, ptiles, prows, scores, scales, mask, pred, row0 + pass0, q0,
+                                            q, n, count, l2);
+    } else {
+      Acc acc[kPassTiles][BQ / 2];
 #pragma unroll
-    for (int t = 0; t < kPassTiles; ++t)
+      for (int t = 0; t < kPassTiles; ++t)
 #pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) acc[t][i] = Acc(0);
-    // D chunk by chunk: one query box serves every row tile of the pass
-    for (int c = 0; c < chunks; ++c) {
-      mbar_wait(&qfull[qs], qph);
-      const uint64_t db = sw128_desc(qring + qs * kQueryBox);
+        for (int i = 0; i < BQ / 2; ++i) acc[t][i] = Acc(0);
+      // D chunk by chunk: one query box serves every row tile of the pass
+      for (int c = 0; c < chunks; ++c) {
+        mbar_wait(&qfull[qs], qph);
+        const uint64_t db = sw128_desc(qring + qs * kQueryBox);
 #pragma unroll
-      for (int t = 0; t < kPassTiles; ++t) {
-        if (t < ptiles) {
-          mbar_wait(&cfull[cs], cph);
-          const uint64_t da = sw128_desc(ring + cs * kCorpusBox + wg * 64 * kSwizzleBytes);
-          wgmma_fence();
+        for (int t = 0; t < kPassTiles; ++t) {
+          if (t < ptiles) {
+            mbar_wait(&cfull[cs], cph);
+            const uint64_t da = sw128_desc(ring + cs * kCorpusBox + wg * 64 * kSwizzleBytes);
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kSwizzleBytes / kWgmmaKBytes; ++kk)  // 32 bytes along K: 2 in 16-byte units
-            Op::template Mma<BQ>::mma(acc[t], da + 2 * kk, db + 2 * kk);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_acc(acc[t]);
-          mbar_arrive(&cempty[cs]);
-          if (++cs == kStagesT) {
-            cs = 0;
-            cph ^= 1;
+            for (int kk = 0; kk < kSwizzleBytes / kWgmmaKBytes; ++kk)  // 32 bytes along K: 2 in 16-byte units
+              Op::template Mma<BQ>::mma(acc[t], da + 2 * kk, db + 2 * kk);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_acc(acc[t]);
+            mbar_arrive(&cempty[cs]);
+            if (++cs == kStagesT) {
+              cs = 0;
+              cph ^= 1;
+            }
           }
         }
-      }
-      mbar_arrive(&qempty[qs]);
-      if (++qs == kQueryStages) {
-        qs = 0;
-        qph ^= 1;
-      }
-    }
-    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // both warpgroups are done with the ring
-
-    // epilogue: -inf past count / where mask <= 0 / where the query's
-    // predicate drops the row; the operand's score elsewhere.  The predicate rows
-    // are looked up here: looked up before the main loop, kernel 5 on the
-    // FMA loop ran 46 % slower than kernel 1 (H100).
-    // The grouped kernels score inner products only (their entry points
-    // pass l2 = 0).  At BQ 32 the l2 term is compiled out of them: kernel
-    // 5 spills 84 bytes instead of 196.  At BQ 8 it stays in: without it
-    // ptxas gives kernel 5 one register more (H100 build, PERF.md).
-    const int use_l2 = (kGrouped && BQ > kSmallBQ) ? 0 : l2;
-    const int8_t* pred_row[BQ / 4] = {};
-    if constexpr (kGrouped) {
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int gq = q0 + 8 * j + qc + e;
-          const int id = gq < q ? pred.ids[gq] : -1;
-          pred_row[2 * j + e] =
-              (id >= 0 && id < pred.m) ? pred.table + static_cast<size_t>(id) * n : nullptr;
+        mbar_arrive(&qempty[qs]);
+        if (++qs == kQueryStages) {
+          qs = 0;
+          qph ^= 1;
         }
-    }
-#pragma unroll
-    for (int t = 0; t < kPassTiles; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lp = t * kRowTile + frag_row + 8 * h;  // the row's place in the pass
-        if (lp >= prows) continue;
-        const int col = row0 + pass0 + lp;
-        const bool valid = col < count && (mask == nullptr || mask[col] > 0);
-        const typename Op::Row rterms = Op::row(scales, col, valid, use_l2);
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // both warpgroups are done with the ring
+
+      // epilogue: -inf past count / where mask <= 0 / where the query's
+      // predicate drops the row; the operand's score elsewhere.  The predicate rows
+      // are looked up here: looked up before the main loop, kernel 5 on the
+      // FMA loop ran 46 % slower than kernel 1 (H100).
+      // The grouped kernels score inner products only (their entry points
+      // pass l2 = 0).  At BQ 32 the l2 term is compiled out of them: kernel
+      // 5 spills 84 bytes instead of 196.  At BQ 8 it stays in: without it
+      // ptxas gives kernel 5 one register more (H100 build, PERF.md).
+      const int use_l2 = (kGrouped && BQ > kSmallBQ) ? 0 : l2;
+      const int8_t* pred_row[BQ / 4] = {};
+      if constexpr (kGrouped) {
 #pragma unroll
         for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int ql = 8 * j + qc + e;
-            bool keep = valid;
-            if constexpr (kGrouped)
-              keep = keep && pred_row[2 * j + e] != nullptr && pred_row[2 * j + e][col] > 0;
-            const float s = Op::score(acc[t][4 * j + 2 * h + e], scales, rterms, q0 + ql, q, use_l2 && keep);
-            scores[ql * kPitch + kListSlots + lp] = keep ? s : -CUDART_INF_F;
+            const int gq = q0 + 8 * j + qc + e;
+            const int id = gq < q ? pred.ids[gq] : -1;
+            pred_row[2 * j + e] =
+                (id >= 0 && id < pred.m) ? pred.table + static_cast<size_t>(id) * n : nullptr;
           }
       }
+#pragma unroll
+      for (int t = 0; t < kPassTiles; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lp = t * kRowTile + frag_row + 8 * h;  // the row's place in the pass
+          if (lp >= prows) continue;
+          const int col = row0 + pass0 + lp;
+          const bool valid = col < count && (mask == nullptr || mask[col] > 0);
+          const typename Op::Row rterms = Op::row(scales, col, valid, use_l2);
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ql = 8 * j + qc + e;
+              bool keep = valid;
+              if constexpr (kGrouped)
+                keep = keep && pred_row[2 * j + e] != nullptr && pred_row[2 * j + e][col] > 0;
+              const float s = Op::score(acc[t][4 * j + 2 * h + e], scales, rterms, q0 + ql, q, use_l2 && keep);
+              scores[ql * kPitch + kListSlots + lp] = keep ? s : -CUDART_INF_F;
+            }
+        }
+    }
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");  // the tile is whole
 
     if constexpr (kKeys)

@@ -62,13 +62,22 @@
 // 32) and the selection remain: 2.15 ms against the 0.93 ms bound (PERF.md).
 //
 // Which loop runs.  bf16 with d % 8 == 0 takes the tensor cores (the
-// wrappers check 16-byte-aligned bases); bf16 with d % 8 != 0, whose rows
-// TMA cannot stride, and every float32 corpus take the FMA loop of
-// block_score.cuh: a TQ x 8 register tile of IEEE fmaf (no TF32: f32 is
-// scored at full precision, as the JAX package's Precision.HIGHEST), D
-// staged 32 at a time.  The same rule holds for kernel 3 here and for
-// kernel 4 (fused_topk.cu); f32 stays on fmaf by contract.  The wrappers
-// count launches by loop (launches_by_loop).
+// wrappers check 16-byte-aligned bases).  float32 with d % 4 == 0 takes the
+// same ring with IEEE fmaf consumers (the F32 operand of
+// block_score_tc.cuh; no TF32: f32 is scored at full precision, as the JAX
+// package's Precision.HIGHEST), whose sums run in the FMA loop's order, so
+// its partials are the FMA loop's bit for bit; the wrapper chooses it
+// (ring != 0) and may ask for the FMA loop instead on the same rows, to
+// compare the two.  Other widths, whose rows TMA cannot stride, take the FMA
+// loop of block_score.cuh: a TQ x 8 register tile of fmaf, D staged 32 at a
+// time.  The same rule holds for kernel 3 here and for kernel 4
+// (fused_topk.cu).  The wrappers count launches by loop (launches_by_loop).
+//
+// f32 on the ring (H100, 1M x 1536, PERF.md): within 1.2x of the bytes at
+// batch 1 and 8; at 128, 54 % of the 67 TFLOP/s FFMA bound.  One CTA an SM
+// at a query tile of 32 (its 64 accumulators and 8 queries' floats do not
+// fit two CTAs' registers), so nothing overlaps a pass's selection (top-50
+// adds 5 % over top-1 at 128).
 //
 // Outputs: [Q, NB, k] float32 scores (higher is better; l2 as
 // -(|q|^2 + |c|^2 - 2 q.c)) and int32 global row ids, padded with -inf and
@@ -124,6 +133,22 @@ tc_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
       count, k, bn, l2);
 }
 
+// The f32 kernels 1, 3 and 5 on the same ring with fmaf consumers (the F32
+// operand of block_score_tc.cuh; its stages and CTAs an SM by query tile);
+// kernel 4 launches kernel 1's over its ranges.
+template <int BQ, bool kGrouped, bool kKeys>
+__global__ void __launch_bounds__(tc::kThreadsTc, tc::ffma_ctas<BQ>())
+fma_ring_block_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
+                           const __grid_constant__ CUtensorMap query_map,
+                           const float* __restrict__ qnorms, const float* __restrict__ cnorms,
+                           const int8_t* __restrict__ mask, Predicates pred,
+                           float* __restrict__ out_v, int* __restrict__ out_i, int n, int d, int q,
+                           int count, int k, int bn, int l2) {
+  tc::tc_block_topk<tc::F32, BQ, tc::ffma_stages<BQ>(), kGrouped, true, kKeys>(
+      &corpus_map, &query_map, tc::F32::Scales{qnorms, cnorms}, mask, pred, out_v, out_i, n, d, q,
+      count, k, bn, l2);
+}
+
 template <typename T, int BQ, bool kGrouped, bool kFast>
 cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
                 const void* cnorms, const void* mask, Predicates pred, void* out_v,
@@ -159,17 +184,31 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms,
                                      out_i, n, d, q, count, k, bn, l2, s);
 }
 
-template <int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys>
+// The ring kernel of an operand: bf16 (wgmma) at any ring depth and
+// selection, f32 (fmaf) at its own depth (tc::ffma_stages) with the
+// threshold selection.
+template <typename Op, int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys>
+constexpr auto ring_kernel() {
+  if constexpr (Op::kFfma) {
+    static_assert(kThreshold, "the f32 ring selects by threshold");
+    return fma_ring_block_topk_kernel<BQ, kGrouped, kKeys>;
+  } else {
+    return tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold, kKeys>;
+  }
+}
+
+template <int BQ, int kStagesT, bool kGrouped, bool kThreshold, bool kKeys, typename Op>
 cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
                    const void* cnorms, const void* mask, Predicates pred, void* out_v,
                    void* out_i, int n, int d, int q, int count, int k, int bn, int l2,
                    cudaStream_t stream) {
   CUtensorMap corpus_map, query_map;
-  if (!tc::make_map<tc::Bf16>(&corpus_map, corpus, n, d, tc::kRowTile) ||
-      !tc::make_map<tc::Bf16>(&query_map, queries, q, d, BQ))
+  if (!tc::make_map<Op>(&corpus_map, corpus, n, d, tc::kRowTile) ||
+      !tc::make_map<Op>(&query_map, queries, q, d, BQ))
     return cudaErrorInvalidValue;
-  const size_t smem = tc::smem_bytes<BQ>(kStagesT);
-  auto kernel = tc_block_topk_kernel<BQ, kStagesT, kGrouped, kThreshold, kKeys>;
+  size_t smem = tc::smem_bytes<BQ>(kStagesT);
+  if constexpr (Op::kFfma) smem = tc::smem_bytes<BQ>(tc::ffma_stages<BQ>());
+  auto kernel = ring_kernel<Op, BQ, kStagesT, kGrouped, kThreshold, kKeys>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -184,14 +223,14 @@ cudaError_t run_tc(const void* corpus, const void* queries, const void* qnorms,
   return cudaGetLastError();
 }
 
-template <int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false>
+template <int kStagesT, bool kGrouped, bool kThreshold, bool kKeys = false, typename Op = tc::Bf16>
 int dispatch_tc(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
                 const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d, int q,
                 int count, int k, int bn, int l2, cudaStream_t s) {
   if (q <= tc::kSmallBQ)
-    return run_tc<tc::kSmallBQ, kStagesT, kGrouped, kThreshold, kKeys>(
+    return run_tc<tc::kSmallBQ, kStagesT, kGrouped, kThreshold, kKeys, Op>(
         corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
-  return run_tc<tc::kLargeBQ, kStagesT, kGrouped, kThreshold, kKeys>(
+  return run_tc<tc::kLargeBQ, kStagesT, kGrouped, kThreshold, kKeys, Op>(
       corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d, q, count, k, bn, l2, s);
 }
 
@@ -213,15 +252,34 @@ int dispatch_bf16(const void* corpus, const void* queries, const void* qnorms, c
                                                          static_cast<cudaStream_t>(stream));
 }
 
+// float32 kernels 1 and 5 (kKeys: kernel 3 through them) on the loop the
+// wrapper chose (topk.scoring_loop): ring != 0 the TMA ring with fmaf
+// consumers, which takes rows TMA can stride (d % 4 == 0) on
+// 16-byte-aligned bases and refuses others (cudaErrorInvalidValue) rather
+// than run another loop; ring == 0 the FMA loop, any d.
+template <bool kGrouped, bool kKeys = false>
+int dispatch_f32(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
+                 const void* mask, Predicates pred, void* out_v, void* out_i, int n, int d, int q,
+                 int count, int k, int bn, int l2, int ring, void* stream) {
+  if (!ring)
+    return dispatch<float, kGrouped, kKeys>(corpus, queries, qnorms, cnorms, mask, pred, out_v, out_i, n, d,
+                                            q, count, k, bn, l2, stream);
+  if (d % 4 != 0 || reinterpret_cast<uintptr_t>(corpus) % 16 || reinterpret_cast<uintptr_t>(queries) % 16)
+    return cudaErrorInvalidValue;
+  return dispatch_tc<tc::kStages, kGrouped, true, kKeys, tc::F32>(corpus, queries, qnorms, cnorms, mask, pred,
+                                                                  out_v, out_i, n, d, q, count, k, bn, l2,
+                                                                  static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" int pse_block_topk_f32(const void* corpus, const void* queries,
                                   const void* qnorms, const void* cnorms,
                                   const void* mask, void* out_v, void* out_i,
                                   int n, int d, int q, int count, int k, int bn,
-                                  int l2, void* stream) {
-  return dispatch<float, false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{},
-                                out_v, out_i, n, d, q, count, k, bn, l2, stream);
+                                  int l2, int ring, void* stream) {
+  return dispatch_f32<false>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{}, out_v, out_i, n, d, q,
+                             count, k, bn, l2, ring, stream);
 }
 
 extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries,
@@ -264,10 +322,9 @@ extern "C" int pse_grouped_block_topk_f32(const void* corpus, const void* querie
                                           const void* table, const void* ids,
                                           void* out_v, void* out_i, int n, int d,
                                           int q, int count, int k, int bn, int m,
-                                          void* stream) {
-  return dispatch<float, true>(corpus, queries, nullptr, nullptr, nullptr,
-                               pse::make_predicates(table, ids, m), out_v, out_i, n, d, q,
-                               count, k, bn, 0, stream);
+                                          int ring, void* stream) {
+  return dispatch_f32<true>(corpus, queries, nullptr, nullptr, nullptr, pse::make_predicates(table, ids, m),
+                            out_v, out_i, n, d, q, count, k, bn, 0, ring, stream);
 }
 
 extern "C" int pse_grouped_block_topk_bf16(const void* corpus, const void* queries,
@@ -286,9 +343,9 @@ extern "C" int pse_fast_block_topk_f32(const void* corpus, const void* queries,
                                        const void* qnorms, const void* cnorms,
                                        const void* mask, void* out_v, void* out_i,
                                        int n, int d, int q, int count, int k, int bn,
-                                       int l2, void* stream) {
-  return dispatch<float, false, true>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{},
-                                      out_v, out_i, n, d, q, count, k, bn, l2, stream);
+                                       int l2, int ring, void* stream) {
+  return dispatch_f32<false, true>(corpus, queries, qnorms, cnorms, mask, pse::Predicates{}, out_v, out_i, n,
+                                   d, q, count, k, bn, l2, ring, stream);
 }
 
 extern "C" int pse_fast_block_topk_bf16(const void* corpus, const void* queries,
@@ -305,10 +362,9 @@ extern "C" int pse_fast_grouped_block_topk_f32(const void* corpus, const void* q
                                                const void* table, const void* ids,
                                                void* out_v, void* out_i, int n, int d,
                                                int q, int count, int k, int bn, int m,
-                                               void* stream) {
-  return dispatch<float, true, true>(corpus, queries, nullptr, nullptr, nullptr,
-                                     pse::make_predicates(table, ids, m), out_v, out_i, n, d,
-                                     q, count, k, bn, 0, stream);
+                                               int ring, void* stream) {
+  return dispatch_f32<true, true>(corpus, queries, nullptr, nullptr, nullptr, pse::make_predicates(table, ids, m),
+                                  out_v, out_i, n, d, q, count, k, bn, 0, ring, stream);
 }
 
 extern "C" int pse_fast_grouped_block_topk_bf16(const void* corpus, const void* queries,

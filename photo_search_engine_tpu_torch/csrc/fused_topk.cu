@@ -32,10 +32,13 @@
 //   output element sums over D in the same order wherever its row lies and
 //   the selections are exact with ties to the smallest row, so the result
 //   equals kernel 1 followed by merge_partials bit for bit, ranges included.
-// - float32, and bf16 with d % 8 != 0: kernel 1's FMA loop
-//   (block_score.cuh, fmaf) block by block, each merged into the running
-//   top-k by merge_block (value, then row id), unless the block's best
-//   cannot reach the query's running k-th.
+// - float32 with d % 4 == 0 (ring != 0, the wrapper's choice): the same,
+//   through kernel 1's entry point pse_block_topk_f32 on the f32 ring
+//   (fmaf consumers on the TMA ring), then the merge.
+// - other float32 widths (or ring == 0), and bf16 with d % 8 != 0: kernel
+//   1's FMA loop (block_score.cuh, fmaf) block by block, each merged into
+//   the running top-k by merge_block (value, then row id), unless the
+//   block's best cannot reach the query's running k-th.
 //
 // Outputs: the [Q, S, k] range partials and the [Q, k] result, float32
 // scores (higher is better; l2 as -(|q|^2 + |c|^2 - 2 q.c)) and int32 row
@@ -50,11 +53,16 @@
 #include "block_score.cuh"
 #include "block_select.cuh"
 
-// Kernel 1, bf16 (block_topk.cu): kernel 4's tensor-core scan.
+// Kernel 1 (block_topk.cu): kernel 4's scan on the ring, bf16 on the
+// tensor cores, f32 with fmaf consumers (ring != 0).
 extern "C" int pse_block_topk_bf16(const void* corpus, const void* queries, const void* qnorms,
                                    const void* cnorms, const void* mask, void* out_v, void* out_i,
                                    int n, int d, int q, int count, int k, int bn, int l2,
                                    void* stream);
+extern "C" int pse_block_topk_f32(const void* corpus, const void* queries, const void* qnorms,
+                                  const void* cnorms, const void* mask, void* out_v, void* out_i,
+                                  int n, int d, int q, int count, int k, int bn, int l2, int ring,
+                                  void* stream);
 
 namespace {
 
@@ -203,21 +211,24 @@ cudaError_t run(const void* corpus, const void* queries, const void* qnorms,
   return merge(part_v, part_i, out_v, out_i, q, ranges, k, stream);
 }
 
+// `ring` (float32 only: the wrapper's choice of loop; bf16 takes the
+// tensor cores whenever d % 8 == 0).
 template <typename T>
 int dispatch(const void* corpus, const void* queries, const void* qnorms, const void* cnorms,
              const void* mask, void* part_v, void* part_i, void* out_v, void* out_i, int n,
              int d, int q, int count, int k, int bn, int l2, int ranges,
-             int blocks_per_range, void* stream) {
+             int blocks_per_range, int ring, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (d % 8 == 0) {  // the tensor cores: kernel 1 with a range as its block, then the merge
-      const long long span = static_cast<long long>(blocks_per_range) * bn;
-      if (span > INT_MAX) return cudaErrorInvalidValue;
-      const int err = pse_block_topk_bf16(corpus, queries, qnorms, cnorms, mask, part_v, part_i, n, d,
-                                          q, count, k, static_cast<int>(span), l2, stream);
-      if (err != cudaSuccess) return err;
-      return merge(part_v, part_i, out_v, out_i, q, ranges, k, s);
-    }
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  if (kBf16 ? d % 8 == 0 : ring != 0) {  // the ring: kernel 1 with a range as its block, then the merge
+    const long long span = static_cast<long long>(blocks_per_range) * bn;
+    if (span > INT_MAX) return cudaErrorInvalidValue;
+    const int err = kBf16 ? pse_block_topk_bf16(corpus, queries, qnorms, cnorms, mask, part_v, part_i, n, d, q,
+                                                count, k, static_cast<int>(span), l2, stream)
+                          : pse_block_topk_f32(corpus, queries, qnorms, cnorms, mask, part_v, part_i, n, d, q,
+                                               count, k, static_cast<int>(span), l2, 1, stream);
+    if (err != cudaSuccess) return err;
+    return merge(part_v, part_i, out_v, out_i, q, ranges, k, s);
   }
   if (q <= 8)
     return run<T, 8>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n, d,
@@ -231,14 +242,16 @@ int dispatch(const void* corpus, const void* queries, const void* qnorms, const 
 // part_v/part_i: [q][ranges][k]; out_v/out_i: [q][k].  Range r covers blocks
 // [r * blocks_per_range, (r + 1) * blocks_per_range) of `bn` rows.  bf16
 // with d % 8 == 0 runs on the tensor cores (16-byte-aligned bases, else
-// cudaErrorMisalignedAddress), everything else on the FMA loop.
+// cudaErrorMisalignedAddress); float32 with ring != 0 on the ring with fmaf
+// consumers (d % 4 == 0 and 16-byte-aligned bases, else
+// cudaErrorInvalidValue); everything else on the FMA loop.
 extern "C" int pse_fused_topk_f32(const void* corpus, const void* queries, const void* qnorms,
                                   const void* cnorms, const void* mask, void* part_v,
                                   void* part_i, void* out_v, void* out_i, int n, int d, int q,
                                   int count, int k, int bn, int l2, int ranges,
-                                  int blocks_per_range, void* stream) {
+                                  int blocks_per_range, int ring, void* stream) {
   return dispatch<float>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v, out_i, n,
-                         d, q, count, k, bn, l2, ranges, blocks_per_range, stream);
+                         d, q, count, k, bn, l2, ranges, blocks_per_range, ring, stream);
 }
 
 extern "C" int pse_fused_topk_bf16(const void* corpus, const void* queries, const void* qnorms,
@@ -247,6 +260,6 @@ extern "C" int pse_fused_topk_bf16(const void* corpus, const void* queries, cons
                                    int count, int k, int bn, int l2, int ranges,
                                    int blocks_per_range, void* stream) {
   return dispatch<__nv_bfloat16>(corpus, queries, qnorms, cnorms, mask, part_v, part_i, out_v,
-                                 out_i, n, d, q, count, k, bn, l2, ranges, blocks_per_range,
+                                 out_i, n, d, q, count, k, bn, l2, ranges, blocks_per_range, 0,
                                  stream);
 }

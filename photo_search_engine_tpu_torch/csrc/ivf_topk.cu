@@ -44,9 +44,13 @@
 // The groups of one cluster are neighbours on blockIdx.x, so a cluster that
 // a second group re-reads comes from L2.
 //
-// The FMA / __dp4a loop (float32, kept at full precision by contract;
-// bf16 with D % 8 != 0; int8 with D % 16 != 0; kk > 64, the exact scan of
-// candidate_k 500): kernel 1's FMA tile geometry and warp selection.  Each
+// float32 with D % 4 == 0 and kk <= 64: the same ring with IEEE fmaf
+// consumers (the F32 operand), whose sums run in the FMA loop's order, so
+// its partials are the FMA loop's bit for bit at the same tile and group.
+//
+// The FMA / __dp4a loop (other float32 widths; bf16 with D % 8 != 0; int8
+// with D % 16 != 0; kk > 64, the exact scan of candidate_k 500): kernel 1's
+// FMA tile geometry and warp selection.  Each
 // thread keeps a TQ x 8 register tile of fmaf / __dp4a accumulators, D is
 // staged 32 at a time, transposed with an odd pitch, and the scores stay in
 // a [BQ, bn] shared-memory tile until the selection writes kk of them per
@@ -354,6 +358,18 @@ tc_ivf_topk_kernel(const __grid_constant__ CUtensorMap corpus_map, const __grid_
       &corpus_map, &query_map, scales, row_valid, Predicates{}, out_v, out_i, n, d, q, n, kk, bn, l2, work);
 }
 
+// float32 on the same ring with fmaf consumers (the F32 operand): the FMA
+// loop's sums in the FMA loop's order, so the same scores bit for bit.
+template <int BQ>
+__global__ void __launch_bounds__(tc::kThreadsTc, tc::ffma_ctas<BQ>())
+fma_ring_ivf_topk_kernel(const __grid_constant__ CUtensorMap corpus_map,
+                         const __grid_constant__ CUtensorMap query_map, const tc::F32::Scales scales,
+                         const int8_t* __restrict__ row_valid, const tc::IvfWork work, float* __restrict__ out_v,
+                         int* __restrict__ out_i, int n, int d, int q, int kk, int bn, int l2) {
+  tc::tc_block_topk<tc::F32, BQ, tc::ffma_stages<BQ>(), false, true, false, tc::IvfWork>(
+      &corpus_map, &query_map, scales, row_valid, Predicates{}, out_v, out_i, n, d, q, n, kk, bn, l2, work);
+}
+
 // The query map covers the g_max * BQ rows of qbuf; `q` is the rows whose
 // scales the operand reads: the int8 scales of qbuf, none for bf16, whose
 // K7 score has no query-norm term.
@@ -365,8 +381,14 @@ cudaError_t run_tc(const void* corpus, const void* qbuf, const typename Op::Scal
   if (!tc::make_map<Op>(&corpus_map, corpus, n, d, tc::kRowTile) ||
       !tc::make_map<Op>(&query_map, qbuf, g_max * BQ, d, BQ))
     return cudaErrorInvalidValue;
-  const size_t smem = tc::smem_bytes<BQ>(tc::kStages);
-  auto kernel = tc_ivf_topk_kernel<Op, BQ>;
+  size_t smem = tc::smem_bytes<BQ>(tc::kStages);
+  if constexpr (Op::kFfma) smem = tc::smem_bytes<BQ>(tc::ffma_stages<BQ>());
+  auto kernel = [] {
+    if constexpr (Op::kFfma)
+      return fma_ring_ivf_topk_kernel<BQ>;
+    else
+      return tc_ivf_topk_kernel<Op, BQ>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -383,8 +405,8 @@ cudaError_t run_tc(const void* corpus, const void* qbuf, const typename Op::Scal
 
 // ---------------------------------------------------------------------------
 // One search over a work list from pse_ivf_work: the gather, then the scan
-// on the loop the wrapper chose (tensor_cores: the wgmma ring, else the
-// FMA / __dp4a loop)
+// on the loop the wrapper chose (ring: the TMA ring, wgmma for bf16 and
+// int8, fmaf for float32; else the FMA / __dp4a loop)
 // ---------------------------------------------------------------------------
 
 template <typename T> struct Fma { using Word = T; };
@@ -394,7 +416,7 @@ template <typename T>
 int run_ivf(const void* corpus, const void* queries, const void* qscales, const void* cscales,
             const void* cnorms, const void* row_valid, const void* sorted, const void* order, void* groups,
             void* qbuf, void* qsbuf, void* out_v, void* out_i, int nlist, int lrows, int d, int q,
-            int nprobe, int kk, int bn, int bq, int g_max, int l2, int tensor_cores, void* stream) {
+            int nprobe, int kk, int bn, int bq, int g_max, int l2, int ring, void* stream) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   auto s = static_cast<cudaStream_t>(stream);
   if ((bq != tc::kSmallBQ && bq != tc::kLargeBQ) || bn < 1 || kk < 1 || kk > bn) return cudaErrorInvalidValue;
@@ -412,29 +434,25 @@ int run_ivf(const void* corpus, const void* queries, const void* qscales, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const tc::IvfWork work{static_cast<const int*>(groups), static_cast<const long long*>(order), lrows, tiles};
-  if (tensor_cores) {
-    if constexpr (std::is_same<T, float>::value) {
-      return cudaErrorInvalidValue;  // float32 stays on fmaf by contract
-    } else {
-      using Op = std::conditional_t<kInt8, tc::S8, tc::Bf16>;
-      if (d % (16 / sizeof(T)) != 0 || kk > kListSlots || reinterpret_cast<uintptr_t>(corpus) % 16 ||
-          reinterpret_cast<uintptr_t>(qbuf) % 16)
-        return cudaErrorInvalidValue;
-      typename Op::Scales scales;
-      int scaled_rows = 0;
-      if constexpr (kInt8) {
-        scales = tc::S8::Scales{static_cast<const float*>(qsbuf), static_cast<const float*>(cscales),
-                                static_cast<const float*>(cnorms)};
-        scaled_rows = g_max * bq;
-      } else {
-        scales = tc::Bf16::Scales{nullptr, static_cast<const float*>(cnorms)};
-      }
-      if (bq == tc::kSmallBQ)
-        return run_tc<Op, tc::kSmallBQ>(corpus, qbuf, scales, scaled_rows, row_valid, work, out_v, out_i, n, d,
-                                        g_max, kk, bn, l2, s);
-      return run_tc<Op, tc::kLargeBQ>(corpus, qbuf, scales, scaled_rows, row_valid, work, out_v, out_i, n, d,
-                                      g_max, kk, bn, l2, s);
+  if (ring) {
+    using Op = std::conditional_t<kInt8, tc::S8, std::conditional_t<std::is_same<T, float>::value, tc::F32, tc::Bf16>>;
+    if (d % (16 / sizeof(T)) != 0 || kk > kListSlots || reinterpret_cast<uintptr_t>(corpus) % 16 ||
+        reinterpret_cast<uintptr_t>(qbuf) % 16)
+      return cudaErrorInvalidValue;
+    typename Op::Scales scales;
+    int scaled_rows = 0;
+    if constexpr (kInt8) {
+      scales = tc::S8::Scales{static_cast<const float*>(qsbuf), static_cast<const float*>(cscales),
+                              static_cast<const float*>(cnorms)};
+      scaled_rows = g_max * bq;
+    } else {  // no query norms: the caller subtracts |q|^2
+      scales = typename Op::Scales{nullptr, static_cast<const float*>(cnorms)};
     }
+    if (bq == tc::kSmallBQ)
+      return run_tc<Op, tc::kSmallBQ>(corpus, qbuf, scales, scaled_rows, row_valid, work, out_v, out_i, n, d,
+                                      g_max, kk, bn, l2, s);
+    return run_tc<Op, tc::kLargeBQ>(corpus, qbuf, scales, scaled_rows, row_valid, work, out_v, out_i, n, d,
+                                    g_max, kk, bn, l2, s);
   }
   using Word = typename Fma<T>::Word;
   const int words = d / static_cast<int>(sizeof(Word) / sizeof(T));
@@ -456,7 +474,9 @@ extern "C" int pse_ivf_work(const void* sorted, void* groups, int p, int nlist, 
   return cudaGetLastError();
 }
 
-// All three take the same arguments: d is the width in elements; sorted
+// All three take the same arguments: d is the width in elements; ring
+// chooses the loop (ops/ivf_scan.ivf_scoring_loop): the TMA ring, or the
+// FMA / __dp4a loop; sorted
 // and order are torch.sort's values (int32) and indices (int64) of the
 // flattened [q, nprobe] probe ids, and groups ([g_max][3] int32) the work
 // list pse_ivf_work cut from them at the same bq; qbuf ([g_max * bq][d],
@@ -468,10 +488,10 @@ extern "C" int pse_ivf_work(const void* sorted, void* groups, int p, int nlist, 
                       const void* cnorms, const void* row_valid, const void* sorted, const void* order,  \
                       void* groups, void* qbuf, void* qsbuf, void* out_v, void* out_i, int nlist,        \
                       int lrows, int d, int q, int nprobe, int kk, int bn, int bq, int g_max, int l2,    \
-                      int tensor_cores, void* stream) {                                                  \
+                      int ring, void* stream) {                                                          \
     return run_ivf<T>(corpus, queries, qscales, cscales, cnorms, row_valid, sorted, order, groups, qbuf, \
-                      qsbuf, out_v, out_i, nlist, lrows, d, q, nprobe, kk, bn, bq, g_max, l2,            \
-                      tensor_cores, stream);                                                             \
+                      qsbuf, out_v, out_i, nlist, lrows, d, q, nprobe, kk, bn, bq, g_max, l2, ring,      \
+                      stream);                                                                           \
   }
 
 PSE_IVF_ENTRY(pse_ivf_topk_f32, float)

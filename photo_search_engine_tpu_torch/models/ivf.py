@@ -7,8 +7,9 @@ Counterpart of ``photo_search_engine_tpu/models/ivf.py``:
   same ``np.random.default_rng(seed)`` calls, in the same order, as the
   JAX function, so both packages start from the same rows.
 * :func:`assign_clusters` — each row's three nearest centroids by
-  ``2s − ‖c‖²``, ties to the smallest centroid id as ``lax.top_k`` gives
-  them (a stable sort; ``torch.topk`` promises no order).
+  ``2s − ‖c‖²`` in ``lax.top_k``'s order (``ops.topk.total_order_topk``:
+  a stable sort of total-order keys, ties to the smallest centroid id;
+  ``torch.topk`` promises no order).
 * :func:`balanced_layout` — every cluster gets ``L`` slots (slack × the
   mean size); overflow rows spill to their next-nearest cluster with
   room.  It runs in the native C++ host library (``native/``, a copy of
@@ -50,7 +51,7 @@ from photo_search_engine_tpu_torch.ops.topk import (
     rescore_pool,
     resolve_store_dtype,
     row_sq_norms,
-    stable_topk,
+    total_order_topk,
 )
 
 _LANE = 128
@@ -140,7 +141,7 @@ def train_kmeans(
 
 def _assign_chunk(x: torch.Tensor, centroids: torch.Tensor, cn: torch.Tensor) -> torch.Tensor:
     """Top-3 of ``2·x·cᵀ − ‖c‖²`` per row, ties to the smallest centroid."""
-    _, idx = stable_topk(2.0 * (x.float() @ centroids.T) - cn[None, :], min(3, centroids.shape[0]))
+    _, idx = total_order_topk(2.0 * (x.float() @ centroids.T) - cn[None, :], min(3, centroids.shape[0]))
     return idx
 
 
@@ -552,7 +553,7 @@ class IVFIndex:
         nprobe = max(1, min(nprobe, self.nlist))
         cents = self._centroids_dev
         scores = 2.0 * (queries.float() @ cents.T) - (cents * cents).sum(dim=1)[None, :]
-        _, ids = stable_topk(scores, nprobe)
+        _, ids = total_order_topk(scores, nprobe)
         return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
 
     def search(self, queries: np.ndarray, k: int, nprobe: int = 64, *, mask: Optional[np.ndarray] = None):

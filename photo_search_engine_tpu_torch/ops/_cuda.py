@@ -38,22 +38,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (pointer arguments, int arguments) of each entry point; the stream is last
 _SIGNATURES = {
-    "pse_block_topk_f32": (7, 7),
+    "pse_block_topk_f32": (7, 8),
     "pse_block_topk_bf16": (7, 7),
     "pse_block_topk_bf16_geometry": (7, 9),
     "pse_int8_block_topk": (8, 7),
-    "pse_grouped_block_topk_f32": (6, 7),
+    "pse_grouped_block_topk_f32": (6, 8),
     "pse_grouped_block_topk_bf16": (6, 7),
     "pse_int8_grouped_block_topk": (8, 7),
     "pse_ivf_work": (2, 4),
     "pse_ivf_topk_f32": (13, 11),
     "pse_ivf_topk_bf16": (13, 11),
     "pse_ivf_topk_int8": (13, 11),
-    "pse_fast_block_topk_f32": (7, 7),
+    "pse_fast_block_topk_f32": (7, 8),
     "pse_fast_block_topk_bf16": (7, 7),
-    "pse_fast_grouped_block_topk_f32": (6, 7),
+    "pse_fast_grouped_block_topk_f32": (6, 8),
     "pse_fast_grouped_block_topk_bf16": (6, 7),
-    "pse_fused_topk_f32": (9, 9),
+    "pse_fused_topk_f32": (9, 10),
     "pse_fused_topk_bf16": (9, 9),
 }
 
@@ -162,7 +162,7 @@ def sass_counts(pattern: str, opcodes=("HGMMA", "IGMMA", "UTMALDG")) -> Dict[str
     """How many of each opcode the SASS of every compiled kernel whose
     mangled name contains ``pattern`` holds (``cuobjdump -sass`` of the
     built library): ``HGMMA`` is a bf16 wgmma, ``IGMMA`` an int8 wgmma,
-    ``UTMALDG`` a TMA load."""
+    ``UTMALDG`` a TMA load, ``FFMA`` a float32 fused multiply-add."""
     import re
 
     library()

@@ -18,15 +18,16 @@ predicate row.  Inner product only, as in the JAX package.
   in ``csrc/block_topk.cu`` (port of ``_grouped_kernel``): each query reads
   its own predicate row in the epilogue, where the TPU kernel used a
   one-hot ``[BQ, M] × [M, BN]`` product on the MXU.
-* phase B — the stable merge of kernel 1 (``merge_partials``).
+* phase B — kernel 1's merge (``merge_partials``, ``lax.top_k``'s order).
 * :func:`fast_grouped_block_topk` — kernel 3 through kernel 5's body
   (``grouped_mask_search(impl="pallas_fast")``): the packed-key selection,
   then the exact rescore of the k winners (inner product, as JAX's
   ``grouped_mask.py:276-285``).
 
-Both score bfloat16 rows with D % 8 == 0 on the tensor cores
-(``csrc/block_score_tc.cuh``, 16-byte-aligned bases) and every other corpus
-on the FMA loop (``topk.scoring_loop``), counted in ``launches_by_loop``.
+Both score bfloat16 rows with D % 8 == 0 on the tensor cores and float32
+rows with D % 4 == 0 with IEEE fmaf on the same TMA ring
+(``csrc/block_score_tc.cuh``, 16-byte-aligned bases), every other corpus on
+the FMA loop (``topk.scoring_loop``), counted in ``launches_by_loop``.
 
 ``impl`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
 ``"pallas_fused"`` run kernel 5 (the JAX function has no fused grouped
@@ -52,6 +53,7 @@ from photo_search_engine_tpu_torch.ops.topk import (
     DEFAULT_BLOCK_N,
     FAST_MAX_BN,
     MAX_KERNEL_K,
+    SCORING_LOOPS,
     _empty,
     _finalize,
     check_impl,
@@ -99,7 +101,8 @@ def grouped_mask_plain(
     count: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain per-query filtered search (counterpart of
-    ``grouped_mask_oracle``): row-chunked float32 scores, stable top-k.
+    ``grouped_mask_oracle``): row-chunked float32 scores, top-k in
+    ``lax.top_k``'s order (``topk.plain_topk``).
     Queries are cast to the corpus dtype for the product.  FAISS-style
     ``(distances desc, indices)``; -1 in empty slots."""
     queries = torch.atleast_2d(queries)
@@ -155,8 +158,9 @@ def fast_grouped_block_topk_plain(corpus, queries, mask_table, mask_ids, k, *, c
                                     block_n=block_n, fast=True)
 
 
-def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, count, block_n):
-    """Checks and launch of kernel 5 (``fast``: grouped kernel 3) on CUDA tensors."""
+def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, count, block_n, loop):
+    """Checks and launch of kernel 5 (``fast``: grouped kernel 3) on CUDA
+    tensors, on the scoring loop ``loop``."""
     if corpus.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {corpus.device}")
     if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
@@ -167,7 +171,7 @@ def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, c
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
     _cuda.require(f"{name} mask_table", mask_table, dev, torch.int8, (m, n))
     _cuda.require(f"{name} mask_ids", mask_ids, dev, torch.int32, (q,))
-    if corpus.dtype == torch.bfloat16:
+    if loop != "fma" or corpus.dtype == torch.bfloat16:
         _cuda.require_aligned(f"{name} corpus", corpus)
         _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
@@ -179,13 +183,12 @@ def _launch_grouped_scan(name, fast, corpus, queries, mask_table, mask_ids, k, c
     out_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
     lib = _cuda.library()
     prefix = "pse_fast_grouped_block_topk" if fast else "pse_grouped_block_topk"
-    fn = getattr(lib, f"{prefix}_bf16" if corpus.dtype == torch.bfloat16 else f"{prefix}_f32")
-    err = fn(
-        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(mask_table), _cuda.ptr(mask_ids),
-        _cuda.ptr(out_v), _cuda.ptr(out_i),
-        n, d, q, int(min(count, n)), k, block_n, m,
-        _cuda.stream(dev),
-    )
+    args = (_cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(mask_table), _cuda.ptr(mask_ids),
+            _cuda.ptr(out_v), _cuda.ptr(out_i), n, d, q, int(min(count, n)), k, block_n, m)
+    if corpus.dtype == torch.bfloat16:
+        err = getattr(lib, f"{prefix}_bf16")(*args, _cuda.stream(dev))
+    else:
+        err = getattr(lib, f"{prefix}_f32")(*args, int(loop == "fma_ring"), _cuda.stream(dev))
     _cuda.check(err, name)
     return out_v, out_i
 
@@ -204,24 +207,25 @@ def grouped_block_topk(
     under its own predicate row.
 
     ``corpus`` ``[N, D]`` and ``queries`` ``[Q, D]`` are float32 or
-    bfloat16 (the same dtype; bfloat16 on 16-byte-aligned bases);
-    ``mask_table`` is int8 ``[M, N]`` and ``mask_ids`` int32 ``[Q]``.
-    Outputs as in :func:`grouped_block_topk_plain`.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (its scoring loop
-    as ``topk.scoring_loop`` says) or raises."""
+    bfloat16 (the same dtype; on 16-byte-aligned bases, except on the FMA
+    loop); ``mask_table`` is int8 ``[M, N]`` and ``mask_ids`` int32
+    ``[Q]``.  Outputs as in :func:`grouped_block_topk_plain`.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (its scoring
+    loop as ``topk.scoring_loop`` says) or raises."""
     if corpus.device.type == "cpu":
         return grouped_block_topk_plain(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
         )
+    loop = scoring_loop(corpus)
     out = _launch_grouped_scan("grouped_block_topk", False, corpus, queries, mask_table, mask_ids, k,
-                               count, block_n)
+                               count, block_n, loop)
     grouped_block_topk.launches += 1
-    grouped_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
+    grouped_block_topk.launches_by_loop[loop] += 1
     return out
 
 
 grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-grouped_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+grouped_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 def fast_grouped_block_topk(
@@ -243,15 +247,16 @@ def fast_grouped_block_topk(
         return fast_grouped_block_topk_plain(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
         )
+    loop = scoring_loop(corpus)
     out = _launch_grouped_scan("fast_grouped_block_topk", True, corpus, queries, mask_table, mask_ids,
-                               k, count, block_n)
+                               k, count, block_n, loop)
     fast_grouped_block_topk.launches += 1
-    fast_grouped_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
+    fast_grouped_block_topk.launches_by_loop[loop] += 1
     return out
 
 
 fast_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fast_grouped_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+fast_grouped_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 def predicate_inputs(mask_table: torch.Tensor, mask_ids: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -280,7 +285,7 @@ def grouped_mask_search(
     """Batched per-query filtered top-k (inner product) over ``corpus``
     ``[N, D]`` for ``queries`` ``[Q, D]``, ``mask_table`` ``[M, N]`` and
     ``mask_ids`` ``[Q]``.  For k ≤ 64, ``impl`` picks the scan (module
-    docstring): kernel 5 and the stable merge, or kernel 3 and the exact
+    docstring): kernel 5 and the merge, or kernel 3 and the exact
     rescore (``"pallas_fast"``); ``"lax"`` and larger k run
     :func:`grouped_mask_plain`.  Returns FAISS-style ``(distances desc
     [Q, k], indices [Q, k] int32)``, -1 in empty slots."""

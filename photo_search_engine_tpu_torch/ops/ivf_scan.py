@@ -22,7 +22,7 @@ probe, tile of ``block_n`` slots of the cluster) keeps the tile's top
   ``-inf`` / ``INT_MAX``.  (The JAX probe matrix drops an id ``>= nlist``
   too, but wraps a negative one to ``nlist + id``.)
 
-A tile never contributes more than its own rows, so the stable merge of
+A tile never contributes more than its own rows, so the merge of
 the partials (``ops/topk.merge_partials``) is exact for any k and any
 ``block_n``.  With the probe ids of each query sorted ascending
 (``IVFIndex._probe`` sorts them), the partials lie in ascending slot order
@@ -30,8 +30,9 @@ and the merge gives ties to the smallest slot.
 
 * :func:`ivf_block_topk` — kernel 7, ``csrc/ivf_topk.cu``: the work list of
   probe-pair groups built on the card (:func:`ivf_work_list`), the
-  groups' queries gathered, then the scan on the tensor cores or the FMA
-  loop (:func:`ivf_scoring_loop`), at the tile and group size of
+  groups' queries gathered, then the scan on the TMA ring (the tensor
+  cores, or fmaf consumers for float32) or the FMA loop
+  (:func:`ivf_scoring_loop`), at the tile and group size of
   :func:`ivf_geometry`.  It reads nothing back to the host.
 * :func:`ivf_block_topk_plain` — its plain PyTorch version, with the same
   inputs and outputs, chunked so that it runs at 1M rows.
@@ -47,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from photo_search_engine_tpu_torch.ops import _cuda
-from photo_search_engine_tpu_torch.ops.topk import H100_SMS, MAX_KERNEL_K, stable_topk
+from photo_search_engine_tpu_torch.ops.topk import H100_SMS, MAX_KERNEL_K, SCORING_LOOPS, ring_ctas_per_sm, stable_topk
 
 IVF_FMA_BLOCK_N = 256  # cluster slots per tile of the FMA loop: its [BQ, bn] f32 score tile lives in shared memory
 IVF_BQ = (8, 32)  # pairs a group: the query tiles of the tensor-core scan (m64n8 / m64n32)
@@ -60,7 +61,7 @@ IVF_BQ = (8, 32)  # pairs a group: the query tiles of the tensor-core scan (m64n
 # whole clusters at batch 32 ran 6 % slower than two tiles).
 IVF_SMALL_BQ_MEAN = 12.0
 IVF_MAX_TILES = 3
-IVF_CTAS_PER_SM = 2  # __launch_bounds__(288, 2) of the tensor-core scan
+IVF_CTAS_PER_SM = 2  # __launch_bounds__(288, 2) of the ring's scan; the f32 ring at 32 holds one (ring_ctas_per_sm)
 IVF_WAVES = 4
 _INT_MAX = torch.iinfo(torch.int32).max
 _PLAIN_ELEMS = 1 << 28  # gathered elements per step of the plain version (1 GB as float32)
@@ -84,16 +85,20 @@ def quantize_ivf_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 
 
 def ivf_scoring_loop(corpus: torch.Tensor, k: int) -> str:
-    """Which loop kernel 7 runs (the C entry points' dispatch):
-    ``"tensor_core"`` (wgmma fed by TMA, ``csrc/block_score_tc.cuh``) for
-    bfloat16 rows with D % 8 == 0 and int8 rows with D % 16 == 0 (the row
-    strides TMA takes) when ``k <= 64`` (the running list of the scan);
-    ``"fma"`` (fmaf, or __dp4a on int8x4 words) otherwise: float32 is
-    scored with IEEE fmaf by contract, and candidate_k 500 reaches here."""
+    """Which loop kernel 7 runs by default, when ``k <= 64`` (the running
+    list of the ring's scan) and TMA takes the rows' byte stride:
+    ``"tensor_core"`` (wgmma fed by the TMA ring of
+    ``csrc/block_score_tc.cuh``) for bfloat16 rows with D % 8 == 0 and int8
+    rows with D % 16 == 0; ``"fma_ring"`` (the same ring, IEEE fmaf
+    consumers: float32 keeps full precision by contract) for float32 rows
+    with D % 4 == 0; ``"fma"`` (fmaf, or __dp4a on int8x4 words) otherwise,
+    where candidate_k 500 goes."""
     d = corpus.shape[1]
-    if k <= MAX_KERNEL_K and ((corpus.dtype == torch.bfloat16 and d % 8 == 0)
-                              or (corpus.dtype == torch.int8 and d % 16 == 0)):
-        return "tensor_core"
+    if k <= MAX_KERNEL_K:
+        if (corpus.dtype == torch.bfloat16 and d % 8 == 0) or (corpus.dtype == torch.int8 and d % 16 == 0):
+            return "tensor_core"
+        if corpus.dtype == torch.float32 and d % 4 == 0:
+            return "fma_ring"
     return "fma"
 
 
@@ -111,12 +116,14 @@ def ivf_geometry(nq: int, nprobe: int, nlist: int, lrows: int, loop: str,
     probed cluster (:func:`expected_probed`) stay at or under
     :data:`IVF_SMALL_BQ_MEAN`, else 32, so that a group is not mostly
     padding and a crowded cluster is not read once per 8 queries.
-    ``block_n``: on the tensor cores a cluster is cut into the fewest tiles
-    (at most :data:`IVF_MAX_TILES`) whose CTAs, over the expected groups,
-    make :data:`IVF_WAVES` waves of :data:`IVF_CTAS_PER_SM` CTAs an SM; a
-    tile of the whole cluster carries a running top-k across its passes.
-    The FMA loop keeps :data:`IVF_FMA_BLOCK_N`."""
-    if loop not in ("tensor_core", "fma"):
+    ``block_n``: on the TMA ring (``"tensor_core"``, ``"fma_ring"``) a
+    cluster is cut into the fewest tiles (at most :data:`IVF_MAX_TILES`)
+    whose CTAs, over the expected groups, make :data:`IVF_WAVES` waves of
+    the CTAs an SM holds (:data:`IVF_CTAS_PER_SM`, or fewer where the
+    ring's shared memory says so: ``topk.ring_ctas_per_sm``); a tile of the
+    whole cluster carries a running top-k across its passes.  The FMA loop
+    keeps :data:`IVF_FMA_BLOCK_N`."""
+    if loop not in SCORING_LOOPS:
         raise ValueError(f"ivf_geometry: unknown scoring loop {loop!r}")
     pairs = nq * min(nprobe, nlist)
     probed = expected_probed(nq, nprobe, nlist)
@@ -124,7 +131,7 @@ def ivf_geometry(nq: int, nprobe: int, nlist: int, lrows: int, loop: str,
     if loop == "fma":
         return IVF_FMA_BLOCK_N, bq
     groups = max(probed, pairs / bq)
-    slots = IVF_WAVES * IVF_CTAS_PER_SM * sm_count
+    slots = IVF_WAVES * ring_ctas_per_sm(loop, bq, IVF_CTAS_PER_SM) * sm_count
     tiles = max(1, min(IVF_MAX_TILES, -(-slots // max(1, round(groups)))))
     return -(-lrows // tiles), bq
 
@@ -346,7 +353,7 @@ def ivf_block_topk(
         _cuda.require("ivf_block_topk cscales", cscales, dev, torch.float32, (slots,))
         if d % 4 or corpus.data_ptr() % 4 or queries.data_ptr() % 4:
             raise ValueError(f"ivf_block_topk: int8 rows are read as int8x4 words; D={d} and the data must align to 4")
-    if loop == "tensor_core":
+    if loop != "fma":
         _cuda.require_aligned("ivf_block_topk corpus", corpus)
     nlist = slots // lrows
     groups, order, sorted_ids = ivf_work_list(probe_ids, nlist, bq)
@@ -363,7 +370,7 @@ def ivf_block_topk(
         _cuda.ptr(cscales if int8 else None), _cuda.ptr(cnorms if l2 else None), _cuda.ptr(row_valid),
         _cuda.ptr(sorted_ids), _cuda.ptr(order), _cuda.ptr(groups), _cuda.ptr(qbuf), _cuda.ptr(qsbuf),
         _cuda.ptr(out_v), _cuda.ptr(out_i),
-        nlist, lrows, d, nq, nprobe, kk, block_n, bq, g_max, int(l2), int(loop == "tensor_core"),
+        nlist, lrows, d, nq, nprobe, kk, block_n, bq, g_max, int(l2), int(loop != "fma"),
         _cuda.stream(dev),
     )
     _cuda.check(err, "ivf_block_topk")
@@ -373,4 +380,4 @@ def ivf_block_topk(
 
 
 ivf_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-ivf_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+ivf_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop

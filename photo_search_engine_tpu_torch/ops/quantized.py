@@ -6,7 +6,7 @@ them against the full-precision rows:
 
     int8 scan, per-block top-kloc   (kernel 2, csrc/int8_block_topk.cu:
                                      s8 wgmma on the tensor cores)
-      → merge to the top-``cand`` pool (stable sort, quantized order)
+      → merge to the top-``cand`` pool (``lax.top_k``'s order, quantized scores)
         → gather the pool's rows at full precision
           → exact float32 dot, exact order, top-k
 

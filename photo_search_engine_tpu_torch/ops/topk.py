@@ -8,9 +8,10 @@ takes the JAX package's ``impl`` values:
   ``_block_topk_kernel`` with ``fast=False``): for every block of
   ``block_n`` corpus rows it scores the queries and keeps the block's
   top-k, ties to the smallest row.  Phase B is a stable descending sort
-  over the ``[Q, NB·k]`` partials.  Blocks are laid out in ascending row
-  order, so equal scores keep the smallest index, which makes the result
-  identical to a full sort.
+  over the ``[Q, NB·k]`` partials in ``lax.top_k``'s total order
+  (:func:`total_order_topk`).  Blocks are laid out in ascending row order,
+  so equal scores keep the smallest index, which makes the result
+  identical to JAX's ``lax.top_k`` over every row.
 * ``"pallas_fast"`` — kernel 3, :func:`fast_block_topk` (kernel 1 with the
   packed-key selection of ``_extract_block_topk_fast``, ``block_n`` at most
   2048): the partials hold quantized scores, so after the merge the k
@@ -23,7 +24,8 @@ takes the JAX package's ``impl`` values:
 Any other ``impl`` raises.
 
 Kernels 1, 3 and 4 score bfloat16 rows with D % 8 == 0 on the tensor cores
-(``csrc/block_score_tc.cuh``, 16-byte-aligned bases) and every other corpus
+and float32 rows with D % 4 == 0 with IEEE fmaf on the same TMA ring
+(``csrc/block_score_tc.cuh``, 16-byte-aligned bases), every other corpus
 on the FMA loop (:func:`scoring_loop`); each wrapper counts its launches by
 loop in ``launches_by_loop``.
 
@@ -34,8 +36,9 @@ index ``-1`` and ``-inf`` (``+inf`` for l2); ``count`` masks rows past
 the live count; ``mask`` excludes rows where it is ``<= 0``.
 
 For ``k > 64`` every ``impl`` takes :func:`exact_search_plain`:
-a row-chunked float32 product plus a stable top-k, exact like the JAX
-oracle.  (The JAX store's ApproxTopK route at large k was a TPU choice.)
+a row-chunked float32 product plus a top-k in ``lax.top_k``'s order,
+exact like the JAX oracle.  (The JAX store's ApproxTopK route at large k
+was a TPU choice.)
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ SM_SHARED_BYTES = 233472  # shared memory of one H100 SM (228 KB)
 H100_SMS = 132  # SMs assumed when no card is asked (the plain version)
 _INT_MAX = torch.iinfo(torch.int32).max
 _PLAIN_ROWS = 65536  # rows per chunk of the plain scans (bounds the f32 temp)
+# rows of a total-order top-k from which torch.topk of packed int64 keys
+# runs instead of the stable sort of int32 keys (scripts/torch_kernel_ab.py
+# times both on the card, PERF.md)
+TOTAL_ORDER_PACKED_MIN_ROWS = 64
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -114,10 +121,49 @@ def mask_scores(scores, start, stop, count, mask) -> torch.Tensor:
 
 
 def stable_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis with ties to the smallest position.
-    ``torch.topk`` does not promise that order; a stable sort does."""
+    """Top-k along the last axis by float comparison, ties to the smallest
+    position: what the Pallas kernels' ``comb == m`` extraction gives, so
+    ``+0.0`` and ``-0.0`` tie by position.  ``torch.topk`` does not promise
+    that order; a stable sort does."""
     vals, pos = torch.sort(values, dim=-1, descending=True, stable=True)
     return vals[..., :k], pos[..., :k]
+
+
+def total_order_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of float32 ``values`` along the last axis in ``lax.top_k``'s
+    order: IEEE totalOrder, +NaN, +inf, ..., +0.0, -0.0, ..., -inf, -NaN,
+    ties of identical bits to the smallest position.  Each float's bits
+    become an int32 key that orders that way (:func:`_flip_key`).  From
+    :data:`TOTAL_ORDER_PACKED_MIN_ROWS` rows on, the top-k of unique int64
+    keys (the int32 key above the inverted position) is taken by
+    ``torch.topk`` (:func:`_packed_total_order_topk`); below, where that
+    is slower, the int32 keys are sorted stably
+    (:func:`_sorted_total_order_topk`).  Both give the same result.  For
+    the sites whose JAX counterpart is a ``lax.top_k``; the sites that
+    follow a Pallas kernel's float comparison keep :func:`stable_topk`."""
+    rows = values.numel() // max(1, values.shape[-1])
+    if rows >= TOTAL_ORDER_PACKED_MIN_ROWS:
+        return _packed_total_order_topk(values, k)
+    return _sorted_total_order_topk(values, k)
+
+
+def _sorted_total_order_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`total_order_topk` by a stable descending sort of the int32
+    keys."""
+    keys = _flip_key(values.contiguous().view(torch.int32))
+    pos = torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(values, -1, pos), pos
+
+
+def _packed_total_order_topk(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`total_order_topk` by ``torch.topk`` of unique int64 keys: the
+    int32 key in the high word, ``INT32_MAX - position`` in the low one,
+    so equal keys rank by the smallest position and the order is total."""
+    keys = _flip_key(values.contiguous().view(torch.int32)).to(torch.int64) << 32
+    keys |= _INT_MAX - torch.arange(values.shape[-1], dtype=torch.int64, device=values.device)
+    top = torch.topk(keys, k, dim=-1).values
+    pos = _INT_MAX - (top & 0xFFFFFFFF)
+    return torch.gather(values, -1, pos), pos
 
 
 def _finalize(vals, idx, metric):
@@ -238,23 +284,32 @@ def fast_block_topk_plain(corpus, queries, k, *, count, metric="ip", mask=None, 
                                   cnorms=cnorms, block_n=block_n, fast=True)
 
 
+SCORING_LOOPS = ("tensor_core", "fma_ring", "fma")
+
+
 def scoring_loop(corpus: torch.Tensor) -> str:
-    """Which scoring loop kernels 1, 3, 4 and 5 run on ``corpus`` (the C
-    entry points' dispatch by shape): ``"tensor_core"`` (wgmma fed by TMA,
-    ``csrc/block_score_tc.cuh``) for bfloat16 rows whose byte stride TMA
-    takes (D % 8 == 0), ``"fma"`` (``csrc/block_score.cuh``) otherwise:
-    float32 is scored with IEEE fmaf by contract."""
-    return "tensor_core" if corpus.dtype == torch.bfloat16 and corpus.shape[1] % 8 == 0 else "fma"
+    """Which scoring loop kernels 1, 3, 4 and 5 run on ``corpus``, by
+    whether TMA takes the rows' byte stride: ``"tensor_core"``
+    (wgmma fed by the TMA ring of ``csrc/block_score_tc.cuh``) for bfloat16
+    rows with D % 8 == 0; ``"fma_ring"`` (the same ring, IEEE fmaf
+    consumers: float32 keeps full precision by contract) for float32 rows
+    with D % 4 == 0; ``"fma"`` (``csrc/block_score.cuh``) otherwise."""
+    d = corpus.shape[1]
+    if corpus.dtype == torch.bfloat16 and d % 8 == 0:
+        return "tensor_core"
+    if corpus.dtype == torch.float32 and d % 4 == 0:
+        return "fma_ring"
+    return "fma"
 
 
 def tc_shared_bytes(bq: int, stages: int) -> int:
-    """Shared memory of one tensor-core CTA (``tc::smem_bytes`` in
+    """Shared memory of one CTA of the TMA ring (``tc::smem_bytes`` in
     ``csrc/block_score_tc.cuh``, from the constants of that header and of
     ``block_select.cuh``): alignment slack, the ring of corpus and query
     boxes and a pass's score tile and candidate buffers (at BQ 32 laid over
     the ring), the running top-k lists, the mbarriers.  It does not depend
     on block_n, nor on the operand (bf16 kernels 1 and 5, int8 kernels 2
-    and 6): a box row is 128 bytes of either."""
+    and 6, the f32 fmaf ring): a box row is 128 bytes of any."""
     c = {**_cuda.header_constants("block_select.cuh"), **_cuda.header_constants("block_score_tc.cuh")}
     ring = stages * c["kRowTile"] * c["kSwizzleBytes"] + c["kQueryStages"] * bq * c["kSwizzleBytes"]
     tile = (bq * (c["kListSlots"] + c["kPassRows"] + c["kPitchPad"]) * 4
@@ -263,8 +318,27 @@ def tc_shared_bytes(bq: int, stages: int) -> int:
     return c["kAlign"] + over + bq * c["kListSlots"] * 8 + 8 * (2 * stages + 2 * c["kQueryStages"] + 1)
 
 
-def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnorms, block_n):
-    """Checks and launch of kernel 1 (``fast``: kernel 3) on CUDA tensors."""
+def ring_stages(loop: str, bq: int) -> int:
+    """Corpus stages of the ring's CTA on ``loop``: ``kStages`` on the
+    tensor cores; on the f32 ring one a row tile at BQ 8 and
+    ``kFfmaLargeDepth`` a row tile at BQ 32 (``tc::ffma_stages``), whose
+    shared memory then takes one CTA an SM."""
+    c = _cuda.header_constants("block_score_tc.cuh")
+    if loop == "fma_ring":
+        return c["kPassTiles"] * (c["kFfmaLargeDepth"] if bq > c["kSmallBQ"] else 1)
+    return c["kStages"]
+
+
+def ring_ctas_per_sm(loop: str, bq: int, cap: int = 2) -> int:
+    """CTAs of the ring's scan an SM holds: at most ``cap`` (the 2 of
+    ``__launch_bounds__(288, 2)``), no more than :func:`tc_shared_bytes`
+    lets it, each CTA with the SM's 1 KB reserve."""
+    return max(1, min(cap, SM_SHARED_BYTES // (tc_shared_bytes(bq, ring_stages(loop, bq)) + 1024)))
+
+
+def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnorms, block_n, loop):
+    """Checks and launch of kernel 1 (``fast``: kernel 3) on CUDA tensors,
+    on the scoring loop ``loop``."""
     if corpus.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {corpus.device}")
     if corpus.dtype not in (torch.float32, torch.bfloat16) or corpus.ndim != 2:
@@ -272,7 +346,7 @@ def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnor
     (n, d), q, dev = corpus.shape, queries.shape[0], corpus.device
     _cuda.require(f"{name} corpus", corpus, dev, corpus.dtype, (n, d))
     _cuda.require(f"{name} queries", queries, dev, corpus.dtype, (q, d))
-    if corpus.dtype == torch.bfloat16:
+    if loop != "fma" or corpus.dtype == torch.bfloat16:
         _cuda.require_aligned(f"{name} corpus", corpus)
         _cuda.require_aligned(f"{name} queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= min(MAX_KERNEL_K, block_n):
@@ -292,14 +366,12 @@ def _launch_block_scan(name, fast, corpus, queries, k, count, metric, mask, cnor
     out_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
     lib = _cuda.library()
     prefix = "pse_fast_block_topk" if fast else "pse_block_topk"
-    fn = getattr(lib, f"{prefix}_bf16" if corpus.dtype == torch.bfloat16 else f"{prefix}_f32")
-    err = fn(
-        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms),
-        _cuda.ptr(cnorms if l2 else None), _cuda.ptr(mask),
-        _cuda.ptr(out_v), _cuda.ptr(out_i),
-        n, d, q, int(min(count, n)), k, block_n, int(l2),
-        _cuda.stream(dev),
-    )
+    args = (_cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms), _cuda.ptr(cnorms if l2 else None),
+            _cuda.ptr(mask), _cuda.ptr(out_v), _cuda.ptr(out_i), n, d, q, int(min(count, n)), k, block_n, int(l2))
+    if corpus.dtype == torch.bfloat16:
+        err = getattr(lib, f"{prefix}_bf16")(*args, _cuda.stream(dev))
+    else:
+        err = getattr(lib, f"{prefix}_f32")(*args, int(loop == "fma_ring"), _cuda.stream(dev))
     _cuda.check(err, name)
     return out_v, out_i
 
@@ -318,24 +390,26 @@ def block_topk(
     """Kernel 1: per-block top-k of ``queries`` over ``corpus``.
 
     ``corpus`` ``[N, D]`` and ``queries`` ``[Q, D]`` are float32 or
-    bfloat16 (the same dtype; bfloat16 on 16-byte-aligned bases); ``mask``
-    is int8 ``[N]``; ``cnorms`` is the float32 ``[N]`` row norms that
-    ``metric="l2"`` needs.  Outputs as in :func:`exact_block_topk_plain`.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (its scoring loop as :func:`scoring_loop` says) or raises."""
+    bfloat16 (the same dtype; on 16-byte-aligned bases, except on the FMA
+    loop); ``mask`` is int8 ``[N]``; ``cnorms`` is the float32 ``[N]`` row
+    norms that ``metric="l2"`` needs.  Outputs as in
+    :func:`exact_block_topk_plain`.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel (its scoring loop as
+    :func:`scoring_loop` says) or raises."""
     if corpus.device.type == "cpu":
         return exact_block_topk_plain(
             corpus, queries, k, count=count, metric=metric, mask=mask,
             cnorms=cnorms, block_n=block_n,
         )
-    out = _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n)
+    loop = scoring_loop(corpus)
+    out = _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n, loop)
     block_topk.launches += 1
-    block_topk.launches_by_loop[scoring_loop(corpus)] += 1
+    block_topk.launches_by_loop[loop] += 1
     return out
 
 
 block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 def fast_block_topk(
@@ -359,20 +433,24 @@ def fast_block_topk(
             corpus, queries, k, count=count, metric=metric, mask=mask,
             cnorms=cnorms, block_n=block_n,
         )
-    out = _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n)
+    loop = scoring_loop(corpus)
+    out = _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n,
+                             loop)
     fast_block_topk.launches += 1
-    fast_block_topk.launches_by_loop[scoring_loop(corpus)] += 1
+    fast_block_topk.launches_by_loop[loop] += 1
     return out
 
 
 fast_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fast_block_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+fast_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 def merge_partials(part_v, part_i, k):
-    """Phase B: stable merge of per-block partials ``[Q, NB, kb]`` to k."""
+    """Phase B: merge of per-block partials ``[Q, NB, kb]`` to k in
+    ``lax.top_k``'s order (:func:`total_order_topk`), as JAX's phase B
+    (``topk.py:462``, ``grouped_mask.py:274``)."""
     q = part_v.shape[0]
-    vals, pos = stable_topk(part_v.reshape(q, -1), k)
+    vals, pos = total_order_topk(part_v.reshape(q, -1), k)
     return vals, torch.gather(part_i.reshape(q, -1), 1, pos)
 
 
@@ -381,12 +459,13 @@ def rescore_pool(part_v, part_i, corpus_ref, queries, k, *, cand, metric):
     tier (JAX ``quantized.py`` :311-336 and :440-457) and kernel 3
     (``topk.py`` :457-479, ``cand = k``).  Merge the per-block partials to
     the ``cand`` pool and rescore the pool exactly against ``corpus_ref``.  Kernel-space values (higher
-    is better) and int32 row ids; slots that found no row hold ``-inf``."""
+    is better) and int32 row ids; slots that found no row hold ``-inf``.
+    Both top-ks are ``lax.top_k``'s in JAX, so both take its order
+    (:func:`total_order_topk`)."""
     n = corpus_ref.shape[0]
-    # the pool is a superset filter: quantized order is enough here
     nq = queries.shape[0]
     pool = min(cand, part_v.shape[1] * part_v.shape[2])
-    cv, pos = stable_topk(part_v.reshape(nq, -1), pool)
+    cv, pos = total_order_topk(part_v.reshape(nq, -1), pool)
     ci = torch.gather(part_i.reshape(nq, -1), 1, pos)
     live = ~torch.isneginf(cv)
     # exact rescore at reference precision: widen the gathered rows to f32
@@ -399,7 +478,7 @@ def rescore_pool(part_v, part_i, corpus_ref, queries, k, *, cand, metric):
         cn = (rows * rows).sum(dim=2)
         exact = -(qn + cn - 2.0 * exact)
     exact = torch.where(live, exact, float("-inf"))
-    vals, order = stable_topk(exact, k)
+    vals, order = total_order_topk(exact, k)
     return vals, torch.gather(ci, 1, order)
 
 
@@ -418,20 +497,20 @@ def fused_ranges(nq: int, nb: int, sm_count: int = H100_SMS, *, loop: str, block
     """``(ranges, blocks_per_range)`` of kernel 4: contiguous runs of
     blocks, enough of them over the query tiles to fill the CTA slots of
     the SMs once, and none empty.  ``loop`` is the scoring loop that will
-    run (:func:`scoring_loop` of the corpus).  On the tensor cores (``loop=
-    "tensor_core"``) an SM takes :data:`TC_FUSED_CTAS_PER_SM` CTAs (one at
-    a query tile of 8, two at 32), no more than :func:`tc_shared_bytes`
-    lets it hold, and the CTAs never outnumber the slots: a second wave of
-    CTAs that each scan a whole range would double the time.  On the FMA
-    loop an SM holds as many as the shared memory of its score tile lets
-    it, at least two."""
-    if loop not in ("tensor_core", "fma"):
+    run (:func:`scoring_loop` of the corpus).  On the TMA ring (``loop=
+    "tensor_core"`` or ``"fma_ring"``) an SM takes
+    :data:`TC_FUSED_CTAS_PER_SM` CTAs (one at a query tile of 8, two at
+    32), no more than the ring's shared memory lets it hold
+    (:func:`ring_ctas_per_sm`: one for the f32 ring at 32), and the CTAs
+    never outnumber the slots: a second wave of CTAs that each scan a whole
+    range would double the time.  On the FMA loop an SM holds as many as
+    the shared memory of its score tile lets it, at least two."""
+    if loop not in SCORING_LOOPS:
         raise ValueError(f"fused_ranges: unknown scoring loop {loop!r}")
     bq = kernel_block_q(nq)
     tiles = -(-nq // bq)
-    if loop == "tensor_core":
-        stages = _cuda.header_constants("block_score_tc.cuh")["kStages"]
-        per_sm = max(1, min(TC_FUSED_CTAS_PER_SM[bq], SM_SHARED_BYTES // (tc_shared_bytes(bq, stages) + 1024)))
+    if loop != "fma":
+        per_sm = ring_ctas_per_sm(loop, bq, TC_FUSED_CTAS_PER_SM[bq])
         want = max(1, min(nb, per_sm * sm_count // tiles))
     else:
         cta_bytes = 4 * (bq * block_n + 32 * (bq + 1) + 32 * 257 + 2 * bq * k) + 1024  # + the SM's reserve
@@ -470,7 +549,10 @@ def range_partials(part_v, part_i, blocks_per_range: int, k: int) -> Tuple[torch
     """Kernel 4's ``[Q, S, k]`` range partials from kernel 1's ``[Q, NB,
     k]`` block partials: the stable top-k of each run of
     ``blocks_per_range`` blocks (ties to the smallest row, empty slots
-    ``-inf`` and ``INT_MAX``)."""
+    ``-inf`` and ``INT_MAX``).  It follows the kernel's float comparison
+    (:func:`stable_topk`, as JAX's ``_topk_kernel``), so kernel 4 equals
+    kernel 1 + :func:`merge_partials` bit for bit except where ``+0.0`` and
+    ``-0.0`` tie at the k-th place, as in the JAX package."""
     q, nb, _ = part_v.shape
     ranges = -(-nb // blocks_per_range)
     pad = ranges * blocks_per_range - nb
@@ -498,17 +580,21 @@ def fused_topk(
     :func:`fused_ranges` for the card's SM count and the scoring loop.
     Returns kernel-space ``(values [Q, k], row ids [Q, k], range values
     [Q, S, k], range ids [Q, S, k])``, as :func:`fused_topk_plain`; on the
-    tensor cores they equal kernel 1's partials merged by
-    :func:`range_partials` and :func:`merge_partials`, bit for bit.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel (its
-    scoring loop as :func:`scoring_loop` says) or raises."""
+    TMA ring (bf16 and f32) they equal kernel 1's partials merged by
+    :func:`range_partials` and :func:`merge_partials`, bit for bit, except
+    where ``+0.0`` and ``-0.0`` tie at the k-th place (the merge on the
+    card compares floats, as JAX's ``_topk_kernel``; ``merge_partials``
+    follows ``lax.top_k``).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (its scoring loop as :func:`scoring_loop`
+    says) or raises."""
     n, q = corpus.shape[0], queries.shape[0]
     nb = -(-n // block_n)
+    loop = scoring_loop(corpus)
     if blocks_per_range is None:
         sms = H100_SMS
         if corpus.device.type == "cuda":
             sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
-        blocks_per_range = fused_ranges(q, nb, sms, block_n=block_n, k=k, loop=scoring_loop(corpus))[1]
+        blocks_per_range = fused_ranges(q, nb, sms, block_n=block_n, k=k, loop=loop)[1]
     if corpus.device.type == "cpu":
         return fused_topk_plain(
             corpus, queries, k, count=count, metric=metric, mask=mask, cnorms=cnorms,
@@ -521,7 +607,7 @@ def fused_topk(
     d, dev = corpus.shape[1], corpus.device
     _cuda.require("fused_topk corpus", corpus, dev, corpus.dtype, (n, d))
     _cuda.require("fused_topk queries", queries, dev, corpus.dtype, (q, d))
-    if corpus.dtype == torch.bfloat16:
+    if loop != "fma" or corpus.dtype == torch.bfloat16:
         _cuda.require_aligned("fused_topk corpus", corpus)
         _cuda.require_aligned("fused_topk queries", queries)
     if n == 0 or q == 0 or not 1 <= k <= MAX_KERNEL_K or not 1 <= blocks_per_range <= _INT_MAX // block_n:
@@ -540,22 +626,21 @@ def fused_topk(
     out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     lib = _cuda.library()
-    fn = lib.pse_fused_topk_bf16 if corpus.dtype == torch.bfloat16 else lib.pse_fused_topk_f32
-    err = fn(
-        _cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms),
-        _cuda.ptr(cnorms if l2 else None), _cuda.ptr(mask),
-        _cuda.ptr(part_v), _cuda.ptr(part_i), _cuda.ptr(out_v), _cuda.ptr(out_i),
-        n, d, q, int(min(count, n)), k, block_n, int(l2), ranges, blocks_per_range,
-        _cuda.stream(dev),
-    )
+    args = (_cuda.ptr(corpus), _cuda.ptr(queries), _cuda.ptr(qnorms), _cuda.ptr(cnorms if l2 else None),
+            _cuda.ptr(mask), _cuda.ptr(part_v), _cuda.ptr(part_i), _cuda.ptr(out_v), _cuda.ptr(out_i),
+            n, d, q, int(min(count, n)), k, block_n, int(l2), ranges, blocks_per_range)
+    if corpus.dtype == torch.bfloat16:
+        err = lib.pse_fused_topk_bf16(*args, _cuda.stream(dev))
+    else:
+        err = lib.pse_fused_topk_f32(*args, int(loop == "fma_ring"), _cuda.stream(dev))
     _cuda.check(err, "fused_topk")
     fused_topk.launches += 1
-    fused_topk.launches_by_loop[scoring_loop(corpus)] += 1
+    fused_topk.launches_by_loop[loop] += 1
     return out_v, out_i, part_v, part_i
 
 
 fused_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fused_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches, by scoring loop
+fused_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------
@@ -566,16 +651,17 @@ fused_topk.launches_by_loop = {"tensor_core": 0, "fma": 0}  # the same launches,
 def plain_topk(score_rows, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over rows ``[0, n)`` of the scores ``score_rows(start, stop)``
     gives (invalid rows already ``-inf``), in row chunks that bound the
-    float32 temporary: chunk-local stable top-k, then a stable merge, so
-    ties go to the smallest row as in one full stable sort.  Kernel-space
-    values and int32 row ids."""
+    float32 temporary: chunk-local top-k, then a merge, both in
+    ``lax.top_k``'s order (:func:`total_order_topk`), so the result is the
+    JAX oracle's one ``lax.top_k`` over every row (``exact_search_oracle``,
+    ``grouped_mask_oracle``).  Kernel-space values and int32 row ids."""
     vals_parts, idx_parts = [], []
     for start in range(0, n, _PLAIN_ROWS):
         stop = min(n, start + _PLAIN_ROWS)
-        vals, pos = stable_topk(score_rows(start, stop), min(k, stop - start))
+        vals, pos = total_order_topk(score_rows(start, stop), min(k, stop - start))
         vals_parts.append(vals)
         idx_parts.append(pos + start)
-    vals, pos = stable_topk(torch.cat(vals_parts, dim=1), k)
+    vals, pos = total_order_topk(torch.cat(vals_parts, dim=1), k)
     return vals, torch.gather(torch.cat(idx_parts, dim=1), 1, pos).to(torch.int32)
 
 
@@ -589,7 +675,8 @@ def exact_search_plain(
     metric: str = "cosine",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain exact search (torch counterpart of ``exact_search_oracle``):
-    row-chunked float32 scores, chunk-local stable top-k, stable merge.
+    row-chunked float32 scores, chunk-local top-k and merge in
+    ``lax.top_k``'s order (:func:`plain_topk`).
     Queries are cast to the corpus dtype for the product; the l2 query
     norm uses them as given, as the JAX oracle does."""
     queries = torch.atleast_2d(queries)

@@ -13,7 +13,8 @@ structure:
   Each shard's partial top-k runs its own kernel launch on its own device
   (kernel 1, 2, 5 or 6 through ``ops/``); the ``[n_local, Q, k]`` partials
   go to the mesh's first device once per call, are ``all_gather``-ed over
-  the process group when there is one, and one stable top-k merges them
+  the process group when there is one, and one top-k in ``lax.top_k``'s
+  order merges them
   over the shard-major flattening (JAX's ``lax.top_k`` order: ties to the
   lowest shard, then the lowest rank in the shard's partial).
 * ``psum`` (the k-means step) is a sum over the local shards in shard
@@ -305,14 +306,14 @@ def _local_topk(corpus_shard, queries, count: int, k: int, metric: str, impl: st
 
 def merge_shards(mesh: Mesh, vals: List[torch.Tensor], idx: List[torch.Tensor], k: int):
     """Gather the local shards' ``[Q, k_s]`` partials (higher is better,
-    global ids) and merge them: one stable top-k over the shard-major
-    flattening ``[Q, n_shards · k_s]``; -1 where the merged value is
-    ``-inf``."""
+    global ids) and merge them: one top-k in ``lax.top_k``'s order over the
+    shard-major flattening ``[Q, n_shards · k_s]`` (JAX ``sharded.py:186``);
+    -1 where the merged value is ``-inf``."""
     all_v, all_i = gather_shards(mesh, vals), gather_shards(mesh, idx)
     n_shards, q, kk = all_v.shape
     flat_v = all_v.permute(1, 0, 2).reshape(q, n_shards * kk)
     flat_i = all_i.permute(1, 0, 2).reshape(q, n_shards * kk)
-    merged, pos = topk_ops.stable_topk(flat_v, k)
+    merged, pos = topk_ops.total_order_topk(flat_v, k)
     merged_i = torch.gather(flat_i, 1, pos)
     return merged, torch.where(torch.isneginf(merged), torch.full_like(merged_i, -1), merged_i)
 

@@ -33,7 +33,7 @@ import torch
 
 from photo_search_engine_tpu_torch.models.ivf import IVFIndex, _lay_out, _round_up, assign_clusters, balanced_layout
 from photo_search_engine_tpu_torch.ops import ivf_scan
-from photo_search_engine_tpu_torch.ops.topk import merge_partials, row_sq_norms, stable_topk
+from photo_search_engine_tpu_torch.ops.topk import merge_partials, row_sq_norms, total_order_topk
 from photo_search_engine_tpu_torch.parallel.sharded import ShardedEmbeddingStore, _scan_shards, sharded_kmeans_step
 
 _LANE = 128
@@ -236,7 +236,7 @@ class ShardedIVFIndex:
         to the smallest id, sorted ascending: int32 ``[Q, nprobe]``."""
         cents = self._cents_dev
         scores = 2.0 * (queries.float() @ cents.T) - (cents * cents).sum(dim=1)[None, :]
-        _, ids = stable_topk(scores, nprobe)
+        _, ids = total_order_topk(scores, nprobe)
         return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
 
     def search(self, queries, k: int, nprobe: int, *, slot_mask=None, mask_ratio: Optional[float] = None):

@@ -7,7 +7,12 @@ kernels 2 and 6 (int8 shadow, block_n 2048) at 1M x 1536 unit rows made on
 the card from a seed, top-50, batches 1, 8, 128 and 256; the grouped
 kernels over five predicates keeping 50 / 25 / 5 / 0.1 / 0 % of the rows;
 kernels 1, 2 and 3 also at k = 1; kernel 4 at the checkout's default
-blocks per range.  Then kernel 7 (the IVF scan) at the checkout's default
+blocks per range; phase B (``merge_partials`` of kernel 1's partials;
+where the checkout has both, its sorted and packed total-order top-k at
+1 to 256 rows of them).
+Then kernels 1, 3, 4 and 5 on float32 rows (the same rows widened: the
+checkout's f32 loop) at the same batches, and kernel 7 on a float32
+layout.  Then kernel 7 (the IVF scan) at the checkout's default
 geometry on a cluster-major layout of 1024 clusters x 1536 slots x 1536
 (unit rows, each cluster filled to a seeded 768-1536 slots, the rest
 padding) and its int8 shadow, each query probing 64 seeded clusters,
@@ -107,7 +112,33 @@ def main() -> int:
             times[f"{name} batch {batch}"] = ms(lambda: run(K))
             if name in ("block_topk", "int8_block_topk", "fast_block_topk"):
                 times[f"{name} batch {batch} k=1"] = ms(lambda: run(1))
-    del corpus, c8, cs, table
+        partials = runs["block_topk"](K)
+        times[f"merge_partials batch {batch}"] = ms(lambda: to.merge_partials(*partials, K))
+    if hasattr(to, "_packed_total_order_topk"):  # phase B's two total-order top-ks, by rows of partials
+        part = to.block_topk(corpus, unit(256, gen).to(torch.bfloat16), K, count=ROWS, block_n=1024)[0]
+        for rows in (1, 8, 16, 32, 64, 128, 256):
+            flat = part[:rows].reshape(rows, -1)
+            times[f"total_order sort rows {rows}"] = ms(lambda: to._sorted_total_order_topk(flat, K))
+            times[f"total_order packed rows {rows}"] = ms(lambda: to._packed_total_order_topk(flat, K))
+    del c8, cs
+
+    # float32: the same rows widened, kernels 1, 3, 4 and 5 on the checkout's f32 loop
+    f32 = torch.empty((ROWS, DIM), device="cuda")
+    for start in range(0, ROWS, 131072):
+        f32[start:start + 131072] = corpus[start:start + 131072].float()
+    del corpus
+    for batch in (int(b) for b in args.batches.split(",")):
+        queries = unit(batch, gen)
+        ids = (torch.arange(batch, device="cuda") % table.shape[0]).to(torch.int32)
+        runs = {
+            "block_topk": lambda: to.block_topk(f32, queries, K, count=ROWS, block_n=1024),
+            "fast_block_topk": lambda: to.fast_block_topk(f32, queries, K, count=ROWS, block_n=1024),
+            "fused_topk": lambda: to.fused_topk(f32, queries, K, count=ROWS, block_n=1024),
+            "grouped_block_topk": lambda: go.grouped_block_topk(f32, queries, table, ids, K, count=ROWS, block_n=1024),
+        }
+        for name, run in runs.items():
+            times[f"{name} f32 batch {batch}"] = ms(run, reps=3 if batch >= 128 else 10)
+    del f32, table
 
     # kernel 7 on a seeded cluster-major layout
     layout = torch.empty((NLIST * LROWS, DIM), dtype=torch.bfloat16, device="cuda")
@@ -136,6 +167,16 @@ def main() -> int:
             times[f"ivf_block_topk {tier} batch {batch} + merge, host to host"] = host_ms(
                 lambda: to.merge_partials(*run(), kk)[1].cpu())
     del l8, ls
+    f32 = torch.empty(layout.shape, device="cuda")
+    for start in range(0, layout.shape[0], 131072):
+        f32[start:start + 131072] = layout[start:start + 131072].float()
+    for batch in (int(b) for b in args.batches.split(",")):
+        probes = torch.rand((batch, NLIST), generator=gen, device="cuda").argsort(dim=1)[:, :NPROBE]
+        probes = torch.sort(probes, dim=1).values.to(torch.int32).contiguous()
+        queries = unit(batch, gen)
+        times[f"ivf_block_topk f32 batch {batch}"] = ms(lambda: io.ivf_block_topk(f32, queries, probes, valid, K,
+                                                                                 lrows=LROWS))
+    del f32
 
     # the search a user calls, host to host, on an index over that layout
     from photo_search_engine_tpu_torch.models.ivf import IVFIndex

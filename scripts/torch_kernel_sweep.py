@@ -19,12 +19,13 @@ seeded 768-1536 slots) with 64 seeded probes a query, bf16 top-50 and int8
 top-64, at every tile of 512, 768 and 1536 slots and group size of 8 and
 32 (two passes of opposite order), each merged result checked against the
 one at ``ivf_scan.ivf_geometry``'s choice, which the line names.
-``--f32-only`` times the float32 kernels (the FMA loop, by contract) at
-batches 1 and 128: kernel 1 at 1M x 1536 and kernel 7 on that layout in
-float32, each against its plain version, its bound and the library
-composition (a cuBLAS float32 product with TF32 off, then ``torch.topk``;
-kernel 7's gathers each query's probed clusters first, in chunks of 8
-queries).  Times are CUDA events over 5 calls after one warm-up
+``--f32-only`` times the float32 kernels at batches 1, 8, 128 and 256:
+kernel 1 at 1M x 1536 and kernel 7 on that layout in float32, on the TMA
+ring with fmaf consumers and on the FMA loop side by side (kernel 1's
+partials checked bit for bit between the two), each against its plain
+version, its bound and the library composition (a cuBLAS float32 product
+with TF32 off, then ``torch.topk``; kernel 7's gathers each query's probed
+clusters first, in chunks of 8 queries).  Times are CUDA events over 5 calls after one warm-up
 (``chip_smoke.cuda_ms``); each line names the card and its power limit.
 
 Run from the repository root:
@@ -46,7 +47,7 @@ from photo_search_engine_tpu_torch.ops import _cuda  # noqa: E402
 from photo_search_engine_tpu_torch.ops import ivf_scan as io  # noqa: E402
 from photo_search_engine_tpu_torch.ops import quantized as qo  # noqa: E402
 from photo_search_engine_tpu_torch.ops import topk as to  # noqa: E402
-from tests.torch_parity import assert_topk_match  # noqa: E402
+from tests.torch_parity import assert_topk_match, fma_loop  # noqa: E402
 
 ROWS, DIM, K, BLOCK_N = 1_000_000, 1536, 50, 1024
 NLIST, LROWS, NPROBE = 1024, 1536, 64  # kernel 7's layout: the ivf phase's IVF_NLIST, L and IVF_NPROBE
@@ -103,8 +104,9 @@ def ivf_sweep(card) -> int:
 
 
 def f32_times(card) -> int:
-    """float32 kernels 1 and 7 (the FMA loop) against their plain versions,
-    bounds and library compositions, at batches 1 and 128."""
+    """float32 kernels 1 and 7 on the ring (fmaf consumers) and on the FMA
+    loop, side by side, against their plain versions, bounds and library
+    compositions, at batches 1, 8, 128 and 256."""
     torch.backends.cuda.matmul.allow_tf32 = False  # a full-precision library product, as the kernels
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     corpus = torch.empty((ROWS, DIM), dtype=torch.float32, device="cuda")
@@ -112,36 +114,43 @@ def f32_times(card) -> int:
         corpus[start:start + 131072] = cs._unit_rows(min(131072, ROWS - start), DIM, gen, torch.float32)
     kw = dict(count=ROWS, block_n=BLOCK_N)
     nb = -(-ROWS // BLOCK_N)
-    for batch in (1, 128):
+    for batch in (1, 8, 128, 256):
         queries = cs._unit_rows(batch, DIM, gen, torch.float32)
-        ms, pms, bound, by, lib, _ = cs.time_kernel(
+        ring = to.block_topk(corpus, queries, K, **kw)
+        with fma_loop():
+            fma = to.block_topk(corpus, queries, K, **kw)
+            fma_ms = cs.cuda_ms(lambda: to.block_topk(corpus, queries, K, **kw), reps=2)
+        same = torch.equal(ring[0].view(torch.int32), fma[0].view(torch.int32)) and torch.equal(ring[1], fma[1])
+        ms, pms, bound, by, lib, (a, b, _, _) = cs.time_kernel(
             ("block_topk f32", batch, K), lambda: to.block_topk(corpus, queries, K, **kw),
             lambda: to.exact_block_topk_plain(corpus, queries, K, **kw),
             lambda: torch.topk(torch.matmul(queries, corpus.T), K),
-            cs.nbytes(corpus, queries) + batch * nb * K * 8, 2.0 * batch * ROWS * DIM, "f32")
-        print(f"{card}: kernel 1 f32 (FMA loop) batch {batch} top-{K} at {ROWS}x{DIM}: kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms, bound {bound:.3f} ms by {by}, library {lib:.3f} ms (cuBLAS f32, TF32 off, "
-              "+ torch.topk)", flush=True)
-    del corpus
+            cs.nbytes(corpus, queries) + batch * nb * K * 8, 2.0 * batch * ROWS * DIM, "f32", reps=5)
+        print(f"{card}: kernel 1 f32 batch {batch} top-{K} at {ROWS}x{DIM}: ring {ms:.3f} ms ({a:.3f}/{b:.3f}), "
+              f"FMA loop {fma_ms:.3f} ms (partials bit for bit the ring's: {same}), plain {pms:.3f} ms, bound "
+              f"{bound:.3f} ms by {by}, library {lib:.3f} ms (cuBLAS f32, TF32 off, + torch.topk)", flush=True)
+    del corpus, ring, fma
     layout, valid = ivf_layout(gen, torch.float32)
     ivf = types.SimpleNamespace(_row_valid=valid, nlist=NLIST, capacity=LROWS, _corpus=layout)
-    for batch in (1, 128):
+    for batch in (1, 8, 128, 256):
         probes = ivf_probes(gen, batch)
         queries = cs._unit_rows(batch, DIM, gen, torch.float32)
         pairs, probed = batch * NPROBE, int(torch.unique(probes).numel())
         library, label = cs._ivf_library(ivf, probes, queries, False)
         rows_moved, padded, scored = cs.ivf_scan_work(valid, NLIST, LROWS, probes, DIM * 4)
-        rest = cs.nbytes(queries, probes) + pairs * -(-LROWS // io.IVF_FMA_BLOCK_N) * K * 8
+        _, tile, bq = io.ivf_launch(layout, probes, LROWS, K)
+        rest = cs.nbytes(queries, probes) + pairs * -(-LROWS // tile) * K * 8
         padded_bound = cs.bound_ms(padded + rest, 2.0 * pairs * LROWS * DIM, "f32")[0]
-        tile = io.ivf_launch(layout, probes, LROWS, K)[1]
+        with fma_loop():
+            fma_ms = cs.cuda_ms(lambda: io.ivf_block_topk(layout, queries, probes, valid, K, lrows=LROWS), reps=3)
         ms, pms, bound, by, lib, _ = cs.time_kernel(
             ("ivf_block_topk f32", batch, K), lambda: io.ivf_block_topk(layout, queries, probes, valid, K, lrows=LROWS),
             lambda: io.ivf_block_topk_plain(layout, queries, probes, valid, K, lrows=LROWS, block_n=tile), library,
-            rows_moved + rest, 2.0 * scored * DIM, "f32")
-        print(f"{card}: kernel 7 f32 (FMA loop) batch {batch} top-{K} (nprobe {NPROBE} of {NLIST}, L {LROWS}, "
-              f"{probed} clusters probed): kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bound:.3f} ms by {by} "
-              f"(live rows; {padded_bound:.3f} ms counting the padding slots), library {lib:.3f} ms ({label}; "
-              "TF32 off)", flush=True)
+            rows_moved + rest, 2.0 * scored * DIM, "f32", reps=5)
+        print(f"{card}: kernel 7 f32 batch {batch} top-{K} (nprobe {NPROBE} of {NLIST}, L {LROWS}, {probed} "
+              f"clusters probed): ring {ms:.3f} ms (bn {tile}, BQ {bq}), FMA loop {fma_ms:.3f} ms, plain {pms:.3f} "
+              f"ms, bound {bound:.3f} ms by {by} (live rows; {padded_bound:.3f} ms counting the padding slots), "
+              f"library {lib:.3f} ms ({label}; TF32 off)", flush=True)
     return 0
 
 
@@ -163,7 +172,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused-only", action="store_true", help="sweep kernel 4's blocks per range only")
     parser.add_argument("--ivf-only", action="store_true", help="sweep kernel 7's tile and group size only")
-    parser.add_argument("--f32-only", action="store_true", help="time the float32 kernels 1 and 7 only")
+    parser.add_argument("--f32-only", action="store_true", help="time the float32 kernels 1 and 7 only, ring and "
+                        "FMA loop")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_sweep: needs a CUDA card", file=sys.stderr)

@@ -420,15 +420,16 @@ def test_tensor_core_tiles_fit_one_sm_and_follow_the_tma_box_rules(which):
 
 def test_scoring_loop_and_alignment_rules():
     """bf16 rows whose byte stride TMA takes (D % 8 == 0) go to the tensor
-    cores, every other corpus to the FMA loop; a bf16 base off a 16-byte
-    boundary is refused before any launch."""
+    cores, f32 rows TMA takes (D % 4 == 0) to the same ring with fmaf
+    consumers, every other corpus to the FMA loop; a bf16 base off a
+    16-byte boundary is refused before any launch."""
     assert ttopk.scoring_loop(torch.zeros((4, 1536), dtype=torch.bfloat16)) == "tensor_core"
     assert ttopk.scoring_loop(torch.zeros((4, 1000), dtype=torch.bfloat16)) == "tensor_core"
     assert ttopk.scoring_loop(torch.zeros((4, 1001), dtype=torch.bfloat16)) == "fma"
-    assert ttopk.scoring_loop(torch.zeros((4, 1536), dtype=torch.float32)) == "fma"
+    assert ttopk.scoring_loop(torch.zeros((4, 1536), dtype=torch.float32)) == "fma_ring"
     rows = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
     _cuda.require_aligned("rows", rows[:256].view(4, 64))
     with pytest.raises(ValueError, match="16-byte"):
         _cuda.require_aligned("rows", rows[4:260].view(4, 64))
     assert ttopk.block_topk.launches_by_loop.keys() == tg.grouped_block_topk.launches_by_loop.keys() == {
-        "tensor_core", "fma"}
+        "tensor_core", "fma_ring", "fma"}

@@ -210,17 +210,19 @@ def test_fused_ranges_needs_the_scoring_loop():
 
 def test_fused_default_ranges_follow_the_scoring_loop():
     """fused_topk sizes its default ranges by the loop its corpus takes:
-    bf16 rows of D % 8 == 0 by the tensor-core rule, others by the FMA rule
-    (300 blocks of 8 rows at BQ 8: 132 slots give 100 ranges of 3, the FMA
-    rule 300 of 1)."""
+    bf16 rows of D % 8 == 0 and f32 rows of D % 4 == 0 by the tensor-core
+    rule (the f32 ring's CTA has the same shared memory), others by the
+    FMA rule (300 blocks of 8 rows at BQ 8: 132 slots give 100 ranges of 3,
+    the FMA rule 300 of 1)."""
     rng = np.random.default_rng(40)
-    corpus, queries = unit_rows(rng, 2400, 16), unit_rows(rng, 2, 16)
-    shapes = set()
-    for dtype, loop in ((torch.bfloat16, "tensor_core"), (torch.float32, "fma")):
+    shapes = {}
+    for dtype, d, loop in ((torch.bfloat16, 16, "tensor_core"), (torch.float32, 16, "fma_ring"),
+                           (torch.float32, 18, "fma")):
+        corpus, queries = unit_rows(rng, 2400, d), unit_rows(rng, 2, d)
         c = torch.from_numpy(corpus).to(dtype)
         assert ttopk.scoring_loop(c) == loop
         _, _, range_v, _ = ttopk.fused_topk(c, torch.from_numpy(queries).to(dtype), 5, count=2400, block_n=8)
         ranges, _ = ttopk.fused_ranges(2, 300, ttopk.H100_SMS, block_n=8, k=5, loop=loop)
         assert range_v.shape == (2, ranges, 5)
-        shapes.add(ranges)
-    assert shapes == {100, 300}
+        shapes[loop] = ranges
+    assert shapes == {"tensor_core": 100, "fma_ring": 100, "fma": 300}

@@ -438,12 +438,17 @@ def test_group_size_and_tile_rule_read_no_probe_ids():
     ~420 groups: too few CTAs for four waves), batches 32 and 128 two
     tiles, groups of 8 up to 8 queries per probed cluster, batch 256 (16 a
     cluster) groups of 32 — the sweep's fastest settings, each within 1.3 %
-    (PERF.md); the FMA loop keeps its 256-slot tile."""
+    (PERF.md); the f32 ring (``fma_ring``) tiles by the same rule over the
+    CTAs its shared memory lets an SM hold; the FMA loop keeps its
+    256-slot tile."""
     assert list(inspect.signature(ivf_scan.ivf_geometry).parameters) == [
         "nq", "nprobe", "nlist", "lrows", "loop", "sm_count"]
     geo = {q: ivf_scan.ivf_geometry(q, 64, 1024, 1536, "tensor_core") for q in (1, 8, 32, 128, 256)}
     assert geo == {1: (512, 8), 8: (512, 8), 32: (768, 8), 128: (768, 8), 256: (768, 32)}
     assert ivf_scan.ivf_geometry(256, 64, 1024, 1536, "fma") == (ivf_scan.IVF_FMA_BLOCK_N, 32)
+    # the f32 ring holds one CTA an SM at groups of 32: half the slots, so whole clusters at batch 256
+    assert {q: ivf_scan.ivf_geometry(q, 64, 1024, 1536, "fma_ring") for q in (1, 8, 32, 128, 256)} == {
+        **geo, 256: (1536, 32)}
     assert ivf_scan.ivf_geometry(2048, 64, 1024, 1536, "tensor_core") == (1536, 32)  # many groups: whole clusters
     assert ivf_scan.ivf_geometry(1, 8, 24, 384, "tensor_core") == (128, 8)  # few groups: three tiles
     assert ivf_scan.ivf_geometry(1, 8, 24, 384, "tensor_core", sm_count=1) == (384, 8)
@@ -454,8 +459,11 @@ def test_group_size_and_tile_rule_read_no_probe_ids():
     assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1001), dtype=torch.bfloat16), 10) == "fma"
     assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1536), dtype=torch.int8), 64) == "tensor_core"
     assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1000), dtype=torch.int8), 10) == "fma"
-    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1536)), 10) == "fma"
-    assert ivf_scan.ivf_block_topk.launches_by_loop.keys() == {"tensor_core", "fma"}
+    f32 = torch.zeros((4, 1536))
+    assert ivf_scan.ivf_scoring_loop(f32, 64) == "fma_ring" and ivf_scan.ivf_scoring_loop(f32, 65) == "fma"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1000)), 10) == "fma_ring"
+    assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1002)), 10) == "fma"
+    assert ivf_scan.ivf_block_topk.launches_by_loop.keys() == {"tensor_core", "fma_ring", "fma"}
 
 
 def test_probe_ids_outside_the_layout_match_no_slot(monkeypatch):

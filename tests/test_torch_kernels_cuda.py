@@ -3,7 +3,8 @@ kernel 1 (block_topk), kernel 2 (int8_block_topk), their grouped
 variants, kernel 5 (grouped_block_topk) and kernel 6
 (int8_grouped_block_topk), kernel 7 (ivf_block_topk, the IVF scan),
 kernel 3 (fast_block_topk and fast_grouped_block_topk, the packed-key
-scans) and kernel 4 (fused_topk, the fused running top-k).
+scans) and kernel 4 (fused_topk, the fused running top-k); float32 on
+the ring (fmaf consumers) bit for bit against the FMA loop.
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; the plain versions they are held to run on the CPU in
@@ -31,7 +32,8 @@ from photo_search_engine_tpu_torch.ops import grouped_mask as go
 from photo_search_engine_tpu_torch.ops import ivf_scan as io
 from photo_search_engine_tpu_torch.ops import quantized as qo
 from photo_search_engine_tpu_torch.ops import topk as to
-from tests.torch_parity import assert_same_bits, assert_topk_match, assert_window_match, launch_on_loop, plain_scan
+from tests.torch_parity import (assert_same_bits, assert_topk_match, assert_window_match, fma_loop, launch_on_loop,
+                                plain_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,9 +93,11 @@ def test_wrappers_check_their_inputs(gen):
     c8, cs = qo.quantize_rows(_unit(100, 66, gen))
     with pytest.raises(ValueError):
         qo.int8_block_topk(c8, cs, c8, cs, 5, count=100)  # D % 4 != 0
-    # a score tile past the shared memory of one SM: the C entry returns the error
-    with pytest.raises(RuntimeError, match="cudaError"):
+    # a score tile past the shared memory of one SM (the FMA loop's grows
+    # with block_n; the f32 ring's does not): the C entry returns the error
+    with fma_loop(), pytest.raises(RuntimeError, match="cudaError"):
         to.block_topk(corpus, corpus, 5, count=100, block_n=65536)
+    to.block_topk(corpus, corpus, 5, count=100, block_n=65536)
     # (int8: the __dp4a loop's score tile grows with block_n; the tensor
     # cores' tile does not)
     c8, cs = qo.quantize_rows(_unit(100, 68, gen))
@@ -189,8 +193,9 @@ def test_grouped_wrappers_check_their_inputs(gen):
     c8, cs = qo.quantize_rows(corpus)
     with pytest.raises(ValueError):
         qo.int8_grouped_block_topk(c8, cs, c8, cs, table.cpu(), ids, 5, count=100)
-    with pytest.raises(RuntimeError, match="cudaError"):
+    with fma_loop(), pytest.raises(RuntimeError, match="cudaError"):  # the FMA loop's score tile: past one SM
         go.grouped_block_topk(corpus, corpus, table, ids, 5, count=100, block_n=65536)
+    go.grouped_block_topk(corpus, corpus, table, ids, 5, count=100, block_n=65536)  # the ring's: no growth
     go.grouped_block_topk(corpus, corpus, table, ids, 5, count=100)
     qo.int8_grouped_block_topk(c8, cs, c8, cs, table, ids, 5, count=100)
 
@@ -246,7 +251,7 @@ def test_ivf_block_topk_int8_identical_to_plain(gen, metric, k, q, nprobe):
 def test_ivf_block_topk_masked_out_probes_and_ties(gen, dtype):
     """A query whose probed clusters are all masked out gets empty slots;
     duplicate rows come out at the smallest slots, across clusters (bf16
-    and int8 on the tensor cores, f32 on the FMA loop)."""
+    and int8 on the tensor cores, f32 on its ring)."""
     lrows = 256
     corpus, queries, probes, row_valid = _ivf_inputs(gen, 8, lrows, 128, 2, 2, torch.float32)
     row_valid[:] = 1
@@ -259,7 +264,8 @@ def test_ivf_block_topk_masked_out_probes_and_ties(gen, dtype):
         kw.update(qscales=qs, cscales=cs)
     else:
         corpus, queries = corpus.to(dtype), queries.to(dtype)
-    loop = "fma" if dtype == torch.float32 else "tensor_core"
+    loop = "fma_ring" if dtype == torch.float32 else "tensor_core"
+    assert io.ivf_scoring_loop(corpus, 40) == loop
     part = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid,
                                                                              40, **kw))
     vals, slots = to.merge_partials(*part, 40)
@@ -287,8 +293,8 @@ def test_ivf_wrapper_checks_its_inputs(gen):
     for rows in (corpus, corpus.to(torch.bfloat16)):
         vals, slots = io.ivf_block_topk(rows, queries.to(rows.dtype), outside, row_valid, 5, **kw)
         assert torch.isneginf(vals).all() and (slots == torch.iinfo(torch.int32).max).all()
-    # a score tile past the shared memory of one SM: the C entry returns the error
-    with pytest.raises(RuntimeError, match="cudaError"):
+    # a score tile past the shared memory of one SM (the FMA loop's): the C entry returns the error
+    with fma_loop(), pytest.raises(RuntimeError, match="cudaError"):
         io.ivf_block_topk(corpus, queries, probes, row_valid, 5, lrows=128, block_n=65536)
     io.ivf_block_topk(corpus, queries, probes, row_valid, 5, **kw)
 
@@ -340,13 +346,15 @@ def test_ivf_tensor_cores_at_every_tile_and_group_size(gen, tier, block_n, bq):
     assert_topk_match(*got, *ref, tol=1e-5, exact=tier == "int8")
 
 
-@pytest.mark.parametrize("case", ["f32", "bf16 D 1001", "int8 D 1000", "bf16 k 100", "bf16", "int8"])
+@pytest.mark.parametrize("case", ["f32", "f32 D 1002", "f32 k 100", "bf16 D 1001", "int8 D 1000", "bf16 k 100",
+                                  "bf16", "int8"])
 def test_ivf_launches_by_loop(gen, case):
-    """The loop rule (``ivf_scoring_loop``): f32, bf16 rows TMA cannot
-    stride, int8 with D % 16 != 0 and kk > 64 take the FMA / __dp4a loop;
-    bf16 and int8 with k <= 64 the tensor cores.  Each is right."""
-    d = {"bf16 D 1001": 1001, "int8 D 1000": 1000}.get(case, 256)
-    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    """The loop rule (``ivf_scoring_loop``): bf16 rows TMA cannot stride,
+    f32 rows it cannot stride (D % 4 != 0), int8 with D % 16 != 0 and kk >
+    64 take the FMA / __dp4a loop; bf16 and int8 with k <= 64 the tensor
+    cores, f32 with k <= 64 its ring.  Each is right."""
+    d = {"bf16 D 1001": 1001, "int8 D 1000": 1000, "f32 D 1002": 1002}.get(case, 256)
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
     corpus, queries, probes, row_valid = _ivf_inputs(gen, 6, 384, d, 5, 3, dtype)
     k = 100 if "k 100" in case else 20
     kw = dict(lrows=384)
@@ -354,7 +362,7 @@ def test_ivf_launches_by_loop(gen, case):
         corpus, cs = qo.quantize_rows(corpus)
         queries, qs = io.quantize_ivf_queries(queries.float())
         kw.update(qscales=qs, cscales=cs)
-    loop = "tensor_core" if case in ("bf16", "int8") else "fma"
+    loop = {"bf16": "tensor_core", "int8": "tensor_core", "f32": "fma_ring"}.get(case, "fma")
     assert io.ivf_scoring_loop(corpus, k) == loop
     got = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
     ref = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k,
@@ -510,7 +518,7 @@ def test_fused_topk_matches_plain_and_kernel1(gen, dtype, variant, k, q, per):
     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
     assert_topk_match(part_v, part_i, ref[2][..., :k], ref[3][..., :k], tol=1e-5, cut=ref[2][..., k])
     assert_topk_match(vals, idx, ref[0][..., :k], ref[1][..., :k], tol=1e-5, cut=ref[0][..., k])
-    # kernel 4 scores as kernel 1 does (bf16: the tensor cores, f32: fmaf) and
+    # kernel 4 scores as kernel 1 does (bf16: the tensor cores, f32: its ring) and
     # selects exactly: kernel 1's partials merged range by range, bit for bit
     k1 = to.block_topk(corpus, queries, k, **kw)
     assert_same_bits("", (part_v, part_i), to.range_partials(*k1, per, k))
@@ -534,7 +542,7 @@ def test_fast_and_fused_wrappers_check_their_inputs(gen):
         to.fused_topk(corpus, corpus, 65, count=100)
     with pytest.raises(ValueError):
         to.fused_topk(corpus, corpus.to(torch.bfloat16), 5, count=100)
-    with pytest.raises(RuntimeError, match="cudaError"):
+    with fma_loop(), pytest.raises(RuntimeError, match="cudaError"):  # the FMA loop's score tile: past one SM
         to.fused_topk(corpus, corpus, 5, count=100, block_n=65536)
     to.fused_topk(corpus, corpus, 5, count=100)  # the error is not left behind
 
@@ -802,3 +810,85 @@ def test_tensor_core_kernels_run_wgmma_and_tma():
              if re.search(r"ILi(\d+)ELi4ELb([01])ELb1ELb([01])E", name)}
     assert found == {(bq, g, keys) for bq in ("8", "32") for g in "01" for keys in "01"}, counts
     assert all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()), counts
+
+
+# ---------------------------------------------------------------------------
+# float32 on the ring (fmaf consumers): the FMA loop's bits
+# ---------------------------------------------------------------------------
+
+
+def _same(got, want):
+    assert_same_bits("", got, want)
+
+
+@pytest.mark.parametrize("q", _TC_Q)
+@pytest.mark.parametrize("d", [1536, 1000])
+@pytest.mark.parametrize("k", [1, 50, 64])
+def test_f32_ring_is_the_fma_loop_bit_for_bit(gen, q, d, k):
+    """Kernels 1, 3, 4 and 5 on float32 rows with D % 4 == 0 run on the
+    ring and give the FMA loop's partials bit for bit on the same inputs:
+    each output sums fmaf over D in the FMA loop's order, from +0.0."""
+    corpus, queries = _unit(2500, d, gen), _unit(q, d, gen)
+    mask = (torch.rand(2500, generator=gen, device="cuda") < 0.6).to(torch.int8)
+    table, ids = _predicates(gen, 3, 2500, q)
+    assert to.scoring_loop(corpus) == "fma_ring"
+    for metric in ("ip", "l2"):
+        kw = dict(count=2400, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
+        calls = ((to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw)),
+                 (to.fast_block_topk, lambda: to.fast_block_topk(corpus, queries, k, **kw)),
+                 (to.fused_topk, lambda: to.fused_topk(corpus, queries, k, blocks_per_range=2, **kw)),
+                 (go.grouped_block_topk, lambda: go.grouped_block_topk(corpus, queries, table, ids, k,
+                                                                       count=2400, block_n=1024)))
+        ring = [launch_on_loop(wrapper, "fma_ring", call) for wrapper, call in calls]
+        with fma_loop():
+            fma = [launch_on_loop(wrapper, "fma", call) for wrapper, call in calls]
+        for got, want in zip(ring, fma):
+            _same(got[:2], want[:2])
+        _same(ring[2][2:], fma[2][2:])  # kernel 4's range partials
+
+
+@pytest.mark.parametrize("block_n,bq", [(367, 8), (367, 32), (1100, 8), (1100, 32), (300, 32), (256, 8)])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_f32_ring_ivf_is_the_fma_loop_bit_for_bit(gen, block_n, bq, metric):
+    """Kernel 7 on float32 rows with k <= 64 runs on the ring and gives the
+    FMA loop's partials bit for bit at the same tile and group size,
+    passes of fewer than four row tiles included (367 and 1100 slots)."""
+    corpus, queries, probes, row_valid = _ivf_inputs(gen, 24, 1100, 256, 33, 8, torch.float32)
+    kw = dict(lrows=1100, metric=metric, cnorms=to.row_sq_norms(corpus), block_n=block_n, bq=bq)
+    for k in (1, 64):
+        call = lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw)  # noqa: E731
+        ring = launch_on_loop(io.ivf_block_topk, "fma_ring", call)
+        with fma_loop():
+            _same(ring, launch_on_loop(io.ivf_block_topk, "fma", call))
+
+
+def test_f32_ring_refuses_what_it_cannot_stride(gen):
+    """The fma_loop hook sends float32 to the FMA loop and leaves bf16 on
+    its own; the ring refuses rows off a 16-byte-aligned base, and a
+    float32 width TMA cannot stride takes the FMA loop by the rule."""
+    f32, bf16 = _unit(100, 64, gen), _unit(100, 64, gen, torch.bfloat16)
+    with fma_loop():
+        assert to.scoring_loop(f32) == "fma" and to.scoring_loop(bf16) == "tensor_core"
+        launch_on_loop(to.block_topk, "tensor_core", lambda: to.block_topk(bf16, bf16[:2].contiguous(), 5,
+                                                                             count=100))
+    launch_on_loop(to.block_topk, "fma", lambda: to.block_topk(_unit(100, 66, gen), _unit(2, 66, gen), 5, count=100))
+    with pytest.raises(ValueError, match="16-byte"):
+        to.block_topk(_unit(101, 64, gen).reshape(-1)[1:6401].view(100, 64), f32[:2].contiguous(), 5, count=100)
+
+
+def test_f32_ring_kernels_run_ffma_and_tma():
+    """The SASS of every f32 ring instantiation (kernels 1, 3, 3 grouped
+    and 5 at BQ 8 and 32, kernel 7 at both) holds TMA loads (UTMALDG) and
+    fmaf (FFMA), and no wgmma."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the CUDA toolkit: the kernels are built there")
+    import re
+
+    from photo_search_engine_tpu_torch.ops import _cuda
+
+    counts = _cuda.sass_counts("fma_ring_", ("HGMMA", "FFMA", "UTMALDG"))
+    found = {re.search(r"fma_ring_block_topk_kernelILi(\d+)ELb([01])ELb([01])E", name).groups()
+             for name in counts if "block_topk" in name}
+    assert {(bq, g, keys) for bq in ("8", "32") for g in "01" for keys in "01"} == found, counts
+    assert sum("ivf_topk" in name for name in counts) == 2, counts
+    assert all(c["FFMA"] > 0 and c["UTMALDG"] > 0 and c["HGMMA"] == 0 for c in counts.values()), counts

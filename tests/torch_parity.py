@@ -116,6 +116,32 @@ def launch_on_loop(wrapper, loop, call):
 
 
 @contextlib.contextmanager
+def fma_loop():
+    """Inside, float32 rows take the FMA loop of ``csrc/block_score.cuh``
+    (the f32 C entries' ``ring = 0``) in kernels 1, 3, 4, 5 and 7: the loop
+    rules ``topk.scoring_loop`` (also as ``grouped_mask`` imported it) and
+    ``ivf_scan.ivf_scoring_loop`` answer ``"fma"`` for float32, so the
+    wrappers launch it and count it there.  The reference of the f32 ring's
+    bit-for-bit checks."""
+    import torch
+
+    from photo_search_engine_tpu_torch.ops import grouped_mask, ivf_scan, topk
+
+    def fma_for_f32(rule):
+        return lambda corpus, *args: "fma" if corpus.dtype == torch.float32 else rule(corpus, *args)
+
+    rules = [(topk, "scoring_loop"), (grouped_mask, "scoring_loop"), (ivf_scan, "ivf_scoring_loop")]
+    saved = [getattr(module, name) for module, name in rules]
+    for (module, name), rule in zip(rules, saved):
+        setattr(module, name, fma_for_f32(rule))
+    try:
+        yield
+    finally:
+        for (module, name), rule in zip(rules, saved):
+            setattr(module, name, rule)
+
+
+@contextlib.contextmanager
 def plain_scan(module, name, plain=None):
     """Inside, ``module.name`` is its plain version (``plain``, default
     ``module.<name>_plain``): the search around the scan (probes, merge,

@@ -165,13 +165,36 @@ f32        - STORE_DTYPE=float32 (phase f32, run after scale): a 1M x 1536
              instances joined through DIST_* (rank 0 over HTTP, rank 1's
              replays); gloo when the ranks share a card (NCCL refuses
              that), NCCL with a card per rank.
+9. entry   - the entry points that run and measure the port, at the card's
+             default (PSE_PLATFORM unset): (a) scripts/torch_bench.py's
+             inputs, searches and measurement at its default 1M x 1536
+             for exact (kernel 1), fast (kernel 3), int8 (kernel 2), ivf
+             and ivf with BENCH_IVF_QUANTIZED=1 (kernel 7, bf16 and int8):
+             one batch of each search against its kernel's plain version
+             at the bench's shapes, then each JSON line beside the library
+             composition's QPS, each kernel on the tensor cores, no host
+             sync in the timed call; then the bench's command line once at
+             its default variant; (b) scripts/torch_load_test.py at 1M x
+             1536 with 16 threads, flat, --quantized and --index-type ivf,
+             --requests cut to 1024 a mode: each JSON line with its
+             launches, 0 errors, the flat modes' launches printed (none
+             expected: candidate_k 500 > 64 takes the plain scan, so no
+             kernel is compared there), kernel 7 launched by the ivf mode
+             and its first measured query answered the same with kernel 7
+             on its plain version; (c) graft_entry.entry() (kernel
+             1 on the f32 ring, bit for bit the FMA loop's, against the plain
+             scan) and graft_entry.dryrun_multichip(4), four shards on
+             cuda:0 (kernels 1, 2, 5 and 7); (d) scripts/torch_check_services.py
+             (backend cuda, the card's name) and scripts/torch_demo_e2e.py
+             (every mode answered) as subprocesses.
 
 The launch counters are set to 0 before the route runs of phases 3-6 and
 f32 (and before the store's impl routes in phase 4, and before the float32
 IVF's first search in phase f32), before phase 7 and before each
-mesh call of phase 8, and read after every client thread has joined (in
-phase 8, after the call: it must have launched its kernel once per
-shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
+mesh call of phase 8, before each bench measurement (after its check against the plain version), after each load test's
+warm-up and before each graft entry call of phase 9, and read after every
+client thread has joined (in phase 8, after the call: it must have
+launched its kernel once per shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
 kernel's route, launches, error, times, bound (the larger of its bytes
 over 3.35 TB/s and its operations over the peak of their type: 989 TFLOP/s
 bf16, 67 TFLOP/s f32, 1,979 TOP/s int8) and library time; the last is
@@ -184,11 +207,13 @@ Run:  python3 chip_smoke.py            (all phases; one card, nvcc on PATH
       python3 chip_smoke.py --phases device,f32
       python3 chip_smoke.py --phases device,online,tools
       python3 chip_smoke.py --phases device,mesh
+      python3 chip_smoke.py --phases device,entry
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import io
 import json
@@ -209,7 +234,9 @@ _FLAT = _NAMES[:4]
 _IMPL_ROUTES = _NAMES[5:]  # driven through the store's impl values in phase 4
 _DRIVES = {"app": _FLAT, "scale": _FLAT + _IMPL_ROUTES, "ivf": ("ivf_block_topk",), "online": _FLAT,
            "tools": ("block_topk", "int8_block_topk", "ivf_block_topk"), "mesh": _FLAT + ("ivf_block_topk",),
-           "f32": ("block_topk", "grouped_block_topk", "ivf_block_topk") + _IMPL_ROUTES}  # what each phase must launch
+           "f32": ("block_topk", "grouped_block_topk", "ivf_block_topk") + _IMPL_ROUTES,
+           "entry": ("block_topk", "int8_block_topk", "grouped_block_topk", "ivf_block_topk",
+                     "fast_block_topk")}  # what each phase must launch
 _ERRORS = {name: 0.0 for name in _NAMES}
 _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
@@ -323,33 +350,24 @@ def time_kernel(key, kernel, plain, library, moved_bytes, ops, unit, reps=3):
     return _TIMES[key] + ((kernel_ms, kernel_ms2, plain_ms, plain_ms2),)
 
 
-def _wrappers() -> dict:
-    from photo_search_engine_tpu_torch.ops import grouped_mask as go
-    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
-    from photo_search_engine_tpu_torch.ops import quantized as qo
-    from photo_search_engine_tpu_torch.ops import topk as to
-
-    return {"block_topk": to.block_topk, "int8_block_topk": qo.int8_block_topk,
-            "grouped_block_topk": go.grouped_block_topk, "int8_grouped_block_topk": qo.int8_grouped_block_topk,
-            "ivf_block_topk": io_.ivf_block_topk, "fast_block_topk": to.fast_block_topk,
-            "fast_grouped_block_topk": go.fast_grouped_block_topk, "fused_topk": to.fused_topk}
-
-
 def reset_launches() -> None:
-    for wrapper in _wrappers().values():
-        wrapper.launches = 0
-        if hasattr(wrapper, "launches_by_loop"):
-            wrapper.launches_by_loop = dict.fromkeys(wrapper.launches_by_loop, 0)
+    from photo_search_engine_tpu_torch import ops
+
+    ops.reset_launches()
 
 
 def read_launches() -> dict:
-    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
+    from photo_search_engine_tpu_torch import ops
+
+    return ops.read_launches()
 
 
 def read_loops() -> dict:
     """Each kernel's launches by scoring loop (tensor cores, or the FMA /
     __dp4a loop)."""
-    return {name: dict(wrapper.launches_by_loop) for name, wrapper in _wrappers().items()
+    from photo_search_engine_tpu_torch.ops import kernel_wrappers
+
+    return {name: dict(wrapper.launches_by_loop) for name, wrapper in kernel_wrappers().items()
             if hasattr(wrapper, "launches_by_loop")}
 
 
@@ -1384,11 +1402,18 @@ def check_fused_kernel(gen, n, d) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _demo():
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    import demo_e2e
+def _scripts():
+    """The port's scripts directory on ``sys.path`` (they import by module name)."""
+    path = os.path.join(REPO, "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
 
-    return demo_e2e
+
+def _demo():
+    _scripts()
+    import torch_demo_e2e
+
+    return torch_demo_e2e
 
 
 def _upload_jpeg() -> bytes:
@@ -1482,8 +1507,8 @@ def phase_app_subprocess() -> None:
 
 
 def _serve(app):
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    from load_test import serve
+    _scripts()
+    from torch_load_test import serve
 
     return serve(app)
 
@@ -3234,12 +3259,278 @@ def mesh_ranks() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase entry: the entry points that run and measure the port
+# ---------------------------------------------------------------------------
+
+_BENCH_RUNS = (  # what, env of scripts/torch_bench.py, the kernel it must launch on the tensor cores
+    ("exact", {"BENCH_IMPL": "exact"}, "block_topk"),
+    ("fast", {"BENCH_IMPL": "fast"}, "fast_block_topk"),
+    ("int8", {"BENCH_IMPL": "int8"}, "int8_block_topk"),
+    ("ivf", {"BENCH_IMPL": "ivf"}, "ivf_block_topk"),
+    ("ivf int8", {"BENCH_IMPL": "ivf", "BENCH_IVF_QUANTIZED": "1"}, "ivf_block_topk"),
+)
+_LOAD_MODES = (("flat", []), ("flat int8", ["--quantized"]), ("ivf", ["--index-type", "ivf"]))
+_LOAD_REQUESTS = 1024  # of the load test's default 2000 a mode: phase entry's share of the run's time limit
+
+
+def _free_card() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_entry(rows: int = 1_000_000, dim: int = 1536) -> None:
+    import torch
+
+    if os.environ.get("PSE_PLATFORM", "").strip().lower() not in ("", "gpu", "cuda"):
+        raise AssertionError("phase entry runs the entry points on their default device: unset PSE_PLATFORM")
+    _free_card()
+    log(f"[entry] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the entry points")
+    summary = {"bench": entry_bench(rows, dim), "load": entry_load(rows, dim)}
+    entry_graft()
+    entry_scripts()
+    log(f"[entry] summary {json.dumps(summary)}")
+
+
+def _bench_check(what: str, s: dict, search, corpus, queries) -> float:
+    """One batch of the bench's ``search`` against the same search with its
+    kernel on the plain version, on the bench's own corpus and queries
+    (kernel 7 under the same probes, slots mapped to rows through
+    ``IVFIndex.perm``).  Kernel 1 and bf16 kernel 7 against the plain
+    top-(k+1) (:func:`check_topk`); kernel 2 and int8 kernel 7 at the same
+    k, because their rescored pool follows k, by the same rule with the
+    last slot isolated from below; kernel 3 by :func:`check_fast` against
+    the plain scores.  Returns the largest value error."""
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_topk_match, plain_scan
+
+    name = f"bench {what} ({s['n_queries']} queries, top-{s['k']})"
+    got = search(queries)
+    if s["variant"] == "fast":
+        with plain_scan(to, "fast_block_topk"):
+            ref = search(queries)
+        return check_fast(name, *got, *ref, _chunked_ip_scores(corpus, queries))
+    module, kernel, plain = {"exact": (to, "block_topk", to.exact_block_topk_plain), "int8": (qo, "int8_block_topk", None),
+                             "ivf": (io_, "ivf_block_topk", None)}[s["variant"]]
+    pooled = s["variant"] == "int8" or s["ivf_quantized"]
+    with plain_scan(module, kernel, plain):
+        ref = search(queries, s["k"] if pooled else s["k"] + 1)
+    if s["variant"] == "ivf":
+        got, ref = (search.index._to_rows(*(x.cpu().numpy() for x in pair)) for pair in (got, ref))
+    if not pooled:
+        return check_topk(name, *got, *ref)
+    try:
+        return assert_topk_match(*got, *ref, tol=TOL)
+    except AssertionError as exc:
+        raise AssertionError(f"{name}: {exc}") from exc
+
+
+def entry_bench(rows: int, dim: int) -> dict:
+    """(a) scripts/torch_bench.py for each variant at ``rows`` x ``dim``
+    (its default 1M x 1536) on the card, through its own functions: the
+    search of each variant is first held against its plain version on one
+    batch of the bench's queries (:func:`_bench_check`), then measured
+    with the launch counts zeroed: its JSON line, the library
+    composition's QPS beside it, the variant's kernel launched on the
+    tensor cores, no host sync in the timed call.  Then the bench's
+    command line once as a user runs it (its default variant).  Returns
+    each variant's JSON line with its timing line and launches."""
+    import torch
+
+    _scripts()
+    import torch_bench
+
+    device = torch.device(DEVICE)
+    results = {}
+    for what, env, kernel in _BENCH_RUNS:
+        t = time.perf_counter()
+        s = torch_bench.settings({"BENCH_ROWS": str(rows), "BENCH_DIM": str(dim), **env})
+        corpus, qstack = torch_bench.inputs(s, device)
+        search, library, label = torch_bench.make_search(s, corpus)
+        err = _bench_check(what, s, search, corpus, qstack[0])
+        _ERRORS[kernel] = max(_ERRORS[kernel], err)
+        reset_launches()
+        out = torch_bench.measure(s, search, library, label, qstack)
+        loops = read_loops()[kernel]
+        lines = torch_bench.report(out)
+        for line in lines:
+            log(f"[entry] bench {what}: {line}")
+        if out["host_sync"]:
+            raise AssertionError(f"bench {what}: the timed call synchronises with the host: {out['host_sync']}")
+        if loops["tensor_core"] <= 0 or sum(loops.values()) != loops["tensor_core"]:
+            raise AssertionError(f"bench {what}: {kernel} launches by loop {loops}")
+        _LAUNCHES[kernel] += loops["tensor_core"]
+        results[what] = {**json.loads(lines[-1]), "detail": lines[-2], "launches": loops["tensor_core"]}
+        log(f"[entry] bench {what}: one batch against the plain version, max |err| {err:.3g}; {kernel} "
+            f"x{loops['tensor_core']} on the tensor cores; no host sync; {time.perf_counter() - t:.1f} s")
+        del corpus, qstack, search, library
+        _free_card()
+    t = time.perf_counter()
+    env = {key: value for key, value in os.environ.items() if not key.startswith("BENCH_") and key != "PSE_PLATFORM"}
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_bench.py")], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"[entry] bench command line: {line}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if proc.returncode == 0 and lines and lines[-1].startswith("{") else {}
+    want = torch_bench.metric_name(torch_bench.settings({}))
+    if set(line) != set(torch_bench.HEADLINE_KEYS) or line["metric"] != want or not line["value"] > 0:
+        raise AssertionError(f"python3 scripts/torch_bench.py: rc {proc.returncode}, want {want}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    log(f"[entry] bench command line: rc 0, {want}; {time.perf_counter() - t:.1f} s")
+    return results
+
+
+def _results_by_rank(payload):
+    """``(scores, row ids)`` of a /search_photos response, in rank order."""
+    import numpy as np
+
+    results = payload["results"]
+    return (np.array([r["score"] for r in results], np.float64),
+            np.array([int(r["photo_path"].rsplit("/", 1)[1].split(".")[0]) for r in results], np.int64))
+
+
+def entry_load(rows: int, dim: int) -> dict:
+    """(b) scripts/torch_load_test.py at ``rows`` x ``dim`` (1M x 1536), 16 threads: flat,
+    --quantized, --index-type ivf.  Each mode's JSON line with its
+    launches and 0 errors.  The ivf mode must launch kernel 7: its first
+    measured request's query is sent again, then once more with kernel 7
+    on its plain version (the same probes): the same photos in the same
+    order, scores within TOL.  The flat modes' candidate_k 500 > 64 is
+    served by the plain exact scan, so no kernel of theirs is compared;
+    their launches are printed.  Returns each mode's JSON line."""
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from tests.torch_parity import assert_topk_match, plain_scan
+
+    _scripts()
+    import torch_load_test as lt
+
+    log(f"[entry] load test: --requests cut from 2000 to {_LOAD_REQUESTS} per mode (phase entry's share of the "
+        f"run's time limit); rows and dim not cut")
+    results = {}
+    for mode, extra in _LOAD_MODES:
+        t = time.perf_counter()
+        args = lt.parse_args(["--rows", str(rows), "--dim", str(dim), "--threads", "16",
+                              "--requests", str(_LOAD_REQUESTS)] + extra)
+        stats, err_sample, server, port, index = lt.measure(args)
+        try:
+            query = lt.query_pool()[lt.warmup_requests(args.threads, args.requests) % 512]
+            got = lt.post_search(port, query)
+            if mode == "ivf":
+                with plain_scan(io_, "ivf_block_topk"):
+                    want = lt.post_search(port, query)
+        finally:
+            server.shutdown()
+            server.server_close()
+            index._microbatcher.close()
+        log(f"[entry] load {mode}: {json.dumps(stats)}")
+        if err_sample:
+            log(f"[entry] load {mode}: sample errors {err_sample}")
+        if stats["errors"] or stats["requests_ok"] != args.requests:
+            raise AssertionError(f"load {mode}: {stats['errors']} errors of {args.requests}")
+        if not got.get("results") or got.get("status") != "success":
+            raise AssertionError(f"load {mode}: empty or failed response {str(got)[:300]}")
+        launched = {name: n for name, n in stats["launches"].items() if n}
+        if mode == "ivf":
+            if launched.get("ivf_block_topk", 0) <= 0:
+                raise AssertionError(f"load ivf: kernel 7 never launched ({stats['launches']})")
+            _LAUNCHES["ivf_block_topk"] += launched["ivf_block_topk"]
+            err = assert_topk_match(*_results_by_rank(got), *_results_by_rank(want), tol=TOL)
+            checked = (f"the first measured query {query!r} answered the same with kernel 7 on its plain version "
+                       f"({len(got['results'])} photos, max |score err| {err:.3g}); expected kernel 7 on its FMA "
+                       f"loop (k 500 > 64)")
+        else:
+            checked = ("candidate_k 500 > 64 is served by exact_search_plain, so no kernel was compared; "
+                       "expected launches: none")
+        log(f"[entry] load {mode}: {checked}; kernels launched in the measured window {launched or 'none'}; "
+            f"{time.perf_counter() - t:.1f} s")
+        results[mode] = stats
+        del server, index
+        _free_card()
+    return results
+
+
+def entry_graft() -> None:
+    """(c) graft_entry.entry() on the card (kernel 1 on the f32 ring, bit
+    for bit the FMA loop's; against the plain scan), then
+    dryrun_multichip(4): four shards on cuda:0, kernels 1, 2, 5 and 7."""
+    import torch
+
+    from photo_search_engine_tpu_torch import graft_entry
+    from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import assert_same_bits, fma_loop
+
+    t = time.perf_counter()
+    forward, (corpus, queries) = graft_entry.entry()
+    if corpus.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"entry(): corpus on {corpus.device}")
+    reset_launches()
+    got = forward(corpus, queries)
+    torch.cuda.synchronize()
+    ring = to.block_topk.launches_by_loop["fma_ring"]
+    if ring != 1 or to.block_topk.launches != 1:
+        raise AssertionError(f"entry(): block_topk launches by loop {to.block_topk.launches_by_loop}")
+    _LAUNCHES["block_topk"] += 1
+    with fma_loop():
+        assert_same_bits("entry() against the FMA loop", got, forward(corpus, queries))
+    err = check_topk("entry() against the plain scan", *got, *to.exact_search_plain(corpus, queries, 11, metric="ip"))
+    _ERRORS["block_topk"] = max(_ERRORS["block_topk"], err)
+    log(f"[entry] graft entry(): exact_search over {tuple(corpus.shape)} f32 rows, {queries.shape[0]} queries, "
+        f"top-10 on {corpus.device}: block_topk on the f32 ring, bit for bit the FMA loop's, against the plain "
+        f"scan max |err| {err:.3g}")
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        graft_entry.dryrun_multichip(_MESH_SHARDS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[entry] graft {out.getvalue().strip()}; launches {launches}")
+    for name in ("block_topk", "int8_block_topk", "grouped_block_topk", "ivf_block_topk"):
+        if launches[name] <= 0:
+            raise AssertionError(f"dryrun_multichip({_MESH_SHARDS}): {name} never launched")
+        _LAUNCHES[name] += launches[name]
+    log(f"[entry] graft entry: {time.perf_counter() - t:.1f} s")
+
+
+def entry_scripts() -> None:
+    """(d) scripts/torch_check_services.py and scripts/torch_demo_e2e.py as
+    subprocesses on the card (PSE_PLATFORM unset)."""
+    import torch
+
+    env = {key: value for key, value in os.environ.items() if key != "PSE_PLATFORM"}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_check_services.py")], env=env,
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    report = json.loads(out.stdout) if out.returncode == 0 else {}
+    name = torch.cuda.get_device_name(0)
+    if out.returncode != 0 or report.get("backend") != "cuda" or report.get("devices", [None])[0] != name:
+        raise AssertionError(f"check_services: rc {out.returncode}: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+    log(f"[entry] check_services: ok, backend {report['backend']}, devices {report['devices']}, native library "
+        f"{report['native_library']}, server {report['server']} ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_demo_e2e.py")], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"[entry] demo | {line}")
+    labels = ("== text: beach sunset ==", "== season filter", "== season+period", "== autumn date range",
+              "== image-to-image", "== upload-to-search", "all demo flows completed")
+    missing = [label for label in labels if label not in out.stdout]
+    if out.returncode != 0 or missing or "ERROR" in out.stdout:
+        raise AssertionError(f"demo: rc {out.returncode}, missing {missing}: {out.stderr[-2000:]}")
+    log(f"[entry] demo: every mode answered on the card ({time.perf_counter() - t:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="device,kernels,app,scale,f32,ivf,online,tools,mesh",
-                        help="comma-separated subset of device,kernels,app,scale,f32,ivf,online,tools,mesh")
+    parser.add_argument("--phases", default="device,kernels,app,scale,f32,ivf,online,tools,mesh,entry",
+                        help="comma-separated subset of device,kernels,app,scale,f32,ivf,online,tools,mesh,entry")
     args = parser.parse_args(argv)
     import torch
 
@@ -3255,7 +3546,7 @@ def main(argv=None) -> int:
     started = time.perf_counter()
     phase_device()
     runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "f32": phase_f32, "ivf": phase_ivf,
-               "online": phase_online, "tools": phase_tools, "mesh": phase_mesh}
+               "online": phase_online, "tools": phase_tools, "mesh": phase_mesh, "entry": phase_entry}
     for name in phases:
         if name in runners:
             t = time.perf_counter()

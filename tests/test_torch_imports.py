@@ -1,8 +1,9 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
 * A static check parses every ``.py`` file of ``photo_search_engine_tpu_torch/``,
-  ``chip_smoke.py`` and the helpers it imports (``tests/torch_parity.py``),
-  and fails on any import of ``jax``, ``jaxlib`` or
+  ``chip_smoke.py``, the helpers it imports (``tests/torch_parity.py``) and
+  the port's scripts (``scripts/torch_*.py``), and fails on any import of
+  ``jax``, ``jaxlib`` or
   ``photo_search_engine_tpu`` (the port's own package aside), imports
   inside functions included.
 * The port keeps its own copy of each host module it needs from the JAX
@@ -10,9 +11,12 @@
   import lines is mapped, so that the two do not drift apart.  A copy that
   is changed on purpose loses its case here, with the reason in CHANGES.md.
   ``core/batcher.py`` is not listed: it differs by more than its imports.
+  ``scripts/torch_keyword_bench_1m.py`` is held to
+  ``scripts/keyword_bench_1m.py`` the same way.
 """
 
 import ast
+import glob
 import os
 import re
 
@@ -57,8 +61,9 @@ def _port_sources():
         if "_build" in root.split(os.sep) or "__pycache__" in root:
             continue
         found += [os.path.relpath(os.path.join(root, f), REPO) for f in files if f.endswith(".py")]
+    scripts = [os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))]
     # chip_smoke.py imports the shared checks of tests/torch_parity.py
-    return sorted(found) + ["chip_smoke.py", os.path.join("tests", "torch_parity.py")]
+    return sorted(found) + ["chip_smoke.py", os.path.join("tests", "torch_parity.py")] + sorted(scripts)
 
 
 def forbidden_imports(source: str):
@@ -115,6 +120,22 @@ def test_copied_module_matches_the_jax_file(path):
     with open(os.path.join(PORT_PKG, path), encoding="utf-8") as f:
         got = f.read()
     assert got == want, f"{path} drifted from photo_search_engine_tpu/{path}"
+
+
+def test_keyword_bench_copy_matches_the_jax_script():
+    with open(os.path.join(REPO, "scripts", "keyword_bench_1m.py"), encoding="utf-8") as f:
+        want = _map_package(f.read())
+    with open(os.path.join(REPO, "scripts", "torch_keyword_bench_1m.py"), encoding="utf-8") as f:
+        assert f.read() == want, "scripts/torch_keyword_bench_1m.py drifted from scripts/keyword_bench_1m.py"
+
+
+@pytest.mark.parametrize(
+    "script",
+    ["torch_load_test.py", "torch_bench.py", "torch_check_services.py", "torch_demo_e2e.py",
+     "torch_keyword_bench_1m.py"],
+)
+def test_the_entry_point_scripts_are_among_the_checked_modules(script):
+    assert os.path.join("scripts", script) in _port_sources()
 
 
 @pytest.mark.parametrize(

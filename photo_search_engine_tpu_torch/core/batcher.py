@@ -9,6 +9,13 @@ filtered ones, with different predicates, into one grouped scan (kernel
 way.  The predicate table is built with this package's
 ``bucket_mask_table``.
 
+While a ``torch.profiler`` session records, the batched search records its
+spans (``tracing.py``): per request ``vector_index.search`` around it, with
+``batcher.queue`` (enqueued → taken into a batch, the linger included),
+``batcher.wake`` (results set → the caller running again) and
+``vector_index.hits``; per batch ``batcher.dispatch`` (taken → running on
+its executor thread) and ``batcher.execute``.
+
 Enabled via ``SEARCH_MICROBATCH_ENABLED`` (``api/app.py``).
 """
 
@@ -20,9 +27,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from photo_search_engine_tpu_torch import tracing
+
 
 class _Pending:
-    __slots__ = ("query", "k", "mask", "event", "result", "error")
+    # req: the request's span id; cut: when the collector took it into a
+    # batch, done: when its result was set (perf_counter_ns; 0 while nothing
+    # records); batch: its batch's span id
+    __slots__ = ("query", "k", "mask", "event", "result", "error", "req", "cut", "batch", "done")
 
     def __init__(self, query: np.ndarray, k: int, mask: Optional[np.ndarray]) -> None:
         self.query = query
@@ -31,6 +43,8 @@ class _Pending:
         self.event = threading.Event()
         self.result: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self.error: Optional[BaseException] = None
+        self.req = self.batch = None
+        self.cut = self.done = 0
 
 
 class MicroBatcher:
@@ -122,6 +136,10 @@ class MicroBatcher:
                         self._lock.wait(timeout=remaining)
                 batch = self._queue[: self.max_batch]
                 del self._queue[: len(batch)]
+                if tracing.on():
+                    cut = time.perf_counter_ns()
+                    for item in batch:
+                        item.cut = cut
                 if self.pipeline > 1:
                     # bounded handoff: block collection (not callers) when
                     # `pipeline` batches are already in flight
@@ -220,37 +238,48 @@ class MicroBatcher:
         return chunks
 
     def _execute(self, batch: List[_Pending]) -> None:
-        try:
-            if any(item.mask is not None for item in batch) and (
-                self._run_grouped_batch is not None
-            ):
-                for chunk, chunk_keys in self._split_by_mask_cap(
-                    batch, self._mask_keys(batch)
+        cut = batch[0].cut
+        entered = time.perf_counter_ns() if cut else 0
+        with tracing.span("batcher.execute", root="batch") as span:
+            if cut:
+                span.set(reqs=[item.req for item in batch])
+                tracing.record("batcher.dispatch", cut, entered, batch=span.id)
+            try:
+                if any(item.mask is not None for item in batch) and (
+                    self._run_grouped_batch is not None
                 ):
-                    queries = np.stack([item.query for item in chunk])
-                    k_max = max(item.k for item in chunk)
-                    table, ids = self._factor_masks(chunk, chunk_keys)
-                    dists, idx = self._run_grouped_batch(
-                        queries, k_max, table, ids
-                    )
-                    self.grouped_batches_run += 1
-                    for row, item in enumerate(chunk):
+                    for chunk, chunk_keys in self._split_by_mask_cap(
+                        batch, self._mask_keys(batch)
+                    ):
+                        queries = np.stack([item.query for item in chunk])
+                        k_max = max(item.k for item in chunk)
+                        table, ids = self._factor_masks(chunk, chunk_keys)
+                        dists, idx = self._run_grouped_batch(
+                            queries, k_max, table, ids
+                        )
+                        with self._lock:
+                            self.grouped_batches_run += 1
+                        for row, item in enumerate(chunk):
+                            item.result = (dists[row, : item.k], idx[row, : item.k])
+                else:
+                    queries = np.stack([item.query for item in batch])
+                    k_max = max(item.k for item in batch)
+                    dists, idx = self._run_batch(queries, k_max)
+                    for row, item in enumerate(batch):
                         item.result = (dists[row, : item.k], idx[row, : item.k])
-            else:
-                queries = np.stack([item.query for item in batch])
-                k_max = max(item.k for item in batch)
-                dists, idx = self._run_batch(queries, k_max)
-                for row, item in enumerate(batch):
-                    item.result = (dists[row, : item.k], idx[row, : item.k])
-        except BaseException as exc:  # propagate to every unserved waiter
-            for item in batch:
-                if item.result is None:
-                    item.error = exc
-        finally:
-            self.batches_run += 1
-            self.requests_served += len(batch)
-            for item in batch:
-                item.event.set()
+            except BaseException as exc:  # propagate to every unserved waiter
+                for item in batch:
+                    if item.result is None:
+                        item.error = exc
+            finally:
+                done = time.perf_counter_ns() if cut else 0
+                # up to `pipeline` executor threads finish batches at once
+                with self._lock:
+                    self.batches_run += 1
+                    self.requests_served += len(batch)
+                for item in batch:
+                    item.batch, item.done = span.id, done
+                    item.event.set()
 
     # ------------------------------------------------------------------
     def search(
@@ -273,11 +302,22 @@ class MicroBatcher:
             int(k),
             None if mask is None else np.asarray(mask),
         )
+        enqueued = 0
+        if tracing.on():
+            pending.req = tracing.current().req
+            enqueued = time.perf_counter_ns()
         with self._lock:
             self._ensure_worker()
             self._queue.append(pending)
             self._lock.notify_all()
         pending.event.wait()
+        if enqueued and pending.done:
+            woke = time.perf_counter_ns()
+            caller = tracing.current()
+            tracing.record("batcher.queue", enqueued, pending.cut, parent=caller.id, req=caller.req,
+                           batch=pending.batch)
+            tracing.record("batcher.wake", pending.done, woke, parent=caller.id, req=caller.req,
+                           batch=pending.batch)
         if pending.error is not None:
             raise pending.error
         return pending.result
@@ -398,8 +438,9 @@ class CallBatcher:
             for pending in batch:
                 pending.error = exc
         finally:
-            self.batches_run += 1
-            self.requests_served += len(batch)
+            with self._lock:  # see MicroBatcher._execute
+                self.batches_run += 1
+                self.requests_served += len(batch)
             for pending in batch:
                 pending.event.set()
 
@@ -484,10 +525,13 @@ def attach_microbatcher(
         ]
 
     def batched_search(query_embedding, top_k):
-        if vector_index.get_total_items() == 0:
-            return []
-        k = min(int(top_k), vector_index.get_total_items())
-        return _hits(*batcher.search(np.asarray(query_embedding, np.float32), k))
+        with tracing.span("vector_index.search"):
+            if vector_index.get_total_items() == 0:
+                return []
+            k = min(int(top_k), vector_index.get_total_items())
+            dists, idx = batcher.search(np.asarray(query_embedding, np.float32), k)
+            with tracing.span("vector_index.hits"):
+                return _hits(dists, idx)
 
     def batched_search_masked(query_embedding, top_k, mask):
         if vector_index.get_total_items() == 0:

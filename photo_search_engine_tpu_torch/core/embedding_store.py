@@ -22,6 +22,9 @@ Counterpart of ``photo_search_engine_tpu/core/embedding_store.py``:
   ``"pallas_fast"`` (kernel 3), ``"pallas_fused"`` (kernel 4, flat search
   only) and ``"lax"`` go to ``ops/topk.exact_search`` or
   ``ops/grouped_mask.grouped_mask_search``.  Any other value raises.
+* While a ``torch.profiler`` session records, ``search`` records the span
+  ``embedding_store.scan`` (``tracing.py``) around the search op and the
+  download of its results, whose ``.cpu()`` waits for the op's kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from photo_search_engine_tpu_torch import tracing
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import grouped_mask as grouped_ops
@@ -256,18 +260,19 @@ class EmbeddingStore:
         mask_dev = None if mask is None else self._device_mask(mask)
         metric = "ip" if self.metric == "cosine" else self.metric
         k = min(k, self._count)
-        if impl == "int8" and k <= quant_ops.INT8_MAX_K:
-            dists, idx = quant_ops.int8_search(
-                self._device_i8, self._scales, self._device, queries, k,
-                count=self._count, mask=mask_dev, metric=metric, block_n=self._i8_block,
-            )
-        else:
-            dists, idx = topk_ops.exact_search(
-                self._device, queries.to(self.store_dtype), k,
-                count=self._count, mask=mask_dev, metric=metric,
-                impl="auto" if impl == "int8" else impl, block_n=self.block_rows,
-            )
-        return dists.cpu().numpy(), idx.cpu().numpy()
+        with tracing.span("embedding_store.scan"):
+            if impl == "int8" and k <= quant_ops.INT8_MAX_K:
+                dists, idx = quant_ops.int8_search(
+                    self._device_i8, self._scales, self._device, queries, k,
+                    count=self._count, mask=mask_dev, metric=metric, block_n=self._i8_block,
+                )
+            else:
+                dists, idx = topk_ops.exact_search(
+                    self._device, queries.to(self.store_dtype), k,
+                    count=self._count, mask=mask_dev, metric=metric,
+                    impl="auto" if impl == "int8" else impl, block_n=self.block_rows,
+                )
+            return dists.cpu().numpy(), idx.cpu().numpy()
 
     def grouped_search(
         self,

@@ -125,6 +125,33 @@ def test_errors_propagate_to_every_waiter():
         MicroBatcher(fail).search(np.zeros(4, np.float32), 2, mask=np.ones(10, bool))
 
 
+def test_counters_lose_no_update_under_contention():
+    """``pipeline`` executor threads finish batches at once: the counters
+    that ``batch_mean`` reads lose no increment (32 threads, 2,000 searches,
+    a short switch interval)."""
+    corpus = unit_rows(np.random.default_rng(9), 32, 4)
+    exact = _exact_batch(corpus)
+    calls = []
+    calls_lock = threading.Lock()
+
+    def run_batch(queries, k):
+        with calls_lock:
+            calls.append(queries.shape[0])
+        return exact(queries, k)
+
+    batcher = MicroBatcher(run_batch, max_batch=8, window_s=0.0005, pipeline=4)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _run_threads(lambda w: [batcher.search(corpus[(w + i) % 32], 2) for i in range(2000 // 32 + (w < 2000 % 32))],
+                     [(w,) for w in range(32)])
+    finally:
+        sys.setswitchinterval(interval)
+        batcher.close()
+    assert sum(calls) == 2000
+    assert batcher.requests_served == 2000 and batcher.batches_run == len(calls)
+
+
 def test_attach_to_vector_index(tmp_path):
     rows, index, ref = _indexes(tmp_path, 30, 2)
     batcher = attach_microbatcher(index, window_s=0.02)

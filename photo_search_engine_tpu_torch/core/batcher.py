@@ -9,12 +9,21 @@ filtered ones, with different predicates, into one grouped scan (kernel
 way.  The predicate table is built with this package's
 ``bucket_mask_table``.
 
+A request that finds the micro-batcher idle (nothing queued, no batch in
+flight) is its own batch and runs at once on the caller's thread: at low
+load there is no second request to wait for, so it pays no linger, no
+hand-off to another thread and no wake-up.  Any other request is queued,
+and a collector thread lingers ``window_s`` for more, cuts a batch and
+hands it to an executor thread, at most ``pipeline`` batches in flight,
+the inline one included.
+
 While a ``torch.profiler`` session records, the batched search records its
 spans (``tracing.py``): per request ``vector_index.search`` around it, with
 ``batcher.queue`` (enqueued → taken into a batch, the linger included),
 ``batcher.wake`` (results set → the caller running again) and
 ``vector_index.hits``; per batch ``batcher.dispatch`` (taken → running on
-its executor thread) and ``batcher.execute``.
+its thread) and ``batcher.execute``, a root whose ``inline`` attribute says
+whether the batch ran on its caller's thread.
 
 Enabled via ``SEARCH_MICROBATCH_ENABLED`` (``api/app.py``).
 """
@@ -31,9 +40,10 @@ from photo_search_engine_tpu_torch import tracing
 
 
 class _Pending:
-    # req: the request's span id; cut: when the collector took it into a
-    # batch, done: when its result was set (perf_counter_ns; 0 while nothing
-    # records); batch: its batch's span id
+    # req: the request's span id; cut: when it was taken into a batch (by
+    # the collector, or at once on the idle path), done: when its result was
+    # set (perf_counter_ns; 0 while nothing records); batch: its batch's
+    # span id
     __slots__ = ("query", "k", "mask", "event", "result", "error", "req", "cut", "batch", "done")
 
     def __init__(self, query: np.ndarray, k: int, mask: Optional[np.ndarray]) -> None:
@@ -56,7 +66,10 @@ class MicroBatcher:
     mask_table [M, N], mask_ids [B])`` (optional) handles batches where
     at least one request carries a row filter; without it, filtered
     requests fall back to per-request calls via ``run_masked``.
-    Requests arriving within ``window_s`` of each other (up to
+    A request that finds nothing queued and no batch in flight runs
+    alone at once, on its caller's thread (``inline_batches`` counts
+    these).  Requests that arrive while a batch is in flight are queued,
+    and those arriving within ``window_s`` of each other (up to
     ``max_batch``) share one call; a request's k may differ — the batch
     runs at the max k and each caller gets a slice.
     """
@@ -79,13 +92,12 @@ class MicroBatcher:
         self.dimension = dimension
         self.max_batch = int(max_batch)
         self.window_s = float(window_s)
-        # in-flight batch depth: the collector hands batches to a small
-        # executor pool instead of running them inline, so batch N+1's
-        # dispatch overlaps batch N's result fetch.  Device compute
-        # serializes on-chip either way; what overlaps is the
-        # dispatch/fetch round trip — a few ms locally, 0.5-2 s on
-        # remote-attached runtimes, where depth 2 roughly doubles
-        # route-level throughput.  Depth 1 restores strict serial order.
+        # batches in flight at once, an inline one included.  The card
+        # runs the scans one after another either way; at depth 2 the next
+        # batch's host work (stacking, query upload, launch) runs while the
+        # current scan is on the card and its results are copied back, so
+        # under load the card does not idle between batches.  Depth 1
+        # restores strict serial order.
         self.pipeline = max(1, int(pipeline))
         self._lock = threading.Condition()
         self._queue: List[_Pending] = []
@@ -93,6 +105,7 @@ class MicroBatcher:
         self._stopped = False
         self._inflight = 0
         self.batches_run = 0
+        self.inline_batches = 0
         self.requests_served = 0
         self.grouped_batches_run = 0
 
@@ -140,23 +153,23 @@ class MicroBatcher:
                     cut = time.perf_counter_ns()
                     for item in batch:
                         item.cut = cut
+                # bounded handoff: block collection (not callers) while
+                # `pipeline` batches, an inline one included, are in flight
+                while self._inflight >= self.pipeline:
+                    self._lock.wait(timeout=0.05)
+                self._inflight += 1
                 if self.pipeline > 1:
-                    # bounded handoff: block collection (not callers) when
-                    # `pipeline` batches are already in flight
-                    while self._inflight >= self.pipeline and not self._stopped:
-                        self._lock.wait(timeout=0.05)
-                    self._inflight += 1
                     threading.Thread(
                         target=self._execute_and_release,
                         args=(batch,),
                         daemon=True,
                     ).start()
                     continue
-            self._execute(batch)
+            self._execute_and_release(batch)
 
-    def _execute_and_release(self, batch: List[_Pending]) -> None:
+    def _execute_and_release(self, batch: List[_Pending], inline: bool = False) -> None:
         try:
-            self._execute(batch)
+            self._execute(batch, inline)
         finally:
             with self._lock:
                 self._inflight -= 1
@@ -237,12 +250,12 @@ class MicroBatcher:
             chunks.append((current, current_keys))
         return chunks
 
-    def _execute(self, batch: List[_Pending]) -> None:
+    def _execute(self, batch: List[_Pending], inline: bool) -> None:
         cut = batch[0].cut
         entered = time.perf_counter_ns() if cut else 0
         with tracing.span("batcher.execute", root="batch") as span:
             if cut:
-                span.set(reqs=[item.req for item in batch])
+                span.set(reqs=[item.req for item in batch], inline=inline)
                 tracing.record("batcher.dispatch", cut, entered, batch=span.id)
             try:
                 if any(item.mask is not None for item in batch) and (
@@ -273,9 +286,11 @@ class MicroBatcher:
                         item.error = exc
             finally:
                 done = time.perf_counter_ns() if cut else 0
-                # up to `pipeline` executor threads finish batches at once
+                # up to `pipeline` threads (executors, an inline caller) finish
+                # batches at once
                 with self._lock:
                     self.batches_run += 1
+                    self.inline_batches += inline
                     self.requests_served += len(batch)
                 for item in batch:
                     item.batch, item.done = span.id, done
@@ -307,10 +322,21 @@ class MicroBatcher:
             pending.req = tracing.current().req
             enqueued = time.perf_counter_ns()
         with self._lock:
-            self._ensure_worker()
-            self._queue.append(pending)
-            self._lock.notify_all()
-        pending.event.wait()
+            # idle: nothing queued and no batch in flight on any thread, so
+            # no other request to wait for: the request is its own batch
+            inline = not self._queue and self._inflight == 0
+            if inline:
+                self._inflight += 1
+                if enqueued:
+                    pending.cut = time.perf_counter_ns()
+            else:
+                self._ensure_worker()
+                self._queue.append(pending)
+                self._lock.notify_all()
+        if inline:
+            self._execute_and_release([pending], inline=True)
+        else:
+            pending.event.wait()
         if enqueued and pending.done:
             woke = time.perf_counter_ns()
             caller = tracing.current()

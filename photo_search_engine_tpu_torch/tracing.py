@@ -71,7 +71,7 @@ class _Span:
     def __enter__(self) -> "_Span":
         stack = _stack()
         self.id = next(_ids)
-        if stack:
+        if stack and self.root != "batch":
             up = stack[-1]
             self.parent, self.req, self.batch = up.id, up.req, up.batch
         else:
@@ -114,8 +114,10 @@ def span(name: str, *, root: str = "req", **attrs: Any):
     """A context that records the span ``name`` around its body.  Opened
     inside another span of the same thread it is that span's child and
     takes its ``req`` and ``batch``; opened with none, it is a root and its
-    own id becomes the ``req`` (``root="req"``) or the ``batch``
-    (``root="batch"``) of its children."""
+    own id becomes the ``req`` of its children.  A ``root="batch"`` span is
+    always a root, whose own id becomes the ``batch`` of its children: a
+    batch serves many requests, so it is no request's child, even where it
+    runs on one request's thread (the micro-batcher's idle path)."""
     if not on():
         return _OFF
     return _Span(name, root, attrs)

@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from photo_search_engine_tpu_torch.core.batcher import (
 )
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from photo_search_engine_tpu_torch.models.hash_embedder import HashingEmbeddingService
-from tests.torch_parity import unit_rows
+from tests.torch_parity import slow_scans, unit_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 8
@@ -71,12 +72,16 @@ def _exact_batch(corpus):
 
 
 def test_concurrent_requests_coalesce():
+    """The first request finds the batcher idle and runs alone; the scan
+    takes 20 ms, as a device scan does, so the rest arrive while it is in
+    flight and coalesce."""
     corpus = unit_rows(np.random.default_rng(0), 50, D)
     calls = []
     exact = _exact_batch(corpus)
 
     def run_batch(queries, k):
         calls.append(queries.shape[0])
+        time.sleep(0.02)
         return exact(queries, k)
 
     batcher = MicroBatcher(run_batch, max_batch=64, window_s=0.05)
@@ -89,6 +94,197 @@ def test_concurrent_requests_coalesce():
     batcher.close()
     assert results == {i: i for i in range(16)}
     assert len(calls) < 16 and sum(calls) == 16
+
+
+def test_lone_request_on_an_idle_batcher_runs_at_once_on_its_thread():
+    """Nothing queued and nothing in flight: the request is its own batch,
+    run on the caller's thread at once, far inside the window, with no
+    collector started."""
+    corpus = unit_rows(np.random.default_rng(11), 20, D)
+    exact = _exact_batch(corpus)
+    threads = []
+
+    def run_batch(queries, k):
+        threads.append(threading.current_thread())
+        return exact(queries, k)
+
+    batcher = MicroBatcher(run_batch, window_s=1.0)
+    start = time.monotonic()
+    dists, idx = batcher.search(corpus[4], 3)
+    elapsed = time.monotonic() - start
+    assert elapsed < 0.25 * batcher.window_s, elapsed
+    assert threads == [threading.current_thread()] and int(idx[0]) == 4 and len(dists) == 3
+    assert batcher.inline_batches == batcher.batches_run == batcher.requests_served == 1
+    assert batcher._worker is None
+
+
+def test_requests_queued_behind_an_inflight_batch_coalesce():
+    """While a slow batch is in flight, 16 requests find the batcher busy,
+    queue, and share fewer than 16 calls; every result is exact."""
+    corpus = unit_rows(np.random.default_rng(12), 50, D)
+    exact = _exact_batch(corpus)
+    calls = []
+    started, release = threading.Event(), threading.Event()
+
+    def run_batch(queries, k):
+        calls.append(queries.shape[0])
+        if len(calls) == 1:
+            started.set()
+            assert release.wait(TIMEOUT)
+        return exact(queries, k)
+
+    batcher = MicroBatcher(run_batch, max_batch=64, window_s=0.05)
+    results = {}
+
+    def worker(i):
+        results[i] = int(batcher.search(corpus[i], 3)[1][0])
+
+    first = threading.Thread(target=worker, args=(0,))
+    first.start()
+    try:
+        assert started.wait(TIMEOUT)
+        _run_threads(worker, [(i,) for i in range(1, 17)])
+    finally:
+        release.set()
+        first.join(timeout=TIMEOUT)
+    batcher.close()
+    assert not first.is_alive()
+    assert results == {i: i for i in range(17)}
+    assert calls[0] == 1 and len(calls) - 1 < 16 and sum(calls[1:]) == 16
+    assert batcher.inline_batches == 1
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 4])
+def test_never_more_than_pipeline_batches_in_flight(pipeline):
+    """32 threads, 640 searches: the inline batches and the collector's
+    together never overlap more than ``pipeline`` calls, and every request
+    is served with its own result."""
+    corpus = unit_rows(np.random.default_rng(13), 32, 4)
+    exact = _exact_batch(corpus)
+    lock = threading.Lock()
+    state = {"active": 0, "most": 0}
+
+    def run_batch(queries, k):
+        with lock:
+            state["active"] += 1
+            state["most"] = max(state["most"], state["active"])
+        try:
+            time.sleep(0.001)
+            return exact(queries, k)
+        finally:
+            with lock:
+                state["active"] -= 1
+
+    batcher = MicroBatcher(run_batch, max_batch=8, window_s=0.0005, pipeline=pipeline)
+    wrong = []
+
+    def worker(w):
+        for i in range(20):
+            row = (w + i) % 32
+            if int(batcher.search(corpus[row], 2)[1][0]) != row:
+                wrong.append(row)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        _run_threads(worker, [(w,) for w in range(32)])
+    finally:
+        sys.setswitchinterval(interval)
+        batcher.close()
+    assert not wrong
+    assert batcher.requests_served == 640 and batcher.inline_batches >= 1
+    assert 1 <= state["most"] <= pipeline, state
+
+
+def test_inline_error_reaches_its_caller_only():
+    """A lone request's failed scan raises in its caller; a request queued
+    behind it meanwhile gets its own result, and the next request on the
+    idle batcher is served."""
+    corpus = unit_rows(np.random.default_rng(14), 20, D)
+    exact = _exact_batch(corpus)
+    started, release = threading.Event(), threading.Event()
+    calls = []
+
+    def run_batch(queries, k):
+        calls.append(queries.shape[0])
+        if len(calls) == 1:
+            started.set()
+            assert release.wait(TIMEOUT)
+            raise RuntimeError("device on fire")
+        return exact(queries, k)
+
+    batcher = MicroBatcher(run_batch, window_s=0.01)
+    outcome = {}
+
+    def first():
+        try:
+            batcher.search(corpus[0], 2)
+        except RuntimeError as exc:
+            outcome["error"] = str(exc)
+
+    failing = threading.Thread(target=first)
+    failing.start()
+    try:
+        assert started.wait(TIMEOUT)
+        _run_threads(lambda: outcome.__setitem__("queued", int(batcher.search(corpus[1], 2)[1][0])), [()])
+    finally:
+        release.set()
+        failing.join(timeout=TIMEOUT)
+    assert not failing.is_alive()
+    assert outcome == {"error": "device on fire", "queued": 1}
+    assert int(batcher.search(corpus[2], 2)[1][0]) == 2
+    batcher.close()
+    assert batcher.inline_batches == 2 and batcher.batches_run == 3
+
+
+def test_requests_after_close_are_served():
+    """``close()`` stops the collector, not the batcher: after it, a lone
+    request runs inline, and one that must queue revives the collector."""
+    corpus = unit_rows(np.random.default_rng(15), 20, D)
+    exact = _exact_batch(corpus)
+    calls = []
+    held = {1: (threading.Event(), threading.Event()), 4: (threading.Event(), threading.Event())}
+
+    def run_batch(queries, k):
+        calls.append(queries.shape[0])
+        if len(calls) in held:
+            started, release = held[len(calls)]
+            started.set()
+            assert release.wait(TIMEOUT)
+        return exact(queries, k)
+
+    batcher = MicroBatcher(run_batch, window_s=0.01)
+    results = {}
+
+    def worker(i):
+        results[i] = int(batcher.search(corpus[i], 2)[1][0])
+
+    def queue_behind_a_held_batch(call, first, second):
+        """Request ``first`` runs inline and is held in call ``call``;
+        request ``second`` meanwhile queues for the collector."""
+        started, release = held[call]
+        holder = threading.Thread(target=worker, args=(first,))
+        holder.start()
+        try:
+            assert started.wait(TIMEOUT)
+            _run_threads(worker, [(second,)])
+        finally:
+            release.set()
+            holder.join(timeout=TIMEOUT)
+        assert not holder.is_alive()
+
+    queue_behind_a_held_batch(1, 0, 1)
+    assert batcher._worker is not None
+    batcher.close()
+    deadline = time.monotonic() + TIMEOUT
+    while batcher._worker is not None and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert batcher._worker is None  # the collector has left
+    worker(2)
+    queue_behind_a_held_batch(4, 3, 4)
+    batcher.close()
+    assert results == {i: i for i in range(5)} and calls == [1] * 5
+    assert batcher.inline_batches == 3 and batcher.batches_run == 5
 
 
 def test_mixed_k_values():
@@ -173,8 +369,10 @@ def test_attach_to_vector_index(tmp_path):
 def test_mixed_filtered_and_unfiltered_batch(tmp_path, quantized):
     """Concurrent requests with different predicates share grouped scans
     (kernel 5, or kernel 6 on the int8 tier); each gets what the JAX index
-    serves it alone."""
+    serves it alone.  The scans take 20 ms, so the requests overlap one
+    in flight."""
     rows, index, ref = _indexes(tmp_path, 40, 3, quantized=quantized)
+    slow_scans(index)
     batcher = attach_microbatcher(index, window_s=0.1)
     even = np.arange(40) % 2 == 0
     low = np.arange(40) < 20

@@ -28,6 +28,7 @@ from photo_search_engine_tpu_torch.core.batcher import attach_microbatcher
 from photo_search_engine_tpu_torch.core.vector_index import VectorIndex
 from portbench import manifest, run as portbench_run
 from portbench.tests.helpers import TINY
+from tests.torch_parity import slow_scans
 
 D = 8
 N = 64
@@ -124,21 +125,30 @@ def _covered(intervals, lo, hi):
     return total
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["flat", "filtered"])
-def test_request_and_batch_spans(tmp_path, masked):
+@pytest.mark.parametrize("mode", ["flat", "filtered", "inline"])
+def test_request_and_batch_spans(tmp_path, mode):
     """Every request: a ``batcher.queue`` and a ``batcher.wake`` naming its
-    batch; every batch: one ``batcher.dispatch`` and one ``batcher.execute``
-    naming its requests.  On the flat batched search, every request also
-    has a ``vector_index.search`` root whose queue, wake and
-    ``vector_index.hits`` share its ``req`` and lie inside it, and which
-    they cover with its batch's dispatch and execute to at least 90 % over
-    all requests; every batch an ``embedding_store.scan`` inside its
-    execute.  The filtered path records the batcher's spans alone."""
+    batch; every batch: one ``batcher.dispatch`` and one ``batcher.execute``,
+    a root, naming its requests and whether it ran inline.  On the flat
+    batched search, every request also has a ``vector_index.search`` root
+    whose queue, wake and ``vector_index.hits`` share its ``req`` and lie
+    inside it, and which they cover with its batch's dispatch and execute
+    to at least 90 % over all requests; every batch an
+    ``embedding_store.scan`` inside its execute.  The filtered path records
+    the batcher's spans alone.  Flat and filtered send requests from four
+    threads at once, on scans slowed to overlap, so the collector cuts
+    batches (``inline=False``) besides the requests that found the batcher
+    idle; inline sends them one at a time, so every batch runs on its
+    caller's thread (``inline=True``) under the caller's open
+    ``vector_index.search``."""
     index = _index(tmp_path)
+    if mode != "inline":
+        slow_scans(index, 0.005)
     batcher = attach_microbatcher(index, window_s=0.003)
     tracing.clear()
     with _profiling():
-        sent = _serve(index, masked)
+        threads, each = (1, 24) if mode == "inline" else (4, 6)
+        sent = _serve(index, mode == "filtered", threads, each)
     batcher.close()
     spans = _by_name(tracing.spans())
     dispatch = {s[4]: s for s in spans["batcher.dispatch"]}
@@ -146,16 +156,25 @@ def test_request_and_batch_spans(tmp_path, masked):
     assert len(dispatch) == len(spans["batcher.dispatch"]) == len(execute) == batcher.batches_run
     assert all(e[1] == e[4] and e[2] is None and d[5] <= d[6] <= e[5] for d, e in
                ((dispatch[b], execute[b]) for b in execute))
+    inline = [e[7]["inline"] for e in execute.values()]
+    assert all(isinstance(i, bool) for i in inline) and sum(inline) == batcher.inline_batches
+    assert all(len(e[7]["reqs"]) == 1 for e in execute.values() if e[7]["inline"])
+    if mode == "inline":
+        assert all(inline) and batcher.batches_run == sent
+    else:
+        assert any(inline) and not all(inline), inline
     for name in ("batcher.queue", "batcher.wake"):
         assert len(spans[name]) == sent and all(s[4] in execute for s in spans[name]), name
     served = [r for e in execute.values() for r in e[7]["reqs"]]
     assert sorted(served, key=str) == sorted((s[3] for s in spans["batcher.queue"]), key=str)
-    if masked:
+    if mode == "filtered":
         assert set(spans) == {"batcher.queue", "batcher.wake", "batcher.dispatch", "batcher.execute"}
         return
     roots = spans["vector_index.search"]
     assert len(roots) == sent and all(r[2] is None and r[3] == r[1] for r in roots)
-    assert served == sorted(r[1] for r in roots)
+    # each request served once; a request may overtake one that opened its
+    # root earlier but reached the batcher later
+    assert sorted(served) == sorted(r[1] for r in roots)
     by_req = {}
     for name in ("batcher.queue", "batcher.wake", "vector_index.hits"):
         assert len(spans[name]) == sent, name
@@ -275,14 +294,37 @@ def test_scan_event_ms_spans_the_first_to_the_last_device_activity(scans, value)
     assert got == (None if value is None else pytest.approx(value, rel=1e-6))
 
 
-SPAN_METRICS = sorted(m["name"] for m in BOOK["per_layer"] if m["source"] == "program_span")
+@pytest.mark.parametrize("flags, value", [
+    ([True, True, False, True], 75.0),
+    ([None, None], None),
+], ids=["share", "no-attribute"])
+def test_inline_pct_reads_the_share_of_inline_batches(flags, value):
+    """Of the ``batcher.execute`` spans wholly in the window, the share
+    whose ``inline`` is True; a batch before the window is left out, and a
+    program that records no ``inline`` attribute gives nothing."""
+    tracing.clear()
+    for i, flag in enumerate(flags):
+        attrs = {"reqs": [i]} if flag is None else {"reqs": [i], "inline": flag}
+        tracing.record("batcher.execute", _ns(1000.1 + 0.1 * i), _ns(1000.15 + 0.1 * i), batch=i, **attrs)
+    tracing.record("batcher.execute", _ns(999.0), _ns(999.1), batch=99, reqs=[99], inline=False)
+    got = manifest.reader("inline_pct").read(_run_with())
+    tracing.clear()
+    assert got == (None if value is None else pytest.approx(value))
+
+
+SPAN_METRICS = {m["name"]: m["unit"] for m in BOOK["per_layer"] if m["source"] == "program_span"}
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BOOK["workloads"]])
 def test_traced_cpu_run_reports_the_span_metrics(cell):
+    """Every ``program_span`` metric is reported: a time is above 0, and a
+    share (``%``) lies in [0, 100], where 0 is a reading too (on a loaded
+    host a backlog can keep the micro-batcher busy all through the window,
+    so that no batch runs inline)."""
     assert SPAN_METRICS
     result = portbench_run.run_cell(cell, SEED, 0.5, True, device="cpu", overrides=TINY, log=lambda _: None)
     assert result["correct"], result["compared"]
-    for name in SPAN_METRICS:
+    for name, unit in sorted(SPAN_METRICS.items()):
         value = result["metrics"][name]["value"]
-        assert value is not None and math.isfinite(value) and value > 0, (name, value)
+        assert value is not None and math.isfinite(value), (name, value)
+        assert 0 <= value <= 100 if unit == "%" else value > 0, (name, value)

@@ -24,6 +24,20 @@ def unit_rows(rng, n, d):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
+def slow_scans(index, seconds=0.02):
+    """Make each batched scan of ``index`` (the micro-batcher's unfiltered
+    and grouped calls) take ``seconds`` longer, as a scan of a large corpus
+    on the card does, so that requests sent together arrive while one is in
+    flight and queue for the micro-batcher's collector instead of each
+    finding it idle."""
+    for name in ("raw_search_batch", "raw_grouped_search_batch"):
+        def slow(*args, _scan=getattr(index, name), **kwargs):
+            time.sleep(seconds)
+            return _scan(*args, **kwargs)
+
+        setattr(index, name, slow)
+
+
 def as_bf16_values(x):
     """float32 array holding ``x`` rounded to bfloat16 (exact in f32), so
     both packages start from the same bf16 values."""

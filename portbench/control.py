@@ -53,21 +53,27 @@ def readings(workload: str, seeds, seconds: float, *, device=None, overrides=Non
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        program = run.reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k)
+        program = run.reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k, root)
         corpus_rows = corpus.make_rows(cfg, seed, dev, digest[1])
         true_rows = corpus_rows[torch.from_numpy(rows).to(dev)].float().cpu().numpy()
-        c_ids, c_dists = reference.answer(cfg["control"], corpus_rows, reference.normalize_queries(true_rows), k)
-        control = reference.judge(cfg["reference"], corpus_rows, rows, true_rows, c_ids.cpu().numpy(),
-                                  c_dists.cpu().numpy(), k)
-        line = {"seed": seed, "checked": int(len(rows)), "failed": failed, "program": program, "control": control}
+        line = {"seed": seed, "checked": int(len(rows)), "failed": failed, "program": program,
+                "control": judged(cfg, cfg["control"], corpus_rows, rows, true_rows, k, root)}
         for fault in cfg.get("faults", []):
-            f_ids, f_dists = reference.answer(fault, corpus_rows, reference.normalize_queries(true_rows), k)
-            line.setdefault("faults", []).append({"what": fault["what"], "readings": reference.judge(
-                cfg["reference"], corpus_rows, rows, true_rows, f_ids.cpu().numpy(), f_dists.cpu().numpy(), k)})
+            line.setdefault("faults", []).append(
+                {"what": fault["what"], "readings": judged(cfg, fault, corpus_rows, rows, true_rows, k, root)})
         del corpus_rows
         log(json.dumps(line))
         out.append(line)
     return out
+
+
+def judged(cfg, spec, corpus_rows, rows, true_rows, k, root):
+    """The reference's numbers for the answers of the kind that ``spec``
+    names, put in the program's place for the same sampled requests."""
+    queries = reference.normalize_queries(true_rows)
+    ids, dists = manifest.judge(spec["kind"], root).answer(spec, corpus_rows, queries, k)
+    return reference.judge(cfg["reference"], corpus_rows, rows, true_rows, ids.cpu().numpy(), dists.cpu().numpy(), k,
+                           root)
 
 
 def summary(lines):

@@ -1,5 +1,6 @@
 """Find what ``BENCHMARK.json`` names: each cell's configuration, traffic
-mix, work count and per-layer metric readers, every one a file of its own
+mix, request shape, work count, judge kinds and per-layer metric readers,
+every one a file of its own
 looked up by its name, so that a new cell, mix or metric is a new file
 and a new manifest entry, never an edit."""
 
@@ -68,6 +69,13 @@ def request(name: str, root: str = ROOT) -> ModuleType:
 def reader(name: str, root: str = ROOT) -> ModuleType:
     """``portbench/metrics/<name>.py``: ``read(run) -> float | None``."""
     return _module(os.path.join(root, HERE, "metrics", f"{name}.py"), f"portbench_metric_{name}")
+
+
+def judge(name: str, root: str = ROOT) -> ModuleType:
+    """``portbench/judges/<name>.py``: one kind of answer that a
+    configuration's ``reference``, ``control`` or ``faults`` names:
+    ``answer(...)`` and optionally ``numbers(...)`` (``reference.py``)."""
+    return _module(os.path.join(root, HERE, "judges", f"{name}.py"), f"portbench_judge_{name}")
 
 
 def metrics(manifest: Dict[str, Any], workload: str, trace: bool) -> List[Dict[str, Any]]:

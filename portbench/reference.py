@@ -6,27 +6,30 @@ program made: it gets the benchmark's own rows (made again from the seed
 once the program is gone), the row each sampled request asked about, and
 the program's answers, which it only judges.
 
-The semantics it holds the program to (a configuration's ``reference``
-block names the kind):
+The semantics every kind shares:
 
 * ``cosine`` over rows normalized at ingest: a query is its library row,
   normalized in float32 (``normalize_queries``); its score against a row
   is the inner product of the query cast to the rows' dtype with the
   stored row, worked out here in float64 (``exact_scores``).
-* ``exact``: the k rows of the highest score (``exact_topk``).
-* ``int8_tier``: the int8 tier with exact rescore (Qdrant's scalar
-  quantization with rescoring; the port's ``STORE_QUANTIZED=1``): rows and
-  the query quantized per row to ``levels`` (absmax·(1/levels), rounded
-  half to even, clipped), quantized scores float32(int dot)·q_scale·row_scale,
-  each block of ``block_rows`` rows keeps its ``kloc`` best, the ``pool``
-  best of those are rescored exactly and the k best of the pool returned,
-  ties to the smallest row (``int8_tier``).
-* ``int8_scan`` (a control): the k rows of the highest quantized score,
-  reported with their quantized scores, no rescore.
+* per-row absmax quantization to ``±levels`` (``quantize``) and the
+  quantized score float32(int dot)·q_scale·row_scale
+  (``quantized_scores``), for the int8 kinds.
+
+Each kind of answer (a configuration's ``reference``, ``control`` and
+``faults`` blocks name one under ``kind``) is a file of its own,
+``portbench/judges/<kind>.py``, found by its name (``manifest.judge``).
+It gives ``answer(spec, corpus, queries, k) -> (ids [S, k], reported
+distances [S, k] float64)`` for normalized float32 ``queries``, and may
+give ``numbers(spec, corpus, queries, served_ids, served_dists, k) ->
+{name: float}`` (the served answers as tensors on the corpus's device,
+int64 ids with -1 where a hit is missing, float64 distances): numbers of
+its own beside the common four, each held by a limit of the
+configuration like them.  A kind file imports nothing of
+the program and nothing of JAX; it may import this module.
 
 ``judge`` turns the program's answers into the numbers ``correct`` is
-decided on; ``answer`` gives the reference's (or a control's) answer to
-the same queries.
+decided on.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from portbench import manifest
 
 CHUNK_ROWS = 65536  # rows scored at once (a multiple of every block size used)
 QUERY_CHUNK = 128  # queries whose gathered rows are widened at once
@@ -46,7 +51,7 @@ def normalize_queries(rows_f32: np.ndarray) -> np.ndarray:
     return np.where(norms > 0, rows_f32 / np.maximum(norms, 1e-30), rows_f32).astype(np.float32)
 
 
-def _operand(queries: np.ndarray, corpus: torch.Tensor) -> torch.Tensor:
+def operand(queries: np.ndarray, corpus: torch.Tensor) -> torch.Tensor:
     """The queries as the scan multiplies them: cast to the rows' dtype,
     held in float64."""
     return torch.from_numpy(queries).to(corpus.device).to(corpus.dtype).double()
@@ -64,30 +69,25 @@ def exact_scores(corpus: torch.Tensor, q_op: torch.Tensor, ids: torch.Tensor) ->
     return out
 
 
-def _stable_top(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def stable_top(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties to the smallest position."""
     vals, pos = torch.sort(values, dim=-1, descending=True, stable=True)
     return vals[..., :k], pos[..., :k]
 
 
-def _chunked_top(score_rows, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def chunked_top(score_rows, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over rows ``[0, n)`` of ``score_rows(start, stop)``, ties to the
     smallest row: each chunk's top-k, merged with the earlier rows first."""
     best_v = best_i = None
     for start in range(0, n, CHUNK_ROWS):
         stop = min(n, start + CHUNK_ROWS)
-        vals, pos = _stable_top(score_rows(start, stop), min(k, stop - start))
+        vals, pos = stable_top(score_rows(start, stop), min(k, stop - start))
         ids = pos + start
         if best_v is not None:
-            vals, pos = _stable_top(torch.cat([best_v, vals], dim=1), k)
+            vals, pos = stable_top(torch.cat([best_v, vals], dim=1), k)
             ids = torch.gather(torch.cat([best_i, ids], dim=1), 1, pos)
         best_v, best_i = vals, ids
     return best_v, best_i
-
-
-def exact_topk(corpus: torch.Tensor, q_op: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k best rows by float64 score: ``(scores, ids)``."""
-    return _chunked_top(lambda a, b: q_op @ corpus[a:b].double().T, corpus.shape[0], k)
 
 
 def quantize(x: torch.Tensor, levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,68 +99,16 @@ def quantize(x: torch.Tensor, levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale[:, 0]
 
 
-def _quantized_scores(qq: torch.Tensor, qs: torch.Tensor, corpus: torch.Tensor, start: int, stop: int,
-                      levels: int) -> torch.Tensor:
+def quantized_scores(qq: torch.Tensor, qs: torch.Tensor, corpus: torch.Tensor, start: int, stop: int,
+                     levels: int) -> torch.Tensor:
     """float32(exact integer dot) · query scale · row scale for rows ``[start, stop)``."""
     rq, rs = quantize(corpus[start:stop], levels)
     acc = (qq.double() @ rq.double().T).float()
     return acc * qs[:, None] * rs[None, :]
 
 
-def int8_scan(corpus: torch.Tensor, queries: np.ndarray, k: int, levels: int):
-    """The k rows of the highest quantized score and those scores."""
-    qq, qs = quantize(torch.from_numpy(queries).to(corpus.device), levels)
-    vals, ids = _chunked_top(lambda a, b: _quantized_scores(qq, qs, corpus, a, b, levels), corpus.shape[0], k)
-    return ids, vals.double()
-
-
-def int8_tier(corpus: torch.Tensor, queries: np.ndarray, k: int, *, levels: int, block_rows: int,
-              kloc: int, pool: int) -> torch.Tensor:
-    """Row ids ``[S, k]`` of the int8 tier with exact rescore (module
-    docstring), in its order."""
-    if CHUNK_ROWS % block_rows:
-        raise ValueError(f"block_rows {block_rows} must divide {CHUNK_ROWS}")
-    dev, n = corpus.device, corpus.shape[0]
-    qq, qs = quantize(torch.from_numpy(queries).to(dev), levels)
-    part_v, part_i = [], []
-    for start in range(0, n, CHUNK_ROWS):
-        stop = min(n, start + CHUNK_ROWS)
-        blocks = -(-(stop - start) // block_rows)
-        scores = torch.nn.functional.pad(
-            _quantized_scores(qq, qs, corpus, start, stop, levels),
-            (0, blocks * block_rows - (stop - start)), value=float("-inf"),
-        ).view(qq.shape[0], blocks, block_rows)
-        vals, pos = _stable_top(scores, min(kloc, block_rows))
-        first = start + block_rows * torch.arange(blocks, device=dev)[None, :, None]
-        part_v.append(vals.flatten(1))
-        part_i.append((pos + first).flatten(1))
-    cand_v, pos = _stable_top(torch.cat(part_v, dim=1), pool)
-    cand_i = torch.gather(torch.cat(part_i, dim=1), 1, pos)
-    exact = exact_scores(corpus, _operand(queries, corpus), cand_i)
-    exact = torch.where(torch.isneginf(cand_v) | (cand_i >= n), float("-inf"), exact)
-    _, order = _stable_top(exact, k)
-    return torch.gather(cand_i, 1, order)
-
-
-def answer(spec: Dict, corpus: torch.Tensor, queries: np.ndarray, k: int):
-    """``(ids [S, k], distances it reports [S, k] float64)`` of the
-    reference (or control) that ``spec`` names, for normalized float32
-    ``queries``."""
-    kind = spec["kind"]
-    if kind == "exact":
-        scores, ids = exact_topk(corpus, _operand(queries, corpus), k)
-        return ids, scores
-    if kind == "int8_scan":
-        return int8_scan(corpus, queries, k, int(spec["levels"]))
-    if kind == "int8_tier":
-        ids = int8_tier(corpus, queries, k, levels=int(spec["levels"]), block_rows=int(spec["block_rows"]),
-                        kloc=int(spec["kloc"]), pool=int(spec["pool"]))
-        return ids, exact_scores(corpus, _operand(queries, corpus), ids)
-    raise ValueError(f"unknown reference kind {kind!r}")
-
-
 def judge(spec: Dict, corpus: torch.Tensor, query_rows: np.ndarray, readback: np.ndarray,
-          served_ids: np.ndarray, served_dists: np.ndarray, k: int) -> Dict[str, float]:
+          served_ids: np.ndarray, served_dists: np.ndarray, k: int, root: str) -> Dict[str, float]:
     """The numbers ``correct`` is decided on, for the sampled requests:
 
     * ``readback_err``: the widest gap between the query row the program
@@ -170,9 +118,12 @@ def judge(spec: Dict, corpus: torch.Tensor, query_rows: np.ndarray, readback: np
     * ``dist_err``: the widest gap between a served distance and the
       reference score of the row it names;
     * ``rank_gap``: the widest amount by which the reference score of the
-      j-th served row lies below the j-th of the reference's own answer
-      (``spec``), over the lists with no bad hit.
+      j-th served row lies below the j-th of the answer of the kind that
+      ``spec`` names, over the lists with no bad hit;
+    * and the kind's own ``numbers``, where it gives any.
+    The kind is ``portbench/judges/<kind>.py`` of the checkout at ``root``.
     ``served_ids`` ``[S, k]`` holds -1 where a hit is missing."""
+    kind = manifest.judge(spec["kind"], root)
     n, dev = corpus.shape[0], corpus.device
     rows_f32 = corpus[torch.from_numpy(query_rows).to(dev)].float().cpu().numpy()
     readback_err = float(np.max(np.abs(readback - rows_f32))) if len(query_rows) else float("nan")
@@ -182,15 +133,21 @@ def judge(spec: Dict, corpus: torch.Tensor, query_rows: np.ndarray, readback: np
     ranked = torch.sort(torch.where(invalid, -1 - torch.arange(k, device=dev), ids), dim=1).values
     repeated = torch.zeros_like(invalid)
     repeated[:, 1:] = ranked[:, 1:] == ranked[:, :-1]
-    scores = exact_scores(corpus, _operand(queries, corpus), ids)
+    scores = exact_scores(corpus, operand(queries, corpus), ids)
     dists = torch.from_numpy(served_dists).to(dev)
     dist_err = torch.where(invalid, 0.0, (dists - scores).abs())
-    _, ref_scores = answer(spec, corpus, queries, k)
+    _, ref_scores = kind.answer(spec, corpus, queries, k)
     clean = ~(invalid.any(dim=1) | repeated.any(dim=1))
     gaps = (ref_scores - scores)[clean]
-    return {
+    numbers = {
         "readback_err": readback_err,
         "bad_hits": int(invalid.sum() + repeated.sum()),
         "dist_err": float(dist_err.max()) if dist_err.numel() else float("nan"),
         "rank_gap": float(gaps.max()) if gaps.numel() else float("nan"),
     }
+    if hasattr(kind, "numbers"):
+        extra = kind.numbers(spec, corpus, queries, ids, dists, k)
+        if set(extra) & set(numbers):  # a kind adds numbers; it never replaces a common one
+            raise ValueError(f"judge kind {spec['kind']!r} returns {sorted(set(extra) & set(numbers))}")
+        numbers.update(extra)
+    return numbers

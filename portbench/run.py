@@ -10,7 +10,8 @@ for.  What a run does:
    does; later runs find them under ``photo_search_engine_tpu_torch/
    _build/``), make the configuration's rows on the card from the seed
    (``corpus.py``), install them with the library's metadata in a
-   ``VectorIndex`` with the micro-batcher attached as the app attaches it
+   ``VectorIndex`` built with the configuration's index options and the
+   micro-batcher attached as the app builds and attaches them
    (``api/app.py initialize_services``), search once at every batch size
    the mix can form, then run the mix's workers for its ``warmup_s``.
 2. The window: the mix's workers (threads of this process, as the WSGI
@@ -98,7 +99,10 @@ def power_limit() -> str:
 def build(cfg: Dict, seed: int, device, metas: List[Dict]):
     """The vector-search service of one seed's library: ``(index, batcher,
     (rows checksum, rows dtype))``.  The rows are handed over and not
-    kept."""
+    kept.  The configuration's optional ``ivf`` block (``nlist``,
+    ``nprobe``, ``target_recall``) reaches the index as ``IVF_NLIST``,
+    ``IVF_NPROBE`` and ``IVF_TARGET_RECALL`` do in the app; a key it leaves
+    out keeps the app's default."""
     import torch
 
     from photo_search_engine_tpu_torch.core.batcher import attach_microbatcher
@@ -118,6 +122,7 @@ def build(cfg: Dict, seed: int, device, metas: List[Dict]):
         store_dtype=cfg["store_dtype"],
         quantized=cfg["quantized"],
         device=device,
+        **{f"ivf_{key}": value for key, value in cfg.get("ivf", {}).items()},
     )
     index.load_device_rows(rows, metas)
     del rows
@@ -134,6 +139,13 @@ def wrap_store(index, wrapper: Callable) -> None:
     """Put ``wrapper(original_search)`` in place of the live store's search."""
     store = index._store
     store.search = wrapper(store.search)
+
+
+def wrap_route(index, wrapper: Callable) -> None:
+    """Put ``wrapper(original)`` in place of the index's routing point,
+    ``VectorIndex._route_search(queries, k, mask) -> (distances, row ids)``,
+    where every route's answer passes (the flat store, the int8 tier, IVF)."""
+    index._route_search = wrapper(index._route_search)
 
 
 def schedule(mix: Dict, seed: int, seconds: float, rows: int) -> SimpleNamespace:
@@ -282,12 +294,13 @@ def _finite(value):
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: Optional[str] = None,
              root: str = manifest.ROOT, overrides: Optional[Dict] = None,
-             store_fault: Optional[Callable] = None, log: Callable = print) -> Dict:
+             route_fault: Optional[Callable] = None, log: Callable = print) -> Dict:
     """One run of ``workload``; returns the result line's object with the
     numbers compared under ``compared``.  ``device`` ``"cpu"``,
     ``overrides`` (configuration keys, such as a smaller ``rows``) and
-    ``store_fault`` (a wrapper put around the live store's search) exist
-    for the CPU tests; the command line runs on the card as configured."""
+    ``route_fault`` (a wrapper put around the index's routing point,
+    :func:`wrap_route`) exist for the CPU tests; the command line runs on
+    the card as configured."""
     import torch
 
     from photo_search_engine_tpu_torch.device import resolve_device
@@ -307,12 +320,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: O
     log(f"[setup] {workload}: {cfg['rows']} x {cfg['dim']} {cfg['index_type']} quantized={cfg['quantized']}, "
         f"{mix['request']} requests at {mix['rate']} req/s to {mix['workers']} workers, k {mix['k']}, seed {seed}, {seconds} s, trace {int(trace)}")
     k, n, dim = int(mix["k"]), int(cfg["rows"]), int(cfg["dim"])
+    manifest.judge(cfg["reference"]["kind"], root)  # an unknown kind fails before the set-up, not after the window
     paths = corpus.library_paths(n)
     metas = corpus.metadata(paths)
     index, batcher, digest = build(cfg, seed, dev, metas)
     del metas
-    if store_fault is not None:
-        wrap_store(index, store_fault)
+    if route_fault is not None:
+        wrap_route(index, route_fault)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()  # the serving peak, not the install's transient copy
@@ -361,8 +375,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: O
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    check = reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k)
+    check = reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k, root)
     limits = cfg["limits"]
+    if set(check) != set(limits):
+        raise KeyError(f"the numbers compared {sorted(check)} and the configuration's limits {sorted(limits)} differ")
     compared = {name: {"value": _finite(value), "limit": limits[name]} for name, value in check.items()}
     passed = all(v["value"] is not None and v["value"] <= v["limit"] for v in compared.values())
     correct = bool(passed and counts.failed == 0 and len(rows) > 0)
@@ -387,14 +403,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: O
     return result
 
 
-def reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k) -> Dict[str, float]:
+def reference_numbers(cfg, seed, dev, digest, rows, readback, ids, dists, k, root) -> Dict[str, float]:
     """The reference's judgement of the sampled answers, on the rows made
-    again from the seed; ``regen_mismatch`` is 1 when those rows are not
-    the ones the program served (``digest`` from :func:`build`)."""
+    again from the seed, by the judge kinds of the checkout at ``root``;
+    ``regen_mismatch`` is 1 when those rows are not the ones the program
+    served (``digest`` from :func:`build`)."""
     checksum, dtype = digest
     corpus_rows = corpus.make_rows(cfg, seed, dev, dtype)
     numbers = {"regen_mismatch": float(corpus.checksum(corpus_rows) != checksum)}
-    numbers.update(reference.judge(cfg["reference"], corpus_rows, rows, readback, ids, dists, k))
+    numbers.update(reference.judge(cfg["reference"], corpus_rows, rows, readback, ids, dists, k, root))
     return numbers
 
 

@@ -34,10 +34,34 @@ def test_no_jax_import(path):
         assert not imported(f.read()) & FORBIDDEN
 
 
-def test_reference_imports_nothing_of_the_program():
-    with open(os.path.join(manifest.ROOT, "portbench", "reference.py"), encoding="utf-8") as f:
-        names = imported(f.read())
-    assert names <= {"__future__", "typing", "numpy", "torch"}, names
+JUDGES = [os.path.join(manifest.ROOT, "portbench", "reference.py")] + sorted(
+    glob.glob(os.path.join(manifest.ROOT, "portbench", "judges", "*.py")))
+
+
+def imported_from(source: str):
+    """Every module the source imports, by its whole dotted name (``from a
+    import b`` gives ``a.b``)."""
+    names = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.update(f"{node.module}.{alias.name}" if node.module == "portbench" else node.module
+                         for alias in node.names)
+    return names
+
+
+def test_the_judge_kinds_exist():
+    assert {os.path.basename(p) for p in JUDGES} >= {"reference.py", "exact.py", "int8_scan.py", "int8_tier.py"}
+
+
+@pytest.mark.parametrize("path", JUDGES, ids=lambda p: os.path.relpath(p, manifest.ROOT))
+def test_reference_imports_nothing_of_the_program(path):
+    """The reference and every judge kind import the standard typing, NumPy,
+    PyTorch and, of the harness, only the reference and the manifest."""
+    with open(path, encoding="utf-8") as f:
+        names = imported_from(f.read())
+    assert names <= {"__future__", "typing", "numpy", "torch", "portbench.reference", "portbench.manifest"}, names
 
 
 @pytest.mark.parametrize("source, found", [

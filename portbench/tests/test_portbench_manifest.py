@@ -86,3 +86,5 @@ def test_config_files(entry):
     assert cfg["reduced"] == entry["reduced"] == []
     assert cfg["rows"] == 5_000_000 and cfg["dim"] == 1536 and cfg["metric"] == "cosine"
     assert set(cfg["limits"]) == {"regen_mismatch", "readback_err", "bad_hits", "dist_err", "rank_gap"}
+    for spec in [cfg["reference"], cfg["control"], *cfg.get("faults", [])]:
+        assert callable(manifest.judge(spec["kind"]).answer), spec

@@ -1,6 +1,8 @@
 """A run end to end on the CPU at a small size: the result line the
 contract asks for, ``correct`` true for the program, false for each fault
-of the timed path and for each configuration's control."""
+of the timed path and for each configuration's control.  The faults are
+planted at the index's routing point, where every route's answer passes,
+so they reach the flat store, the int8 tier and an IVF index alike."""
 
 import json
 
@@ -8,7 +10,7 @@ import numpy as np
 import pytest
 
 from portbench import control, manifest, run
-from portbench.tests.helpers import TINY, assert_result_shape, checkout_copy, small_mix
+from portbench.tests.helpers import IVF, TINY, add_config, assert_result_shape, checkout_copy, small_mix
 
 BOOK = manifest.load()
 SEED = 2 ** 31 + 12345  # more than 32 signed bits hold
@@ -22,9 +24,14 @@ def quiet(_line):
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     """A checkout copy with a small dense mix (every answer checked) on each
-    configuration."""
-    return checkout_copy(tmp_path_factory.mktemp("root"),
-                         [(f"test.{name}", name, small_mix()) for name in CONFIGS])
+    configuration, and on a throwaway IVF configuration added as a file.  At
+    1000 req/s requests overlap and batches form: a lone request runs alone,
+    and half of a batch of one leaves nothing out."""
+    mix = small_mix(rate=1000)
+    root = checkout_copy(tmp_path_factory.mktemp("root"),
+                         [(f"test.{name}", name, mix) for name in CONFIGS + ["throwaway-ivf"]])
+    add_config(root, "throwaway-ivf", **IVF)
+    return root
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BOOK["workloads"]])
@@ -42,48 +49,55 @@ def test_each_cell_runs_and_is_correct(cell, trace, capsys):
     assert err.strip().splitlines()[-len(result["compared"]):][0].startswith("compared ")
 
 
-def altered_ids(search):
+def altered_ids(route):
     """An answer altered where it is produced: each list's best row is swapped
     for the next row of the library."""
-    def call(queries, k, **kw):
-        d, i = search(queries, k, **kw)
+    def call(queries, k, mask=None):
+        d, i = route(queries, k, mask)
         i = i.copy()
         i[:, 0] = (i[:, 0] + 1) % TINY["rows"]
         return d, i
     return call
 
 
-def half_left_out(search):
+def half_left_out(route):
     """Half of the batch left out: the second half's queries get the first
     half's answers."""
-    def call(queries, k, **kw):
+    def call(queries, k, mask=None):
         queries = np.atleast_2d(queries)
         half = (len(queries) + 1) // 2
-        d, i = search(queries[:half], k, **kw)
+        d, i = route(queries[:half], k, mask)
         pick = np.arange(len(queries)) % half
         return d[pick], i[pick]
     return call
 
 
-def stale_readback(search):
+def stale_readback(route):
     """The distances of the previous call served again (a step that returns
     its state unchanged)."""
     last = {}
 
-    def call(queries, k, **kw):
-        d, i = search(queries, k, **kw)
+    def call(queries, k, mask=None):
+        d, i = route(queries, k, mask)
         prev = last.get(d.shape, d)
         last[d.shape] = d
         return prev, i
     return call
 
 
-@pytest.mark.parametrize("config", CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS + ["throwaway-ivf"])
 @pytest.mark.parametrize("fault", [altered_ids, half_left_out, stale_readback])
 def test_a_fault_of_the_timed_path_is_not_correct(root, config, fault):
     result = run.run_cell(f"test.{config}", SEED, 1.0, False, device="cpu", root=root, overrides=TINY,
-                          store_fault=fault, log=quiet)
+                          route_fault=fault, log=quiet)
     assert not result["correct"], result["compared"]
+
+
+@pytest.mark.parametrize("config", CONFIGS + ["throwaway-ivf"])
+def test_the_routed_path_without_a_fault_is_correct(root, config):
+    result = run.run_cell(f"test.{config}", SEED, 1.0, False, device="cpu", root=root, overrides=TINY,
+                          route_fault=lambda route: route, log=quiet)
+    assert result["correct"], result["compared"]
 
 
 @pytest.mark.parametrize("config", CONFIGS)

@@ -341,8 +341,19 @@ class EmbeddingStore:
         return self._host[: self._count].copy()
 
     def snapshot_range(self, start: int, stop: int) -> np.ndarray:
+        """Float32 host copy of rows ``[start, stop)``.  Without a host
+        mirror (after ``load_device_rows``) only the range is read from the
+        device: the same values as the mirror's, which is the same download."""
         stop = min(stop, self._count)
+        if self._host_cache is None:
+            return self._device[start:stop].float().cpu().numpy()
         return self._host[start:stop].copy()
+
+    def live_rows(self) -> Optional[torch.Tensor]:
+        """The live rows ``[count, D]`` in the store dtype on the device: a
+        view of the store tensor, not a copy (None while the store is
+        empty).  Callers read it and never write to it."""
+        return None if self._device is None else self._device[: self._count]
 
     def clear(self) -> None:
         self._count = 0

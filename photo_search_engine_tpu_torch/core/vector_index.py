@@ -32,6 +32,7 @@ import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
 from photo_search_engine_tpu_torch.core.mesh_store import MeshEmbeddingStore, MeshIVFAdapter
@@ -205,15 +206,17 @@ class VectorIndex:
                 self._persist_ivf_if_fresh(count)
                 return self._ivf
         nlist = max(1, min(self.ivf_nlist, count // 8 or 1))
-        snapshot = self._store.snapshot()
         if self.mesh_devices:
             # a mesh store builds the IVF on the mesh (per-shard layouts,
             # kernel 7 on every shard, the gathered merge)
             self._ivf = MeshIVFAdapter(self._store, nlist)
         else:
-            self._ivf = IVFIndex.build(
-                snapshot, nlist=nlist, metric="ip" if self.metric == "cosine" else self.metric,
-                store_dtype=self.store_dtype, quantized=self.quantized, device=self.device,
+            # from the store's own rows on the device: no host copy of the
+            # corpus and no second copy on the device (the rows upcast are
+            # the host mirror's values where the mirror was downloaded)
+            self._ivf = IVFIndex.build_on_device(
+                self._store.live_rows(), nlist=nlist, metric="ip" if self.metric == "cosine" else self.metric,
+                quantized=self.quantized,
             )
         self._ivf_built_at = count
         self._ivf_trained_at = count
@@ -222,7 +225,7 @@ class VectorIndex:
             # probed and the full-probe side: what it measures is the
             # cluster-pruning loss alone
             rng = np.random.default_rng(0)
-            sample = snapshot[rng.choice(count, size=min(128, count), replace=False)]
+            sample = self._stored_rows(rng.choice(count, size=min(128, count), replace=False))
             if self.metric == "cosine":
                 sample = sample / np.maximum(np.linalg.norm(sample, axis=1, keepdims=True), 1e-30)
             nprobe, achieved = self._ivf.tune_nprobe(sample, k=10, target_recall=self.ivf_target_recall)
@@ -242,6 +245,14 @@ class VectorIndex:
             )
         self._persist_ivf_if_fresh(count)
         return self._ivf
+
+    def _stored_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Float32 host copies of the stored rows ``ids``: read from the
+        device on one device, from the host copy on a mesh."""
+        if self.mesh_devices:
+            return self._store.snapshot()[ids]
+        rows = self._store.live_rows()
+        return rows[torch.from_numpy(np.asarray(ids, np.int64)).to(rows.device)].float().cpu().numpy()
 
     def _heldout_recall(self, sample: np.ndarray, nprobe: int, rng) -> float:
         """Recall@10 of ``nprobe`` on perturbed sample rows against their

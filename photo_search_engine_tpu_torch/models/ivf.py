@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from photo_search_engine_tpu_torch import tracing
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import ivf_scan
@@ -315,6 +316,13 @@ class IVFIndex:
     def _fill_from_perm(self) -> np.ndarray:
         return (self.perm.reshape(self.nlist, self.capacity) >= 0).sum(axis=1)
 
+    @property
+    def live_count(self) -> int:
+        """Live slots of the layout, ``(perm >= 0).sum()``, from the
+        per-list fill that construction and :meth:`append` keep (a sum over
+        ``nlist`` counts, not a pass over ``perm``)."""
+        return int(self._fill.sum())
+
     def _ensure_quantized(self) -> None:
         """The int8 shadow of the layout, built lazily in chunks."""
         if self._corpus_i8 is not None:
@@ -468,18 +476,20 @@ class IVFIndex:
         m = vectors.shape[0]
         if m == 0:
             return True
-        if int(self._fill.sum()) + m > self.nlist * self.capacity:
+        if self.live_count + m > self.nlist * self.capacity:
             return False
         ranked = assign_clusters(vectors, self.centroids, device=self.device)
         slots = np.empty(m, np.int64)
+        fill = self._fill.copy()  # kept only if every row finds a slot
         for r in range(m):
-            target = next((int(c) for c in ranked[r] if self._fill[c] < self.capacity), -1)
+            target = next((int(c) for c in ranked[r] if fill[c] < self.capacity), -1)
             if target < 0:
-                target = int(np.argmin(self._fill))
-                if self._fill[target] >= self.capacity:
+                target = int(np.argmin(fill))
+                if fill[target] >= self.capacity:
                     return False
-            slots[r] = target * self.capacity + self._fill[target]
-            self._fill[target] += 1
+            slots[r] = target * self.capacity + fill[target]
+            fill[target] += 1
+        self._fill = fill
         self.perm[slots] = row_ids
         slots_dev = torch.from_numpy(slots).to(self.device)
         # an in-place index_copy_ stands in for the JAX package's donated
@@ -498,7 +508,7 @@ class IVFIndex:
         against the full-probe result reaches ``target_recall``; returns
         ``(nprobe, achieved recall)``."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
-        k = max(1, min(k, int((self.perm >= 0).sum())))
+        k = max(1, min(k, self.live_count))
         return tune_nprobe_by_doubling(
             lambda nprobe: self.search(queries, k, nprobe=nprobe)[1], self.nlist, target_recall,
             start_nprobe=start_nprobe, max_nprobe=max_nprobe,
@@ -565,25 +575,57 @@ class IVFIndex:
         1/selectivity.  The int8 tier (``quantized``) nominates
         ``min(max(2k, 20), 64, L)`` candidates and rescores them exactly;
         k > 64 scans the full-precision layout (JAX leaves its kernel for
-        an exact XLA scan there: the same result)."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        q = queries.shape[0]
-        k = min(k, int((self.perm >= 0).sum()))
-        if k == 0:
-            return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int64)
-        row_valid = self._row_valid
-        if mask is not None:
-            slot_mask, ratio = self._slot_mask(mask)
-            row_valid = row_valid * slot_mask
-            nprobe = self._inflate_nprobe(nprobe, ratio, self.nlist)
-        vals, idx = self._scan(torch.from_numpy(queries).to(self.device), k, nprobe, row_valid)
-        return self._to_rows(vals.cpu().numpy(), idx.cpu().numpy())
+        an exact XLA scan there: the same result).
+
+        While a ``torch.profiler`` session records, the call records the
+        span ``ivf.search`` (``tracing.py``) and, inside it, ``ivf.scan``:
+        the probe, kernel 7, the merge and the download of the results, with
+        what kernel 7 had to do for the call (:meth:`_scan_attrs`)."""
+        with tracing.span("ivf.search"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            q = queries.shape[0]
+            k = min(k, self.live_count)
+            if k == 0:
+                return np.zeros((q, 0), np.float32), np.zeros((q, 0), np.int64)
+            row_valid = self._row_valid
+            if mask is not None:
+                slot_mask, ratio = self._slot_mask(mask)
+                row_valid = row_valid * slot_mask
+                nprobe = self._inflate_nprobe(nprobe, ratio, self.nlist)
+            traced = tracing.on()
+            start = time.perf_counter_ns() if traced else 0
+            vals, idx, probes = self._scan(torch.from_numpy(queries).to(self.device), k, nprobe, row_valid)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            if traced:
+                end = time.perf_counter_ns()
+                up = tracing.current()
+                tracing.record("ivf.scan", start, end, parent=up.id, req=up.req, batch=up.batch,
+                               **self._scan_attrs(probes, k, mask is not None))
+            return self._to_rows(vals, idx)
+
+    def _scan_attrs(self, probes: torch.Tensor, k: int, masked: bool) -> dict:
+        """What kernel 7 had to do for one scan, from the per-list fill and
+        the probe ids (downloaded here, after the results, so only while
+        tracing): ``queries``, ``k``, ``lrows`` (slots a list), ``dim``,
+        ``lists`` (distinct lists probed), ``list_rows`` (their live rows,
+        each counted once), ``pair_rows`` (live rows summed over the
+        (query, list) pairs: the rows scored) and ``masked`` (a filter,
+        which the fill does not see, thinned the rows)."""
+        ids = probes.cpu().numpy().astype(np.int64)
+        ids = ids[(ids >= 0) & (ids < self.nlist)]
+        distinct = np.unique(ids)
+        return {
+            "queries": int(probes.shape[0]), "k": int(k), "lrows": self.capacity, "dim": self.dim,
+            "lists": int(distinct.size), "list_rows": int(self._fill[distinct].sum()),
+            "pair_rows": int(self._fill[ids].sum()), "masked": bool(masked),
+        }
 
     def _scan(self, queries: torch.Tensor, k: int, nprobe: int, row_valid: torch.Tensor):
         """Stages 1 and 2 on the device for ``queries`` on it: kernel-space
-        ``(vals [Q, k], slot ids [Q, k])``, ``-inf`` / ``INT_MAX`` in empty
-        slots; nothing is read back.  The int8 tier runs for ``quantized``
-        and k <= 64 (its shadow is built here on first use)."""
+        ``(vals [Q, k], slot ids [Q, k], probe ids [Q, nprobe])``, ``-inf``
+        / ``INT_MAX`` in empty slots; nothing is read back.  The int8 tier
+        runs for ``quantized`` and k <= 64 (its shadow is built here on
+        first use)."""
         q = queries.shape[0]
         qdev = queries.to(self._corpus.dtype).contiguous()
         probe_ids = self._probe(qdev, nprobe)
@@ -614,7 +656,7 @@ class IVFIndex:
             pad = k - vals.shape[1]
             vals = torch.nn.functional.pad(vals, (0, pad), value=float("-inf"))
             idx = torch.nn.functional.pad(idx, (0, pad), value=_INT_MAX)
-        return vals, idx
+        return vals, idx, probe_ids
 
     # -- device-only search (benchmark / composition surface) -------------
     def device_search_fn(self, k: int, nprobe: int, batch: int):
@@ -630,7 +672,7 @@ class IVFIndex:
         int32 slot ids of the layout (``perm`` maps them to row ids),
         ``-inf`` / ``INT_MAX`` in empty slots, on the device."""
         nprobe = max(1, min(nprobe, self.nlist))
-        k = max(1, min(k, int((self.perm >= 0).sum())))
+        k = max(1, min(k, self.live_count))
         if self.quantized and k <= INT8_MAX_K:
             self._ensure_quantized()
         if self.metric == "l2":
@@ -641,7 +683,7 @@ class IVFIndex:
             if tuple(queries.shape) != shape or queries.device != self.device:
                 raise ValueError(f"device_search_fn: expected {shape} queries on {self.device}, "
                                  f"got {tuple(queries.shape)} on {queries.device}")
-            return self._scan(queries, k, nprobe, self._row_valid)
+            return self._scan(queries, k, nprobe, self._row_valid)[:2]
 
         return fn
 

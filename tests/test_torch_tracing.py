@@ -312,19 +312,21 @@ def test_inline_pct_reads_the_share_of_inline_batches(flags, value):
     assert got == (None if value is None else pytest.approx(value))
 
 
-SPAN_METRICS = {m["name"]: m["unit"] for m in BOOK["per_layer"] if m["source"] == "program_span"}
+def _span_metrics(cell):
+    return {m["name"]: m["unit"] for m in manifest.metrics(BOOK, cell, True) if m["source"] == "program_span"}
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BOOK["workloads"]])
 def test_traced_cpu_run_reports_the_span_metrics(cell):
-    """Every ``program_span`` metric is reported: a time is above 0, and a
-    share (``%``) lies in [0, 100], where 0 is a reading too (on a loaded
-    host a backlog can keep the micro-batcher busy all through the window,
-    so that no batch runs inline)."""
-    assert SPAN_METRICS
+    """Every ``program_span`` metric of the cell is reported: a time is
+    above 0, and a share (``%``) lies in [0, 100], where 0 is a reading too
+    (on a loaded host a backlog can keep the micro-batcher busy all through
+    the window, so that no batch runs inline)."""
+    span_metrics = _span_metrics(cell)
+    assert span_metrics
     result = portbench_run.run_cell(cell, SEED, 0.5, True, device="cpu", overrides=TINY, log=lambda _: None)
     assert result["correct"], result["compared"]
-    for name, unit in sorted(SPAN_METRICS.items()):
+    for name, unit in sorted(span_metrics.items()):
         value = result["metrics"][name]["value"]
         assert value is not None and math.isfinite(value), (name, value)
         assert 0 <= value <= 100 if unit == "%" else value > 0, (name, value)

@@ -19,7 +19,8 @@ Counterpart of ``photo_search_engine_tpu/models/ivf.py``:
   and scans only those (stage 2, kernel 7 in ``ops/ivf_scan.py``).  The
   layout stays full precision by default, so recall is lost to cluster
   pruning only; ``quantized=True`` adds an int8 shadow that nominates
-  candidates for an exact rescore.
+  candidates for an exact rescore.  On a card, an unfiltered search of a
+  few queries replays its scan as one CUDA graph (:func:`replays_graph`).
 
 The layout is gathered on the device from the rows, never laid out on the
 host: the JAX ``build`` holds a float32 ``laid_out`` copy (1.5 × the
@@ -63,6 +64,11 @@ _CHUNK = 131072  # rows per assignment / layout / quantize step
 # Cap on the k-means training subsample (the JAX package's: 64+ samples
 # per list are plenty, and one Lloyd step over 1M rows buys no recall).
 _TRAIN_SAMPLE_CAP = 262_144
+
+# Query counts whose scan replays a CUDA graph: kernel 7's small query
+# group (ops/ivf_scan.IVF_BQ), where enqueueing the scan's ~40 launches
+# takes longer than the kernel.  Larger batches run eager.
+GRAPH_MAX_QUERIES = 8
 
 
 def _round_up(value: int, multiple: int) -> int:
@@ -275,10 +281,54 @@ def _lay_out(rows: torch.Tensor, perm: np.ndarray, quantized: bool) -> torch.Ten
     return out
 
 
+def replays_graph(device, queries: int, masked: bool) -> bool:
+    """Whether :meth:`IVFIndex.search` replays a CUDA graph of its scan: on
+    a CUDA device, with no filter, for at most :data:`GRAPH_MAX_QUERIES`
+    queries.  Any other call runs the scan eagerly."""
+    return torch.device(device).type == "cuda" and not masked and 0 < queries <= GRAPH_MAX_QUERIES
+
+
+class _ScanGraph:
+    """:meth:`IVFIndex._scan` of one ``(q, k, nprobe)``, captured as a CUDA
+    graph (:meth:`IVFIndex._capture`).
+
+    The graph reads float32 queries from ``dev_in`` and leaves ``[q, 2k +
+    nprobe]`` int32 in ``dev_out``: the values' bits, the slot ids and the
+    probe ids, so one download brings all three.  It holds the addresses of
+    the index's tensors, not references, so ``keep`` holds those that
+    :meth:`IVFIndex.append` replaces.  ``lock`` gives the static buffers to
+    one call at a time, from the upload to the results on the host."""
+
+    def __init__(self, graph, dev_in, dev_out, k, keep, counter, loop) -> None:
+        self.graph, self.dev_in, self.dev_out, self.k, self.keep = graph, dev_in, dev_out, k, keep
+        self.counter, self.loop = counter, loop  # the kernel wrapper's launch counts, when it keeps them
+        self.host_in = torch.empty(dev_in.shape, dtype=dev_in.dtype, pin_memory=True)
+        self.host_out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+        self.lock = threading.Lock()
+
+    def run(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(vals, slot ids, probe ids)`` on the host for float32
+        ``[q, D]`` queries: a pinned upload, the replay and one pinned
+        download on the current stream, then one synchronisation."""
+        with self.lock:
+            self.host_in.numpy()[...] = queries
+            self.dev_in.copy_(self.host_in, non_blocking=True)
+            self.graph.replay()
+            self.host_out.copy_(self.dev_out, non_blocking=True)
+            torch.cuda.current_stream(self.dev_in.device).synchronize()
+            out = self.host_out.numpy().copy()
+        if self.counter is not None:
+            self.counter.launches += 1
+            self.counter.launches_by_loop[self.loop] += 1
+        k = self.k
+        return out[:, :k].view(np.float32), out[:, k : 2 * k], out[:, 2 * k :]
+
+
 class IVFIndex:
     """Cluster-pruned exact-scoring index (layout + search) on one device."""
 
     _MASK_LRU_SIZE = 16
+    _GRAPH_LRU_SIZE = 16
 
     def __init__(
         self,
@@ -304,6 +354,7 @@ class IVFIndex:
         dtype = _DTYPES[resolve_store_dtype(store_dtype, self.device)]
         self._corpus = corpus_ivf.to(self.device, dtype).contiguous()
         self._centroids_dev = torch.from_numpy(self.centroids).to(self.device)
+        self._centroid_norms = (self._centroids_dev * self._centroids_dev).sum(dim=1)  # ‖c‖² of the probe
         self._row_valid = torch.from_numpy((self.perm >= 0).astype(np.int8)).to(self.device)
         self._fill = self._fill_from_perm()
         self._cnorms: Optional[torch.Tensor] = None
@@ -311,6 +362,9 @@ class IVFIndex:
         self._cscales: Optional[torch.Tensor] = None
         self._mask_lru: "OrderedDict[Tuple[bytes, int], torch.Tensor]" = OrderedDict()
         self._mask_lru_lock = threading.Lock()
+        # captured scans by (q, k, nprobe, kernel 7's wrapper); None: the capture failed, the shape runs eager
+        self._graphs: "OrderedDict[tuple, Optional[_ScanGraph]]" = OrderedDict()
+        self._graph_lock = threading.Lock()  # the cache, a capture, and append's replacement of what graphs read
         self.build_seconds: Dict[str, float] = {}  # filled by build / build_on_device
 
     def _fill_from_perm(self) -> np.ndarray:
@@ -341,6 +395,23 @@ class IVFIndex:
         if self._cnorms is None:
             self._cnorms = row_sq_norms(self._corpus)
         return self._cnorms
+
+    def _kernel_layout(self, k: int) -> Tuple[torch.Tensor, int]:
+        """The layout kernel 7 scans for a top-``k`` search, and its k: for
+        ``quantized`` and k <= 64 the int8 shadow (built here on first use),
+        which nominates ``min(max(2k, 20), 64, L)`` candidates for the
+        rescore; else the layout itself, at k."""
+        if self.quantized and k <= INT8_MAX_K:
+            self._ensure_quantized()
+            return self._corpus_i8, min(max(2 * k, 20), INT8_MAX_K, self.capacity)
+        return self._corpus, k
+
+    def _prepare_scan(self, k: int) -> Tuple[torch.Tensor, int]:
+        """Build what a top-``k`` scan reads besides the layout (the int8
+        shadow, the l2 norms); returns :meth:`_kernel_layout`."""
+        if self.metric == "l2":
+            self._corpus_norms()
+        return self._kernel_layout(k)
 
     # -- construction ---------------------------------------------------
     @classmethod
@@ -496,9 +567,11 @@ class IVFIndex:
         # scatter: the multi-GB layout is written, not copied
         self._corpus.index_copy_(0, slots_dev, torch.from_numpy(vectors).to(self.device, self._corpus.dtype))
         self._row_valid[slots_dev] = 1
-        self._cnorms = None  # the norm cache and the int8 shadow cover the old rows only
-        self._corpus_i8 = None
-        self._cscales = None
+        with self._graph_lock:  # the norm cache and the int8 shadow cover the old rows only
+            self._cnorms = None
+            self._corpus_i8 = None
+            self._cscales = None
+            self._graphs.clear()  # graphs read the replaced tensors; the next call of a shape recaptures
         return True
 
     # -- nprobe autotune --------------------------------------------------
@@ -561,8 +634,7 @@ class IVFIndex:
         scan's partials lie in slot order).  ``queries`` are in the store
         dtype: the JAX search probes with store-dtype queries too."""
         nprobe = max(1, min(nprobe, self.nlist))
-        cents = self._centroids_dev
-        scores = 2.0 * (queries.float() @ cents.T) - (cents * cents).sum(dim=1)[None, :]
+        scores = 2.0 * (queries.float() @ self._centroids_dev.T) - self._centroid_norms[None, :]
         _, ids = total_order_topk(scores, nprobe)
         return torch.sort(ids, dim=1).values.to(torch.int32).contiguous()
 
@@ -576,6 +648,14 @@ class IVFIndex:
         ``min(max(2k, 20), 64, L)`` candidates and rescores them exactly;
         k > 64 scans the full-precision layout (JAX leaves its kernel for
         an exact XLA scan there: the same result).
+
+        An unfiltered call on a CUDA device with at most
+        :data:`GRAPH_MAX_QUERIES` queries (:func:`replays_graph`) replays a
+        CUDA graph of the scan, one per ``(q, k, nprobe)``: the first call
+        of a shape runs eagerly, then captures it (:meth:`_capture`).  The
+        replay runs the same kernels on the same inputs, so it returns the
+        eager scan's results bit for bit.  Filtered calls, larger batches
+        and the CPU run the scan eagerly.
 
         While a ``torch.profiler`` session records, the call records the
         span ``ivf.search`` (``tracing.py``) and, inside it, ``ivf.scan``:
@@ -592,33 +672,97 @@ class IVFIndex:
                 slot_mask, ratio = self._slot_mask(mask)
                 row_valid = row_valid * slot_mask
                 nprobe = self._inflate_nprobe(nprobe, ratio, self.nlist)
+            use_graph = replays_graph(self.device, q, mask is not None)
             traced = tracing.on()
             start = time.perf_counter_ns() if traced else 0
-            vals, idx, probes = self._scan(torch.from_numpy(queries).to(self.device), k, nprobe, row_valid)
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            graph = self._graph(q, k, nprobe) if use_graph else None
+            if graph is not None:
+                vals, idx, probes = graph.run(queries)
+            else:
+                vals, idx, probes = self._scan(torch.from_numpy(queries).to(self.device), k, nprobe, row_valid)
+                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
             if traced:
                 end = time.perf_counter_ns()
                 up = tracing.current()
+                ids = probes if graph is not None else probes.cpu().numpy()
                 tracing.record("ivf.scan", start, end, parent=up.id, req=up.req, batch=up.batch,
-                               **self._scan_attrs(probes, k, mask is not None))
+                               **self._scan_attrs(ids, k, mask is not None, graph is not None))
+            if use_graph and graph is None:
+                self._capture(q, k, nprobe)
             return self._to_rows(vals, idx)
 
-    def _scan_attrs(self, probes: torch.Tensor, k: int, masked: bool) -> dict:
+    def _scan_attrs(self, probes: np.ndarray, k: int, masked: bool, graph: bool) -> dict:
         """What kernel 7 had to do for one scan, from the per-list fill and
-        the probe ids (downloaded here, after the results, so only while
-        tracing): ``queries``, ``k``, ``lrows`` (slots a list), ``dim``,
-        ``lists`` (distinct lists probed), ``list_rows`` (their live rows,
-        each counted once), ``pair_rows`` (live rows summed over the
-        (query, list) pairs: the rows scored) and ``masked`` (a filter,
-        which the fill does not see, thinned the rows)."""
-        ids = probes.cpu().numpy().astype(np.int64)
+        the host copy of the probe ids (an eager scan downloads them after
+        its results, so only while tracing): ``queries``, ``k``, ``lrows``
+        (slots a list), ``dim``, ``lists`` (distinct lists probed),
+        ``list_rows`` (their live rows, each counted once), ``pair_rows``
+        (live rows summed over the (query, list) pairs: the rows scored),
+        ``masked`` (a filter, which the fill does not see, thinned the rows)
+        and ``graph`` (the scan was a CUDA graph's replay)."""
+        ids = probes.astype(np.int64)
         ids = ids[(ids >= 0) & (ids < self.nlist)]
         distinct = np.unique(ids)
         return {
             "queries": int(probes.shape[0]), "k": int(k), "lrows": self.capacity, "dim": self.dim,
             "lists": int(distinct.size), "list_rows": int(self._fill[distinct].sum()),
-            "pair_rows": int(self._fill[ids].sum()), "masked": bool(masked),
+            "pair_rows": int(self._fill[ids].sum()), "masked": bool(masked), "graph": bool(graph),
         }
+
+    def _graph_key(self, q: int, k: int, nprobe: int) -> tuple:
+        # kernel 7's wrapper is part of the key: a graph replays the launches
+        # of the function it captured, and a caller may swap in the plain
+        # version (tests.torch_parity.plain_scan)
+        return q, k, max(1, min(nprobe, self.nlist)), ivf_scan.ivf_block_topk
+
+    def _graph(self, q: int, k: int, nprobe: int) -> Optional[_ScanGraph]:
+        """The captured scan of ``(q, k, nprobe)``, or None (not captured
+        yet, or the capture failed)."""
+        key = self._graph_key(q, k, nprobe)
+        with self._graph_lock:
+            graph = self._graphs.get(key)
+            if graph is not None:
+                self._graphs.move_to_end(key)
+            return graph
+
+    def _capture(self, q: int, k: int, nprobe: int) -> None:
+        """Capture :meth:`_scan` of ``(q, k, nprobe)`` unless the cache has
+        the shape, under the index's graph lock, keeping the last
+        ``_GRAPH_LRU_SIZE`` shapes.  What the scan reads is built first; one
+        eager scan on the capture stream sets up cuBLAS's and the sorts'
+        workspaces there; the capture is ``thread_local``, so other threads'
+        launches, copies and synchronisations during it neither join nor
+        break it."""
+        key = self._graph_key(q, k, nprobe)
+        with self._graph_lock:
+            if key in self._graphs:
+                return
+            layout, k_kern = self._prepare_scan(k)
+            current = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(current)
+            dev_in = torch.zeros((q, self.dim), dtype=torch.float32, device=self.device)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.stream(stream):
+                    self._scan(dev_in, k, nprobe, self._row_valid)
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        vals, idx, probes = self._scan(dev_in, k, nprobe, self._row_valid)
+                        dev_out = torch.cat([vals.view(torch.int32), idx, probes], dim=1)
+                    finally:
+                        graph.capture_end()
+                current.wait_stream(stream)
+                scan = ivf_scan.ivf_block_topk
+                counter = scan if hasattr(scan, "launches_by_loop") else None
+                entry = _ScanGraph(graph, dev_in, dev_out, k, (self._cnorms, self._corpus_i8, self._cscales),
+                                   counter, ivf_scan.ivf_scoring_loop(layout, k_kern))
+            except RuntimeError as exc:  # a capture CUDA refused: the shape keeps the eager scan
+                print(f"[WARN] IVF scan of {q} queries, k={k}, nprobe={nprobe} not captured as a CUDA graph: {exc}")
+                entry = None
+            self._graphs[key] = entry
+            while len(self._graphs) > self._GRAPH_LRU_SIZE:
+                self._graphs.popitem(last=False)
 
     def _scan(self, queries: torch.Tensor, k: int, nprobe: int, row_valid: torch.Tensor):
         """Stages 1 and 2 on the device for ``queries`` on it: kernel-space
@@ -632,12 +776,11 @@ class IVFIndex:
         metric = "l2" if self.metric == "l2" else "ip"
         cnorms = self._corpus_norms() if metric == "l2" else None
         qf = qdev.float()
-        if self.quantized and k <= INT8_MAX_K:
-            self._ensure_quantized()
-            k_kern = min(max(2 * k, 20), INT8_MAX_K, self.capacity)
+        layout, k_kern = self._kernel_layout(k)
+        if layout.dtype == torch.int8:
             q_i8, qs = ivf_scan.quantize_ivf_queries(qf)
             part_v, part_i = ivf_scan.ivf_block_topk(
-                self._corpus_i8, q_i8, probe_ids, row_valid, k_kern, lrows=self.capacity, metric=metric,
+                layout, q_i8, probe_ids, row_valid, k_kern, lrows=self.capacity, metric=metric,
                 cnorms=cnorms, qscales=qs, cscales=self._cscales,
             )
             vals, idx = rescore_pool(
@@ -673,10 +816,7 @@ class IVFIndex:
         ``-inf`` / ``INT_MAX`` in empty slots, on the device."""
         nprobe = max(1, min(nprobe, self.nlist))
         k = max(1, min(k, self.live_count))
-        if self.quantized and k <= INT8_MAX_K:
-            self._ensure_quantized()
-        if self.metric == "l2":
-            self._corpus_norms()
+        self._prepare_scan(k)
         shape = (batch, self.dim)
 
         def fn(queries: torch.Tensor):

@@ -143,7 +143,7 @@ def test_spans_are_recorded_only_while_tracing(tmp_path):
     assert scan[7] == {
         "queries": 3, "k": K, "lrows": ivf.capacity, "dim": D,
         "lists": len(np.unique(probes)), "list_rows": int(fill[np.unique(probes)].sum()),
-        "pair_rows": int(fill[probes].sum()), "masked": False,
+        "pair_rows": int(fill[probes].sum()), "masked": False, "graph": False,
     }
 
 

@@ -340,7 +340,8 @@ def test_ivf_probes_are_jax_stage_1(nprobe):
     assert np.array_equal(_bits(torch.from_numpy(queries) @ torch.from_numpy(cents).T),
                           _bits(_oracle_scores(cents, queries)))
     want = _jax_probes(queries, cents, nprobe)
-    index = types.SimpleNamespace(_centroids_dev=torch.from_numpy(cents), nlist=cents.shape[0])
+    dev = torch.from_numpy(cents)
+    index = types.SimpleNamespace(_centroids_dev=dev, _centroid_norms=(dev * dev).sum(dim=1), nlist=cents.shape[0])
     got = tivf.IVFIndex._probe(index, torch.from_numpy(queries), nprobe)
     np.testing.assert_array_equal(got.numpy(), want)
     sharded = types.SimpleNamespace(_cents_dev=torch.from_numpy(cents))

@@ -108,7 +108,7 @@ f32        - STORE_DTYPE=float32 (phase f32, run after scale): a 1M x 1536
              plain version and the library composition (gathered probed
              clusters, cuBLAS or torch._int_mm, torch.topk; chunked above
              batch 1) at batch 1, 8, 128 and 256, top-50, with its tile and
-             group size, its groups and its launches by loop; IVFIndex.search
+             group size, its groups, its launches and their loop; IVFIndex.search
              host to host at batch 1 and 128.
 
 6. online  - the online profile: a local stand-in for an OpenAI-compatible
@@ -176,25 +176,32 @@ f32        - STORE_DTYPE=float32 (phase f32, run after scale): a 1M x 1536
              sync in the timed call; then the bench's command line once at
              its default variant; (b) scripts/torch_load_test.py at 1M x
              1536 with 16 threads, flat, --quantized and --index-type ivf,
-             --requests cut to 1024 a mode: each JSON line with its
-             launches, 0 errors, the flat modes' launches printed (none
-             expected: candidate_k 500 > 64 takes the plain scan, so no
-             kernel is compared there), kernel 7 launched by the ivf mode
-             and its first measured query answered the same with kernel 7
-             on its plain version; (c) graft_entry.entry() (kernel
+             --requests cut to 1024 a mode: each JSON line with 0 errors,
+             the flat modes' launches printed (none expected: candidate_k
+             500 > 64 takes the plain scan, so no kernel is compared
+             there), kernel 7 launched by the ivf mode and its first
+             measured query answered the same with kernel 7 on its plain
+             version; (c) graft_entry.entry() (kernel
              1 on the f32 ring, bit for bit the FMA loop's, against the plain
              scan) and graft_entry.dryrun_multichip(4), four shards on
              cuda:0 (kernels 1, 2, 5 and 7); (d) scripts/torch_check_services.py
              (backend cuda, the card's name) and scripts/torch_demo_e2e.py
              (every mode answered) as subprocesses.
 
-The launch counters are set to 0 before the route runs of phases 3-6 and
-f32 (and before the store's impl routes in phase 4, and before the float32
-IVF's first search in phase f32), before phase 7 and before each
-mesh call of phase 8, before each bench measurement (after its check against the plain version), after each load test's
-warm-up and before each graft entry call of phase 9, and read after every
-client thread has joined (in phase 8, after the call: it must have
-launched its kernel once per shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
+Launches are the kernel wrapper calls on card tensors that the spy of
+tests/torch_parity.spy_launches sees outside a CUDA graph's capture (a
+call under capture only records into the graph; a replay launches its
+kernels without calling a wrapper and is not counted), and the loop a
+launch ran on is the loop rule's answer for its inputs
+(topk.scoring_loop, quantized.int8_scoring_loop,
+ivf_scan.ivf_scoring_loop), checked where a phase expects one; zeroed
+before the route runs of phases 3-6 and f32 (and before the store's
+impl routes in phase 4, and before the float32 IVF's first search in phase
+f32), before phase 7 and before each mesh call of phase 8, before each bench
+measurement (after its check against the plain version), each load test and
+each graft entry call of phase 9, and read after every client thread has
+joined (in phase 8, after the call: it must have launched its kernel once
+per shard); a kernel that its path never launched fails the run.  Each phase prints its seconds.  The second-to-last line of output is a JSON object with each
 kernel's route, launches, error, times, bound (the larger of its bytes
 over 3.35 TB/s and its operations over the peak of their type: 989 TFLOP/s
 bf16, 67 TFLOP/s f32, 1,979 TOP/s int8) and library time; the last is
@@ -242,8 +249,7 @@ _LAUNCHES = {name: 0 for name in _NAMES}
 _TIMES = {}  # (name, batch, k): (kernel ms, plain ms, bound ms, bound by, library ms)
 _IVF_RECALL = {}  # tier: phase 5's recall@10 at nprobe 64, printed beside phase 7's
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}  # dense; f32 outside the tensor cores
+_SPY = None  # the run's tests.torch_parity.Launches: every kernel wrapper's calls, set in main
 
 
 def log(line: str) -> None:
@@ -324,11 +330,12 @@ def ivf_scan_work(row_valid, nlist: int, lrows: int, probes, row_bytes: int):
 
 
 def bound_ms(moved_bytes: float, ops: float, unit: str):
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
-    by_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * ops / PEAK_OPS_PER_S[unit]
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    """The least time the card could take (``portbench.peaks.least_seconds``),
+    and whether the bytes or the operations set it."""
+    from portbench.peaks import HBM_BYTES_PER_S, PEAK_OPS_PER_S, least_seconds
+
+    by_bytes = moved_bytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S[unit]
+    return 1e3 * least_seconds(moved_bytes, ops, unit), "bytes" if by_bytes else "operations"
 
 
 def time_kernel(key, kernel, plain, library, moved_bytes, ops, unit, reps=3):
@@ -351,24 +358,13 @@ def time_kernel(key, kernel, plain, library, moved_bytes, ops, unit, reps=3):
 
 
 def reset_launches() -> None:
-    from photo_search_engine_tpu_torch import ops
-
-    ops.reset_launches()
+    _SPY.reset()
 
 
 def read_launches() -> dict:
-    from photo_search_engine_tpu_torch import ops
-
-    return ops.read_launches()
-
-
-def read_loops() -> dict:
-    """Each kernel's launches by scoring loop (tensor cores, or the FMA /
-    __dp4a loop)."""
-    from photo_search_engine_tpu_torch.ops import kernel_wrappers
-
-    return {name: dict(wrapper.launches_by_loop) for name, wrapper in kernel_wrappers().items()
-            if hasattr(wrapper, "launches_by_loop")}
+    """Each kernel's launches since :func:`reset_launches`: the calls of its
+    wrapper on card tensors outside a graph's capture (a replay calls none)."""
+    return _SPY.launches()
 
 
 def close_batchers(services) -> None:
@@ -789,6 +785,7 @@ def check_tensor_core_kernels(gen) -> None:
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import launch_once
 
     n, count = 2500, 2400  # blocks of 1024, 1024 and a ragged 452
     cases = 0
@@ -796,6 +793,8 @@ def check_tensor_core_kernels(gen) -> None:
         corpus = _unit_rows(n, d, gen, torch.bfloat16)
         cnorms = to.row_sq_norms(corpus)
         loop = "tensor_core" if d % 8 == 0 else "fma"
+        if to.scoring_loop(corpus) != loop or go.scoring_loop(corpus) != loop:
+            raise AssertionError(f"kernels 1 and 5 D={d}: not on the {loop} loop")
         for i, q in enumerate((1, 8, 9, 32, 33, 128, 256)):
             queries = _unit_rows(q, d, gen, torch.bfloat16)
             table, ids = _predicates(gen, 3, n, q)
@@ -803,20 +802,13 @@ def check_tensor_core_kernels(gen) -> None:
                 variant = ("ip", "l2", "masked")[(i + j) % 3]
                 mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.5).to(torch.int8) if variant == "masked" else None
                 kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=cnorms, block_n=1024)
-                before = dict(to.block_topk.launches_by_loop)
-                got = to.block_topk(corpus, queries, k, **kw)
-                torch.cuda.synchronize()
-                if to.block_topk.launches_by_loop[loop] != before[loop] + 1:
-                    raise AssertionError(f"block_topk D={d}: not launched on the {loop} loop")
+                got = launch_once(to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw))
                 name = f"block_topk bf16 {variant} D={d} q={q} k={k} ({loop})"
                 _ERRORS["block_topk"] = max(_ERRORS["block_topk"], check_topk(
                     name, *got, *to.exact_block_topk_plain(corpus, queries, k + 1, **kw)))
                 check_scores(name, *got, _plain_scores(corpus, queries, kw["metric"], count, mask))
-                before = dict(go.grouped_block_topk.launches_by_loop)
-                got = go.grouped_block_topk(corpus, queries, table, ids, k, count=count, block_n=1024)
-                torch.cuda.synchronize()
-                if go.grouped_block_topk.launches_by_loop[loop] != before[loop] + 1:
-                    raise AssertionError(f"grouped_block_topk D={d}: not launched on the {loop} loop")
+                got = launch_once(go.grouped_block_topk, lambda: go.grouped_block_topk(
+                    corpus, queries, table, ids, k, count=count, block_n=1024))
                 ref = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, count=count, block_n=1024)
                 name = f"grouped_block_topk bf16 M=3 D={d} q={q} k={k} ({loop})"
                 _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"], check_topk(name, *got, *ref))
@@ -854,7 +846,7 @@ def check_f32_ring_kernels(gen) -> None:
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import assert_same_bits, fma_loop, launch_on_loop
+    from tests.torch_parity import assert_same_bits, fma_loop, launch_once
 
     n, count = 2500, 2400  # blocks of 1024, 1024 and a ragged 452
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -874,19 +866,19 @@ def check_f32_ring_kernels(gen) -> None:
                 mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.5).to(torch.int8) if variant == "masked" else None
                 kw = dict(count=count, metric="l2" if variant == "l2" else "ip", mask=mask, cnorms=cnorms, block_n=1024)
                 name = f"f32 {variant} D={d} q={q} k={k} ({loop})"
-                k1 = launch_on_loop(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
+                k1 = launch_once(to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw))
                 _ERRORS["block_topk"] = max(_ERRORS["block_topk"], check_topk(
                     f"block_topk {name}", *k1, *to.exact_block_topk_plain(corpus, queries, k + 1, **kw)))
                 check_scores(f"block_topk {name}", *k1, _plain_scores(corpus, queries, kw["metric"], count, mask))
-                k5 = launch_on_loop(go.grouped_block_topk, loop,
-                                    lambda: go.grouped_block_topk(corpus, queries, table, ids, k, count=count, block_n=1024))
+                k5 = launch_once(go.grouped_block_topk,
+                                 lambda: go.grouped_block_topk(corpus, queries, table, ids, k, count=count, block_n=1024))
                 ref = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, count=count, block_n=1024)
                 _ERRORS["grouped_block_topk"] = max(_ERRORS["grouped_block_topk"],
                                                     check_topk(f"grouped_block_topk M=3 {name}", *k5, *ref))
-                k3 = launch_on_loop(to.fast_block_topk, loop, lambda: to.fast_block_topk(corpus, queries, k, **kw))
+                k3 = launch_once(to.fast_block_topk, lambda: to.fast_block_topk(corpus, queries, k, **kw))
                 per = to.fused_ranges(q, 3, sms, loop=loop)[1]
-                k4 = launch_on_loop(to.fused_topk, loop,
-                                    lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
+                k4 = launch_once(to.fused_topk,
+                                 lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
                 assert_same_bits(f"fused_topk {name} ranges against kernel 1's", k4[2:], to.range_partials(*k1, per, k))
                 assert_same_bits(f"fused_topk {name} against kernel 1", k4[:2], to.merge_partials(*k1, k))
                 _ERRORS["fused_topk"] = max(_ERRORS["fused_topk"], check_topk(
@@ -895,14 +887,16 @@ def check_f32_ring_kernels(gen) -> None:
                 cases += 4
                 if ring:  # the ring sums as the FMA loop does: the same bits
                     with fma_loop():
-                        assert_same_bits(f"block_topk {name} against the FMA loop", k1, launch_on_loop(
-                            to.block_topk, "fma", lambda: to.block_topk(corpus, queries, k, **kw)))
-                        assert_same_bits(f"grouped_block_topk {name} against the FMA loop", k5, launch_on_loop(
-                            go.grouped_block_topk, "fma", lambda: go.grouped_block_topk(
+                        if to.scoring_loop(corpus) != "fma" or go.scoring_loop(corpus) != "fma":
+                            raise AssertionError(f"f32 D={d}: fma_loop() left the ring")
+                        assert_same_bits(f"block_topk {name} against the FMA loop", k1, launch_once(
+                            to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw)))
+                        assert_same_bits(f"grouped_block_topk {name} against the FMA loop", k5, launch_once(
+                            go.grouped_block_topk, lambda: go.grouped_block_topk(
                                 corpus, queries, table, ids, k, count=count, block_n=1024)))
-                        assert_same_bits(f"fast_block_topk {name} against the FMA loop", k3, launch_on_loop(
-                            to.fast_block_topk, "fma", lambda: to.fast_block_topk(corpus, queries, k, **kw)))
-                        f4 = launch_on_loop(to.fused_topk, "fma", lambda: to.fused_topk(
+                        assert_same_bits(f"fast_block_topk {name} against the FMA loop", k3, launch_once(
+                            to.fast_block_topk, lambda: to.fast_block_topk(corpus, queries, k, **kw)))
+                        f4 = launch_once(to.fused_topk, lambda: to.fused_topk(
                             corpus, queries, k, blocks_per_range=per, **kw))
                     assert_same_bits(f"fused_topk {name} against the FMA loop", k4[:2], f4[:2])
                     assert_same_bits(f"fused_topk {name} ranges against the FMA loop", k4[2:], f4[2:])
@@ -919,8 +913,10 @@ def check_f32_ring_kernels(gen) -> None:
     queries = _unit_rows(40, 1536, gen, torch.float32)
     mask = torch.ones(n, dtype=torch.int8, device=DEVICE)
     mask[1024:2048] = 0
-    got_v, got_i = launch_on_loop(to.block_topk, "fma_ring",
-                                  lambda: to.block_topk(corpus, queries, 50, count=n, mask=mask, block_n=1024))
+    if to.scoring_loop(corpus) != "fma_ring":
+        raise AssertionError("block_topk f32 all-masked block: not on the ring")
+    got_v, got_i = launch_once(to.block_topk,
+                               lambda: to.block_topk(corpus, queries, 50, count=n, mask=mask, block_n=1024))
     check_topk("block_topk f32 ring all-masked block", got_v, got_i,
                *to.exact_block_topk_plain(corpus, queries, 51, count=n, mask=mask, block_n=1024))
     if not (torch.isneginf(got_v[:, 1]).all() and (got_i[:, 1] == torch.iinfo(torch.int32).max).all()):
@@ -945,6 +941,7 @@ def check_int8_tensor_core_kernels(gen) -> None:
 
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
+    from tests.torch_parity import launch_once
 
     n, count, bn = 5000, 4900, 2048  # blocks of 2048, 2048 and a ragged 904
     cases = 0
@@ -952,7 +949,9 @@ def check_int8_tensor_core_kernels(gen) -> None:
         ref_rows = _unit_rows(n, d, gen, torch.bfloat16)
         c8, cs = qo.quantize_rows(ref_rows)
         cnorms = to.row_sq_norms(ref_rows)
-        loop = qo.int8_scoring_loop(d)
+        loop = "tensor_core" if d % 16 == 0 else "dp4a"
+        if qo.int8_scoring_loop(d) != loop:
+            raise AssertionError(f"kernels 2 and 6 D={d}: not on the {loop} loop")
         for i, q in enumerate((1, 8, 9, 32, 33, 128, 256)):
             q8, qs = qo.quantize_rows(_unit_rows(q, d, gen, torch.float32))
             table, ids = _predicates(gen, 3, n, q)
@@ -968,11 +967,7 @@ def check_int8_tensor_core_kernels(gen) -> None:
                          lambda kk: qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, kk, count=count,
                                                                     block_n=bn))):
                     name = wrapper.__name__
-                    before = dict(wrapper.launches_by_loop)
-                    got = call(k)
-                    torch.cuda.synchronize()
-                    if wrapper.launches_by_loop[loop] != before[loop] + 1:
-                        raise AssertionError(f"{name} D={d}: not launched on the {loop} loop")
+                    got = launch_once(wrapper, lambda: call(k))
                     label = f"{name} {variant if name == 'int8_block_topk' else 'M=3'} D={d} q={q} k={k} ({loop})"
                     _ERRORS[name] = max(_ERRORS[name], check_topk(label, *got, *plain(k + 1), exact=True))
                     cases += 1
@@ -1064,7 +1059,7 @@ def check_f32_ivf_repeats(gen, d) -> None:
 
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import fma_loop, launch_on_loop
+    from tests.torch_parity import fma_loop, launch_once
 
     nlist, lrows, q, nprobe, k = 24, 1100, 33, 8, 64
     corpus, row_valid, _ = _ivf_layout(gen, nlist, lrows, d)
@@ -1079,15 +1074,17 @@ def check_f32_ivf_repeats(gen, d) -> None:
         for bq in (8, 32):
             kws = [dict(lrows=lrows, metric=metric, cnorms=cnorms, block_n=block_n, bq=bq) for metric in ("ip", "l2")]
             with fma_loop():
-                refs = [launch_on_loop(io_.ivf_block_topk, "fma", lambda: io_.ivf_block_topk(
+                if io_.ivf_scoring_loop(corpus, k) != "fma":
+                    raise AssertionError("f32 kernel 7 repeats: the reference is not on the FMA loop")
+                refs = [launch_once(io_.ivf_block_topk, lambda: io_.ivf_block_topk(
                     corpus, queries, probes, row_valid, k, **kw)) for kw in kws]
             differ = torch.zeros((), dtype=torch.int64, device=DEVICE)
-            before = io_.ivf_block_topk.launches_by_loop["fma_ring"]
+            before = read_launches()["ivf_block_topk"]
             for rep in range(F32_IVF_REPEATS):
                 got = io_.ivf_block_topk(corpus, queries, probes, row_valid, k, **kws[rep % 2])
                 ref = refs[rep % 2]
                 differ += ((got[0].view(torch.int32) != ref[0].view(torch.int32)) | (got[1] != ref[1])).any().long()
-            launched = io_.ivf_block_topk.launches_by_loop["fma_ring"] - before
+            launched = read_launches()["ivf_block_topk"] - before
             bad = int(differ)  # one read-back for the whole series
             if launched != F32_IVF_REPEATS or bad:
                 raise AssertionError(f"f32 kernel 7 repeats, tile {block_n}, BQ {bq}: {bad} of {launched} ring "
@@ -1113,7 +1110,7 @@ def check_ivf_kernel(gen, d) -> None:
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import assert_same_bits, fma_loop, launch_on_loop
+    from tests.torch_parity import assert_same_bits, fma_loop, launch_once
 
     nlist, lrows = 96, 1100  # whole-cluster tiles end in a ragged pass of 76 rows; the FMA tiles of 256 in one of 76
     base, row_valid, dups = _ivf_layout(gen, nlist, lrows, d)
@@ -1146,15 +1143,17 @@ def check_ivf_kernel(gen, d) -> None:
                 bn = io_.ivf_geometry(q, nprobe, nlist, lrows, loop, sms)[0]
                 for valid, what in ((row_valid, ""), (row_valid * (torch.rand(row_valid.shape, generator=gen, device=DEVICE) < 0.3), " masked")):
                     kw = dict(lrows=lrows, metric=metric, cnorms=cnorms, block_n=bn, **extra)
-                    got = launch_on_loop(io_.ivf_block_topk, loop,
-                                         lambda: io_.ivf_block_topk(corpus, queries, probes, valid.to(torch.int8), k, **kw))
+                    got = launch_once(io_.ivf_block_topk,
+                                      lambda: io_.ivf_block_topk(corpus, queries, probes, valid.to(torch.int8), k, **kw))
                     name = f"ivf_block_topk {tier} {metric}{what} k={k} q={q} nprobe={nprobe} ({loop})"
                     plain = lambda kk: io_.ivf_block_topk_plain(corpus, queries, probes, valid.to(torch.int8), kk, **kw)  # noqa: E731
                     err = check_partials(name, got, plain, k, exact=tier == "int8")
                     _ERRORS["ivf_block_topk"] = max(_ERRORS["ivf_block_topk"], err)
                     if loop == "fma_ring":  # the f32 ring sums as the FMA loop does: the same bits, tile for tile
                         with fma_loop():
-                            fma = launch_on_loop(io_.ivf_block_topk, "fma", lambda: io_.ivf_block_topk(
+                            if io_.ivf_scoring_loop(corpus, k) != "fma":
+                                raise AssertionError(f"{name}: fma_loop() left the ring")
+                            fma = launch_once(io_.ivf_block_topk, lambda: io_.ivf_block_topk(
                                 corpus, queries, probes, valid.to(torch.int8), k, **kw))
                         assert_same_bits(f"{name} against the FMA loop", got, fma)
                         same_bits += 1
@@ -1239,7 +1238,7 @@ def check_fast_partials(gen) -> None:
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import assert_same_bits, launch_on_loop
+    from tests.torch_parity import assert_same_bits, launch_once
 
     n, k, cases = 2 * 1024 + 40, 64, 0
     base = torch.zeros((n, 64), device=DEVICE)
@@ -1249,13 +1248,15 @@ def check_fast_partials(gen) -> None:
     mask = (torch.rand(n, generator=gen, device=DEVICE) < 0.8).to(torch.int8)
     for dtype, loop in ((torch.bfloat16, "tensor_core"), (torch.float32, "fma_ring")):
         corpus = base.to(dtype)
+        if to.scoring_loop(corpus) != loop or go.scoring_loop(corpus) != loop:
+            raise AssertionError(f"kernel 3 {str(dtype)[6:]}: not on the {loop} loop")
         for q in (3, 40):
             queries = torch.zeros((q, 64), device=DEVICE)
             queries[torch.arange(q), torch.arange(q) % 3] = 1.0
             queries = queries.to(dtype)
             for metric in ("ip", "l2"):
                 kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-                got = launch_on_loop(to.fast_block_topk, loop, lambda: to.fast_block_topk(corpus, queries, k, **kw))
+                got = launch_once(to.fast_block_topk, lambda: to.fast_block_topk(corpus, queries, k, **kw))
                 assert_same_bits(f"fast_block_topk {str(dtype)[6:]} exact products {metric} q={q}", got,
                                  to.fast_block_topk_plain(corpus, queries, k, **kw))
                 tail = 2048 + torch.arange(40, 64, device=DEVICE, dtype=torch.int32)
@@ -1264,8 +1265,8 @@ def check_fast_partials(gen) -> None:
                 cases += 1
             table, ids = _predicates(gen, 3, n, q)
             kw = dict(count=n - 10, block_n=1024)
-            got = launch_on_loop(go.fast_grouped_block_topk, loop,
-                                 lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
+            got = launch_once(go.fast_grouped_block_topk,
+                              lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
             assert_same_bits(f"fast_grouped_block_topk {str(dtype)[6:]} exact products q={q}", got,
                              go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
             cases += 1
@@ -1285,12 +1286,14 @@ def check_fast_kernels(gen, n, d) -> None:
 
     from photo_search_engine_tpu_torch.ops import grouped_mask as go
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import launch_on_loop, plain_scan
+    from tests.torch_parity import launch_once, plain_scan
 
     cases = {"fast_block_topk": 0, "fast_grouped_block_topk": 0}
     for dtype in (torch.float32, torch.bfloat16):
         corpus = _unit_rows(n, d, gen, dtype)
-        loop = to.scoring_loop(corpus)
+        loop = "fma_ring" if dtype == torch.float32 else "tensor_core"
+        if to.scoring_loop(corpus) != loop or go.scoring_loop(corpus) != loop:
+            raise AssertionError(f"kernel 3 {str(dtype)[6:]} D={d}: not on the {loop} loop")
         for variant in ("ip", "l2", "masked", "empty"):
             metric = "l2" if variant == "l2" else "ip"
             count, mask = n, None
@@ -1301,7 +1304,7 @@ def check_fast_kernels(gen, n, d) -> None:
             for k, q in ((1, 1), (10, 9), (50, 40), (64, 128)):
                 queries = _unit_rows(q, d, gen, dtype)
                 kw = dict(count=count, mask=mask, metric=metric, impl="pallas_fast", block_n=1024)
-                got = launch_on_loop(to.fast_block_topk, loop, lambda: to.exact_search(corpus, queries, k, **kw))
+                got = launch_once(to.fast_block_topk, lambda: to.exact_search(corpus, queries, k, **kw))
                 with plain_scan(to, "fast_block_topk"):
                     ref = to.exact_search(corpus, queries, k, **kw)
                 name = f"fast_block_topk {str(dtype)[6:]} {variant} k={k} q={q}"
@@ -1316,7 +1319,7 @@ def check_fast_kernels(gen, n, d) -> None:
                 table, ids = _predicates(gen, m, n, q)
                 scores = _grouped_plain_scores(corpus, queries, count, table, ids)
                 for k in (10, 64):
-                    got = launch_on_loop(go.fast_grouped_block_topk, loop, lambda: go.grouped_mask_search(
+                    got = launch_once(go.fast_grouped_block_topk, lambda: go.grouped_mask_search(
                         corpus, queries, table, ids, k, count=count, impl="pallas_fast"))
                     with plain_scan(go, "fast_grouped_block_topk"):
                         ref = go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")
@@ -1353,7 +1356,7 @@ def check_fused_kernel(gen, n, d) -> None:
     import torch
 
     from photo_search_engine_tpu_torch.ops import topk as to
-    from tests.torch_parity import assert_same_bits, launch_on_loop
+    from tests.torch_parity import assert_same_bits, launch_once
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     nb = -(-n // 1024)
@@ -1372,8 +1375,8 @@ def check_fused_kernel(gen, n, d) -> None:
                 queries = _unit_rows(q, d, gen, dtype)
                 kw = dict(count=count, metric=metric, mask=mask, cnorms=cnorms, block_n=1024)
                 for per in (1, 2, to.fused_ranges(q, nb, sms, loop=loop)[1]):
-                    got = launch_on_loop(to.fused_topk, loop,
-                                         lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
+                    got = launch_once(to.fused_topk,
+                                      lambda: to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw))
                     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
                     name = f"fused_topk {str(dtype)[6:]} {variant} k={k} q={q} blocks/range={per}"
                     err = max(check_topk(f"{name} (ranges)", got[2], got[3], ref[2], ref[3]),
@@ -1700,6 +1703,8 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
     with tempfile.TemporaryDirectory(prefix="pse_scale_") as tmp:
         index, gen = _scale_index(rows, dim, tmp, "scale")
         store = index._store
+        if to.scoring_loop(store._device) != "tensor_core" or qo.int8_scoring_loop(dim) != "tensor_core":
+            raise AssertionError("scale: by the loop rules the store's rows are off the tensor cores")
 
         # the app's own wiring over the installed index, micro-batcher on and
         # no keyword index (filtered text queries take search_masked); query
@@ -1762,19 +1767,16 @@ def phase_scale(rows: int = 1_000_000, dim: int = 1536) -> None:
                     base, "/search_photos", {"query": query, "top_k": 10}), allow_empty=True)
                 log(f"[scale] /search_photos {query!r} (candidate_k 500, plain large-k path, "
                     f"{index.last_route['impl']}): {hits} results in {1e3 * (time.perf_counter() - t):.1f} ms")
-            launches, loops = read_launches(), read_loops()
+            launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[scale] route launches {launches}; kernels 1, 2, 5 and 6 by scoring loop {loops}")
+        log(f"[scale] route launches {launches} (rows of width 1536: kernels 1, 2, 5 and 6 on the tensor cores)")
         for name in _FLAT:
             if launches[name] <= 0:
                 raise AssertionError(f"scale routes never launched {name}")
             _LAUNCHES[name] += launches[name]
-        for name, by_loop in loops.items():  # rows of width 1536: the tensor cores only
-            if by_loop["tensor_core"] != launches[name]:
-                raise AssertionError(f"scale routes: {name} launched off the tensor cores: {by_loop}")
         mean = batcher.requests_served / max(batcher.batches_run, 1)
         log(f"[scale] micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run "
             f"{batcher.grouped_batches_run}, requests_served {batcher.requests_served} (mean batch {mean:.2f})")
@@ -1865,14 +1867,12 @@ def scale_impl_routes(store, masks, gen) -> None:
     reset_launches()
     got = {(impl, b): store.search(queries[b], 50, impl=impl) for b in (1, 128) for impl in ("pallas_fast", "pallas_fused")}
     got[("grouped", 128)] = store.grouped_search(queries[128], 50, table, ids, impl="pallas_fast")
-    launches, loops = read_launches(), read_loops()
+    launches = read_launches()
     log(f"[scale] store impl routes (pallas_fast, pallas_fused at batch 1 and 128; grouped pallas_fast at "
-        f"batch 128, M={len(masks)}): launches {launches}; by scoring loop {loops}")
+        f"batch 128, M={len(masks)}): launches {launches}")
     for name in _IMPL_ROUTES:
         if launches[name] <= 0:
             raise AssertionError(f"the store's impl routes never launched {name}")
-        if loops[name]["tensor_core"] != launches[name]:
-            raise AssertionError(f"the store's impl routes launched {name} off the tensor cores: {loops[name]}")
         _LAUNCHES[name] += launches[name]
 
     device = store._device.device
@@ -1927,7 +1927,6 @@ def scale_kernel_times(store, masks, gen) -> None:
     k6 = dict(count=rows, block_n=store._i8_block)
     nb, nb8 = -(-cap // store.block_rows), -(-cap // store._i8_block)
     k = 50
-    off_tc = _off_tensor_cores()
     for batch, names in ((1, _FLAT + _IMPL_ROUTES),
                          (8, _FLAT + _IMPL_ROUTES),
                          (128, _FLAT + _IMPL_ROUTES),
@@ -2033,9 +2032,6 @@ def scale_kernel_times(store, masks, gen) -> None:
         log(f"[scale] store.search batch {batch} top-{k}, host to host: "
             + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items())
             + f"; int8 against auto {times['int8'] / times['auto']:.3f}x")
-    if _off_tensor_cores() != off_tc:
-        raise AssertionError(f"scale times: a kernel 1-6 launch left the tensor cores: {read_loops()}")
-    log("[scale] every timed launch of kernels 1-6 ran on the tensor cores")
     # the int8 tier's recall against the exact scan (kernel 1), 128 random
     # unit queries: on unit rows of no structure the neighbours' scores lie
     # close together, the hard case for a quantized nomination
@@ -2047,12 +2043,6 @@ def scale_kernel_times(store, masks, gen) -> None:
         recall[kk] = float(np.mean([len(set(g.tolist()) & set(w.tolist())) / kk for g, w in zip(got, want)]))
     log(f"[scale] int8 tier against the exact scan, 128 random queries at {rows}x{dim}: recall@10 "
         f"{recall[10]:.4f} (k 10: kloc 10, pool 32), recall@50 {recall[50]:.4f} (k 50: kloc 50, pool 100)")
-
-
-def _off_tensor_cores() -> dict:
-    """Launches of the scoring loops other than the tensor cores, by kernel."""
-    return {name: sum(n for loop, n in by_loop.items() if loop != "tensor_core")
-            for name, by_loop in read_loops().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2176,18 +2166,18 @@ def _ivf_tier(corpus, metadata, queries, mask, quantized: str, timing) -> None:
             index.search_batch(queries[:4], 50, mask=mask)
             masked_route = dict(index.last_route)
             launches = read_launches()
-            loops = dict(io_.ivf_block_topk.launches_by_loop)
         finally:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[ivf] route launches {launches}; kernel 7 by loop {loops}; masked search_batch route {masked_route}; "
+        log(f"[ivf] route launches {launches}; masked search_batch route {masked_route}; "
             f"micro-batcher: batches_run {batcher.batches_run}, grouped_batches_run {batcher.grouped_batches_run}, "
             f"requests_served {batcher.requests_served}")
         if launches["ivf_block_topk"] <= 0:
             raise AssertionError(f"STORE_QUANTIZED={quantized}: the IVF routes never launched ivf_block_topk")
-        if loops["tensor_core"] <= 0:
-            raise AssertionError(f"STORE_QUANTIZED={quantized}: kernel 7 never ran on the tensor cores: {loops}")
+        if io_.ivf_scoring_loop(*index._ivf._kernel_layout(50)) != "tensor_core":
+            raise AssertionError(f"STORE_QUANTIZED={quantized}: by the loop rule kernel 7 is off the tensor cores "
+                                 "at k 50")
         if route["impl"] != "ivf" or masked_route["impl"] != "ivf_masked":
             raise AssertionError(f"IVF routes: {route}, {masked_route}")
         _LAUNCHES["ivf_block_topk"] += launches["ivf_block_topk"]
@@ -2254,7 +2244,7 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
         loop = io_.ivf_scoring_loop(args[0], kk)
         bn, bq = io_.ivf_geometry(batch, 64, ivf.nlist, ivf.capacity, loop, sms)
         kw["block_n"] = bn  # the plain version takes the kernel's tile
-        before = dict(io_.ivf_block_topk.launches_by_loop)
+        before = read_launches()["ivf_block_topk"]
         kernel = lambda: io_.ivf_block_topk(*args, kk, **kw)  # noqa: E731
         plain = lambda kk_=kk: io_.ivf_block_topk_plain(*args, kk_, **kw)  # noqa: E731
         err = check_partials(f"{name} batch {batch}", kernel(), plain, kk, exact=int8)
@@ -2272,9 +2262,9 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
         library, lib_label = _ivf_library(ivf, probes, qb, int8)
         ms, pms, bound, by, lib_ms, (a, b, c, e) = time_kernel(
             (name, batch, 50), kernel, plain, library, moved, gflop * 1e9, unit, reps=5)
-        by_loop = {lp: n - before[lp] for lp, n in io_.ivf_block_topk.launches_by_loop.items()}
-        if not by_loop[loop] or sum(by_loop.values()) != by_loop[loop]:
-            raise AssertionError(f"{name} batch {batch}: timed launches left the {loop} loop: {by_loop}")
+        launched = read_launches()["ivf_block_topk"] - before
+        if launched <= 0:
+            raise AssertionError(f"{name} batch {batch}: kernel 7 never launched")
         groups = io_.ivf_work_list(probes, ivf.nlist, bq)[0]  # on the card; read here for the log only
         live = int((groups[:, 2] > 0).sum())
         fill = (f"{live} groups of up to {bq} pairs (bound {groups.shape[0]}), {pairs / (live * bq):.0%} full, "
@@ -2286,8 +2276,8 @@ def _ivf_kernel_times(ivf, timing, int8: bool, rows: int) -> None:
             f"{err:.3g}); kernel {ms:.3f} ms ({gbytes / ms:.1f} TB/s over the pairs' live rows, {gflop / ms:.2f} "
             f"TFLOP/s), plain {pms:.3f} ms (kernel {a:.3f}/{b:.3f}, plain {c:.3f}/{e:.3f}); bound {bound:.3f} ms "
             f"by {by} (the live rows of the {probed} clusters read, {moved / 1e9:.3f} GB; {padded_bound:.3f} ms "
-            f"counting their padding slots, {(padded + rest) / 1e9:.3f} GB); library {lib}; launches by loop "
-            f"{by_loop}")
+            f"counting their padding slots, {(padded + rest) / 1e9:.3f} GB); library {lib}; {launched} launches on "
+            f"the {loop} loop")
     # the search host to host (IVFIndex.search: probe, kernel 7, merge or rescore, download)
     times = {batch: cuda_ms(lambda b=batch: ivf.search(timing[:b], 50, nprobe=64), reps=3) for batch in (1, 128)}
     log(f"[ivf] {'int8' if int8 else 'f32' if f32 else 'exact'} IVFIndex.search top-50 nprobe 64, host to host: "
@@ -2385,6 +2375,8 @@ def phase_f32(rows: int = 1_000_000, dim: int = 1536) -> None:
         torch.cuda.synchronize()
         log(f"[f32] {rows} x {dim} float32 rows on the card ({store._device.dtype}, scoring loop "
             f"{to.scoring_loop(store._device)}), season metadata on the host, in {time.perf_counter() - t0:.1f} s")
+        if to.scoring_loop(store._device) != "fma_ring":
+            raise AssertionError("f32: by the loop rule the store's rows are off the f32 ring")
         config = load_config({
             "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu", "STORE_DTYPE": "float32",
             "STORE_QUANTIZED": "0", "SEARCH_MICROBATCH_ENABLED": "1", "KEYWORD_BACKEND": "none",
@@ -2416,7 +2408,7 @@ def phase_f32(rows: int = 1_000_000, dim: int = 1536) -> None:
             got = {(impl, b): store.search(impl_q[b], 50, impl=impl) for b in (1, 128)
                    for impl in ("pallas", "pallas_fast", "pallas_fused")}
             got[("grouped", 128)] = store.grouped_search(impl_q[128], 50, table, ids, impl="pallas_fast")
-            launches, loops = read_launches(), read_loops()
+            launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
@@ -2425,11 +2417,10 @@ def phase_f32(rows: int = 1_000_000, dim: int = 1536) -> None:
             f"{len(masks)} predicates {masked_wall:.2f} s wall; micro-batcher: batches_run {batcher.batches_run}, "
             f"grouped_batches_run {batcher.grouped_batches_run}, requests_served {batcher.requests_served}; store "
             f"impl routes pallas / pallas_fast / pallas_fused at batch 1 and 128, grouped pallas_fast at 128")
-        log(f"[f32] route launches {launches}; by scoring loop {loops}")
+        log(f"[f32] route launches {launches} (all on the f32 ring)")
         for name in _F32_FLAT:
-            if launches[name] <= 0 or loops[name]["fma_ring"] != launches[name]:
-                raise AssertionError(f"f32 routes: {name} launched {launches[name]} times, by loop {loops[name]}: "
-                                     "every launch must be on the f32 ring")
+            if launches[name] <= 0:
+                raise AssertionError(f"f32 routes never launched {name}")
             _LAUNCHES[name] += launches[name]
             _F32_LAUNCHES[name] = launches[name]
 
@@ -2497,7 +2488,6 @@ def f32_kernel_times(store, masks, gen) -> None:
     kg = dict(count=rows, block_n=store.block_rows)
     nb = -(-cap // store.block_rows)
     k = 50
-    before = read_loops()
     for batch in (1, 8, 128, 256):
         qb = _unit_rows(batch, dim, gen, torch.float32)
         ids = (torch.arange(batch, device=device) % len(masks)).to(torch.int32)
@@ -2548,12 +2538,6 @@ def f32_kernel_times(store, masks, gen) -> None:
                  for impl in ("auto", "pallas_fast", "pallas_fused")}
         log(f"[f32] store.search batch {batch} top-{k}, host to host: "
             + ", ".join(f"{impl} {ms:.3f} ms" for impl, ms in times.items()))
-    after = read_loops()
-    for name in _F32_FLAT:
-        off = {lp: after[name][lp] - before[name][lp] for lp in after[name] if lp != "fma_ring"}
-        if any(off.values()):
-            raise AssertionError(f"f32 times: {name} launched off the f32 ring: {off}")
-    log("[f32] every timed launch of the f32 kernels 1, 3, 4 and 5 ran on the f32 ring")
 
 
 def f32_ivf(rows: int, dim: int) -> None:
@@ -2586,13 +2570,14 @@ def f32_ivf(rows: int, dim: int) -> None:
         t = time.perf_counter()
         hits = index.search(timing[0], 10)
         built = time.perf_counter() - t
-        launches, loops = read_launches()["ivf_block_topk"], dict(io_.ivf_block_topk.launches_by_loop)
+        launches = read_launches()["ivf_block_topk"]
         ivf = index._ivf
+        loop = io_.ivf_scoring_loop(*ivf._kernel_layout(10))
         log(f"[f32] float32 IVF: the first routed search built it in {built:.1f} s (nlist {ivf.nlist}, L "
-            f"{ivf.capacity}, {ivf._corpus.dtype}) and returned {len(hits)} hits; kernel 7 launches {launches}, by loop "
-            f"{loops}; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-        if launches <= 0 or loops["fma_ring"] != launches:
-            raise AssertionError(f"f32 IVF search: kernel 7 must run on the f32 ring: {loops}")
+            f"{ivf.capacity}, {ivf._corpus.dtype}) and returned {len(hits)} hits; kernel 7 launches {launches} on "
+            f"the {loop} loop; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        if launches <= 0 or loop != "fma_ring":
+            raise AssertionError(f"f32 IVF search: kernel 7 must run on the f32 ring: {launches} on {loop}")
         _LAUNCHES["ivf_block_topk"] += launches
         _F32_LAUNCHES["ivf_block_topk"] = launches
         _ivf_kernel_times(ivf, timing, False, rows)
@@ -2726,6 +2711,7 @@ def online_scale(standin, rows: int = 1_000_000, dim: int = 1536) -> None:
     import torch
 
     from photo_search_engine_tpu_torch.api.app import create_app, initialize_services, load_config
+    from photo_search_engine_tpu_torch.ops import quantized as qo
     from photo_search_engine_tpu_torch.ops import topk as to
     from tests.torch_parity import standin_vector
 
@@ -2734,6 +2720,8 @@ def online_scale(standin, rows: int = 1_000_000, dim: int = 1536) -> None:
     with tempfile.TemporaryDirectory(prefix="pse_online_scale_") as tmp:
         index, _ = _scale_index(rows, dim, tmp, "online")
         store = index._store
+        if to.scoring_loop(store._device) != "tensor_core" or qo.int8_scoring_loop(dim) != "tensor_core":
+            raise AssertionError("online: by the loop rules the store's rows are off the tensor cores")
         config = load_config(dict(_online_env(standin.base_url), **{
             "DATA_DIR": tmp, "RUNTIME_DATA_DIR": tmp, "PSE_PLATFORM": "gpu", "KEYWORD_BACKEND": "none",
             "EMBEDDING_DIMENSION": str(dim), "TOP_K": "10", "QUERY_EXPANSION_ENABLED": "0",
@@ -2801,17 +2789,15 @@ def online_scale(standin, rows: int = 1_000_000, dim: int = 1536) -> None:
                 f"({_STANDIN_NOTE})")
             if sum(sizes) < 32 or not mean > 1:
                 raise AssertionError(f"online /search_photos: query embeds did not coalesce: {sizes}")
-            launches, loops = read_launches(), read_loops()
+            launches = read_launches()
         finally:
             server.shutdown()
             server.server_close()
             close_batchers(services)
-        log(f"[online] route launches {launches}; by scoring loop {loops}")
+        log(f"[online] route launches {launches} (all on the tensor cores)")
         for name in _FLAT:
             if launches[name] <= 0:
                 raise AssertionError(f"online routes never launched {name}")
-            if loops[name]["tensor_core"] != launches[name]:
-                raise AssertionError(f"online routes: {name} launched off the tensor cores: {loops[name]}")
             _LAUNCHES[name] += launches[name]
 
         # every filtered result against the plain scan of the stand-in's
@@ -3328,6 +3314,19 @@ def _bench_check(what: str, s: dict, search, corpus, queries) -> float:
         raise AssertionError(f"{name}: {exc}") from exc
 
 
+def _bench_loop(s, search, corpus) -> str:
+    """The scoring loop of the bench variant's kernel, by the loop rules."""
+    from photo_search_engine_tpu_torch.ops import ivf_scan as io_
+    from photo_search_engine_tpu_torch.ops import quantized as qo
+    from photo_search_engine_tpu_torch.ops import topk as to
+
+    if s["variant"] == "ivf":
+        return io_.ivf_scoring_loop(*search.index._kernel_layout(s["k"]))
+    if s["variant"] == "int8":
+        return qo.int8_scoring_loop(corpus.shape[1])
+    return to.scoring_loop(corpus)
+
+
 def entry_bench(rows: int, dim: int) -> dict:
     """(a) scripts/torch_bench.py for each variant at ``rows`` x ``dim``
     (its default 1M x 1536) on the card, through its own functions: the
@@ -3354,18 +3353,18 @@ def entry_bench(rows: int, dim: int) -> dict:
         _ERRORS[kernel] = max(_ERRORS[kernel], err)
         reset_launches()
         out = torch_bench.measure(s, search, library, label, qstack)
-        loops = read_loops()[kernel]
+        launched, loop = read_launches()[kernel], _bench_loop(s, search, corpus)
         lines = torch_bench.report(out)
         for line in lines:
             log(f"[entry] bench {what}: {line}")
         if out["host_sync"]:
             raise AssertionError(f"bench {what}: the timed call synchronises with the host: {out['host_sync']}")
-        if loops["tensor_core"] <= 0 or sum(loops.values()) != loops["tensor_core"]:
-            raise AssertionError(f"bench {what}: {kernel} launches by loop {loops}")
-        _LAUNCHES[kernel] += loops["tensor_core"]
-        results[what] = {**json.loads(lines[-1]), "detail": lines[-2], "launches": loops["tensor_core"]}
+        if launched <= 0 or loop != "tensor_core":
+            raise AssertionError(f"bench {what}: {kernel} launched {launched} times on the {loop} loop")
+        _LAUNCHES[kernel] += launched
+        results[what] = {**json.loads(lines[-1]), "detail": lines[-2], "launches": launched}
         log(f"[entry] bench {what}: one batch against the plain version, max |err| {err:.3g}; {kernel} "
-            f"x{loops['tensor_core']} on the tensor cores; no host sync; {time.perf_counter() - t:.1f} s")
+            f"x{launched} on the tensor cores; no host sync; {time.perf_counter() - t:.1f} s")
         del corpus, qstack, search, library
         _free_card()
     t = time.perf_counter()
@@ -3395,13 +3394,14 @@ def _results_by_rank(payload):
 
 def entry_load(rows: int, dim: int) -> dict:
     """(b) scripts/torch_load_test.py at ``rows`` x ``dim`` (1M x 1536), 16 threads: flat,
-    --quantized, --index-type ivf.  Each mode's JSON line with its
-    launches and 0 errors.  The ivf mode must launch kernel 7: its first
-    measured request's query is sent again, then once more with kernel 7
-    on its plain version (the same probes): the same photos in the same
-    order, scores within TOL.  The flat modes' candidate_k 500 > 64 is
-    served by the plain exact scan, so no kernel of theirs is compared;
-    their launches are printed.  Returns each mode's JSON line."""
+    --quantized, --index-type ivf.  Each mode's JSON line with 0 errors,
+    and its launches over the whole run (the warm-up included).  The ivf
+    mode must launch kernel 7: its first measured request's query is sent
+    again, then once more with kernel 7 on its plain version (the same
+    probes): the same photos in the same order, scores within TOL.  The
+    flat modes' candidate_k 500 > 64 is served by the plain exact scan, so
+    no kernel of theirs is compared; their launches are printed.  Returns
+    each mode's JSON line."""
     from photo_search_engine_tpu_torch.ops import ivf_scan as io_
     from tests.torch_parity import assert_topk_match, plain_scan
 
@@ -3415,7 +3415,9 @@ def entry_load(rows: int, dim: int) -> dict:
         t = time.perf_counter()
         args = lt.parse_args(["--rows", str(rows), "--dim", str(dim), "--threads", "16",
                               "--requests", str(_LOAD_REQUESTS)] + extra)
+        reset_launches()
         stats, err_sample, server, port, index = lt.measure(args)
+        launched = {name: n for name, n in read_launches().items() if n}
         try:
             query = lt.query_pool()[lt.warmup_requests(args.threads, args.requests) % 512]
             got = lt.post_search(port, query)
@@ -3433,10 +3435,9 @@ def entry_load(rows: int, dim: int) -> dict:
             raise AssertionError(f"load {mode}: {stats['errors']} errors of {args.requests}")
         if not got.get("results") or got.get("status") != "success":
             raise AssertionError(f"load {mode}: empty or failed response {str(got)[:300]}")
-        launched = {name: n for name, n in stats["launches"].items() if n}
         if mode == "ivf":
             if launched.get("ivf_block_topk", 0) <= 0:
-                raise AssertionError(f"load ivf: kernel 7 never launched ({stats['launches']})")
+                raise AssertionError(f"load ivf: kernel 7 never launched ({launched})")
             _LAUNCHES["ivf_block_topk"] += launched["ivf_block_topk"]
             err = assert_topk_match(*_results_by_rank(got), *_results_by_rank(want), tol=TOL)
             checked = (f"the first measured query {query!r} answered the same with kernel 7 on its plain version "
@@ -3445,7 +3446,7 @@ def entry_load(rows: int, dim: int) -> dict:
         else:
             checked = ("candidate_k 500 > 64 is served by exact_search_plain, so no kernel was compared; "
                        "expected launches: none")
-        log(f"[entry] load {mode}: {checked}; kernels launched in the measured window {launched or 'none'}; "
+        log(f"[entry] load {mode}: {checked}; kernels launched in the run {launched or 'none'}; "
             f"{time.perf_counter() - t:.1f} s")
         results[mode] = stats
         del server, index
@@ -3470,9 +3471,9 @@ def entry_graft() -> None:
     reset_launches()
     got = forward(corpus, queries)
     torch.cuda.synchronize()
-    ring = to.block_topk.launches_by_loop["fma_ring"]
-    if ring != 1 or to.block_topk.launches != 1:
-        raise AssertionError(f"entry(): block_topk launches by loop {to.block_topk.launches_by_loop}")
+    launched, loop = read_launches()["block_topk"], to.scoring_loop(corpus)
+    if launched != 1 or loop != "fma_ring":
+        raise AssertionError(f"entry(): block_topk launched {launched} times on the {loop} loop")
     _LAUNCHES["block_topk"] += 1
     with fma_loop():
         assert_same_bits("entry() against the FMA loop", got, forward(corpus, queries))
@@ -3542,16 +3543,20 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    global _SPY
+    from tests.torch_parity import spy_launches
+
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
     started = time.perf_counter()
     phase_device()
     runners = {"kernels": phase_kernels, "app": phase_app, "scale": phase_scale, "f32": phase_f32, "ivf": phase_ivf,
                "online": phase_online, "tools": phase_tools, "mesh": phase_mesh, "entry": phase_entry}
-    for name in phases:
-        if name in runners:
-            t = time.perf_counter()
-            runners[name]()
-            log(f"[{name}] phase passed in {time.perf_counter() - t:.1f} s")
+    with spy_launches() as _SPY:
+        for name in phases:
+            if name in runners:
+                t = time.perf_counter()
+                runners[name]()
+                log(f"[{name}] phase passed in {time.perf_counter() - t:.1f} s")
     for name in {n for phase in phases for n in _DRIVES.get(phase, ())}:
         if _LAUNCHES[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")

@@ -29,10 +29,7 @@ Counterpart of ``photo_search_engine_tpu/core/embedding_store.py``:
 
 from __future__ import annotations
 
-import hashlib
 import math
-import threading
-from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +37,7 @@ import torch
 
 from photo_search_engine_tpu_torch import tracing
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
+from photo_search_engine_tpu_torch.core.content_lru import ContentLRU
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import grouped_mask as grouped_ops
 from photo_search_engine_tpu_torch.ops import quantized as quant_ops
@@ -56,8 +54,6 @@ def _round_up(value: int, multiple: int) -> int:
 
 class EmbeddingStore:
     """Append-only device embedding matrix + search entry point."""
-
-    _MASK_LRU_SIZE = 32
 
     def __init__(
         self,
@@ -95,8 +91,7 @@ class EmbeddingStore:
         self._device_i8: Optional[torch.Tensor] = None  # [capacity, D] int8
         self._scales: Optional[torch.Tensor] = None     # [capacity] float32
         self._host_cache: Optional[np.ndarray] = np.zeros((0, self.dimension), np.float32)
-        self._mask_lru: "OrderedDict[Tuple[bytes, int], torch.Tensor]" = OrderedDict()
-        self._mask_lru_lock = threading.Lock()
+        self._masks = ContentLRU(32)  # device masks by content and capacity
 
     # ------------------------------------------------------------------
     @property
@@ -221,18 +216,8 @@ class EmbeddingStore:
         (repeated filters skip the host-to-device upload)."""
         mask_arr = np.zeros(self.capacity, np.int8)
         mask_arr[: self._count] = np.asarray(mask[: self._count], bool)
-        key = (hashlib.blake2b(mask_arr.tobytes(), digest_size=16).digest(), self.capacity)
-        with self._mask_lru_lock:
-            cached = self._mask_lru.get(key)
-            if cached is not None:
-                self._mask_lru.move_to_end(key)
-                return cached
-        mask_dev = torch.from_numpy(mask_arr).to(self.device)
-        with self._mask_lru_lock:
-            self._mask_lru[key] = mask_dev
-            while len(self._mask_lru) > self._MASK_LRU_SIZE:
-                self._mask_lru.popitem(last=False)
-        return mask_dev
+        return self._masks.get(ContentLRU.key(mask_arr, self.capacity),
+                               lambda: torch.from_numpy(mask_arr).to(self.device))
 
     # ------------------------------------------------------------------
     def search(
@@ -361,8 +346,7 @@ class EmbeddingStore:
         self._device_i8 = None
         self._scales = None
         self._host_cache = np.zeros((0, self.dimension), np.float32)
-        with self._mask_lru_lock:
-            self._mask_lru.clear()
+        self._masks.clear()
 
     @classmethod
     def from_array(

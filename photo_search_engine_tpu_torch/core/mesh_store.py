@@ -22,21 +22,17 @@ the gathered merge) instead of pulling the corpus onto one device.
 
 from __future__ import annotations
 
-import hashlib
-import threading
-from collections import OrderedDict
 from typing import Optional, Tuple
 
 import numpy as np
 
+from photo_search_engine_tpu_torch.core.content_lru import ContentLRU
 from photo_search_engine_tpu_torch.ops import quantized as quant_ops
 from photo_search_engine_tpu_torch.parallel.sharded import ShardedEmbeddingStore, make_mesh
 
 
 class MeshEmbeddingStore:
     """EmbeddingStore-compatible facade over a row-sharded corpus."""
-
-    _MASK_LRU_SIZE = 16
 
     def __init__(
         self,
@@ -66,8 +62,7 @@ class MeshEmbeddingStore:
         # insertion-order row -> stable id, and the inverse table of _translate
         self._ids = np.zeros((0,), np.int64)
         self._inverse: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
-        self._mask_lru: OrderedDict = OrderedDict()
-        self._mask_lru_lock = threading.Lock()  # the micro-batcher's pipeline threads share the LRU
+        self._masks = ContentLRU(16)  # layout bits by content, count and capacity
 
     @property
     def count(self) -> int:
@@ -128,18 +123,8 @@ class MeshEmbeddingStore:
         corpus repeat the same few predicates every request."""
         keep = np.asarray(mask)[: self.count] > 0
         _, capacity = self._sharded._sync()
-        key = (hashlib.blake2b(np.packbits(keep).tobytes(), digest_size=16).digest(), self.count, capacity)
-        with self._mask_lru_lock:
-            cached = self._mask_lru.get(key)
-            if cached is not None:
-                self._mask_lru.move_to_end(key)
-                return cached
-        out = self._sharded.layout_mask(self._ids, keep)
-        with self._mask_lru_lock:
-            self._mask_lru[key] = out
-            while len(self._mask_lru) > self._MASK_LRU_SIZE:
-                self._mask_lru.popitem(last=False)
-        return out
+        return self._masks.get(ContentLRU.key(np.packbits(keep), self.count, capacity),
+                               lambda: self._sharded.layout_mask(self._ids, keep))
 
     # ------------------------------------------------------------------
     def search(self, queries, k: int, *, mask=None, impl: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
@@ -200,8 +185,7 @@ class MeshEmbeddingStore:
         )
         self._ids = np.zeros((0,), np.int64)
         self._inverse = None
-        with self._mask_lru_lock:
-            self._mask_lru.clear()
+        self._masks.clear()
 
     @classmethod
     def from_array(

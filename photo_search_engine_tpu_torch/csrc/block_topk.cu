@@ -71,7 +71,7 @@
 // compare the two.  Other widths, whose rows TMA cannot stride, take the FMA
 // loop of block_score.cuh: a TQ x 8 register tile of fmaf, D staged 32 at a
 // time.  The same rule holds for kernel 3 here and for kernel 4
-// (fused_topk.cu).  The wrappers count launches by loop (launches_by_loop).
+// (fused_topk.cu).  topk.scoring_loop names the loop a launch runs.
 //
 // f32 on the ring (H100, 1M x 1536, PERF.md): within 1.2x of the bytes at
 // batch 1 and 8; at 128, 54 % of the 67 TFLOP/s FFMA bound.  One CTA an SM

@@ -43,8 +43,8 @@
 // tensor cores take d % 16 == 0 on 16-byte-aligned bases (the wrappers
 // check them and raise); other widths with d % 4 == 0 take the __dp4a loop
 // below (BQ 8, D staged as int8x4 words, an exact int32 dot by __dp4a, a
-// [BQ, bn] score tile and the k warp rounds of select_block_topk), and the
-// wrappers count those launches apart (launches_by_loop).
+// [BQ, bn] score tile and the k warp rounds of select_block_topk)
+// (quantized.int8_scoring_loop names the loop).
 //
 // Selection: the per-block top-kloc is chosen on exact f32 values with
 // ties to the smallest row (block_select.cuh), not with the TPU's packed

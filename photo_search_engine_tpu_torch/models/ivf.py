@@ -30,7 +30,6 @@ snapshot it is given.
 
 from __future__ import annotations
 
-import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -41,6 +40,7 @@ import torch
 
 from photo_search_engine_tpu_torch import tracing
 from photo_search_engine_tpu_torch.core import capacity as capacity_mod
+from photo_search_engine_tpu_torch.core.content_lru import ContentLRU
 from photo_search_engine_tpu_torch.device import resolve_device
 from photo_search_engine_tpu_torch.ops import ivf_scan
 from photo_search_engine_tpu_torch.ops.quantized import (
@@ -299,9 +299,8 @@ class _ScanGraph:
     :meth:`IVFIndex.append` replaces.  ``lock`` gives the static buffers to
     one call at a time, from the upload to the results on the host."""
 
-    def __init__(self, graph, dev_in, dev_out, k, keep, counter, loop) -> None:
+    def __init__(self, graph, dev_in, dev_out, k, keep) -> None:
         self.graph, self.dev_in, self.dev_out, self.k, self.keep = graph, dev_in, dev_out, k, keep
-        self.counter, self.loop = counter, loop  # the kernel wrapper's launch counts, when it keeps them
         self.host_in = torch.empty(dev_in.shape, dtype=dev_in.dtype, pin_memory=True)
         self.host_out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
         self.lock = threading.Lock()
@@ -317,9 +316,6 @@ class _ScanGraph:
             self.host_out.copy_(self.dev_out, non_blocking=True)
             torch.cuda.current_stream(self.dev_in.device).synchronize()
             out = self.host_out.numpy().copy()
-        if self.counter is not None:
-            self.counter.launches += 1
-            self.counter.launches_by_loop[self.loop] += 1
         k = self.k
         return out[:, :k].view(np.float32), out[:, k : 2 * k], out[:, 2 * k :]
 
@@ -327,7 +323,6 @@ class _ScanGraph:
 class IVFIndex:
     """Cluster-pruned exact-scoring index (layout + search) on one device."""
 
-    _MASK_LRU_SIZE = 16
     _GRAPH_LRU_SIZE = 16
 
     def __init__(
@@ -360,8 +355,7 @@ class IVFIndex:
         self._cnorms: Optional[torch.Tensor] = None
         self._corpus_i8: Optional[torch.Tensor] = None
         self._cscales: Optional[torch.Tensor] = None
-        self._mask_lru: "OrderedDict[Tuple[bytes, int], torch.Tensor]" = OrderedDict()
-        self._mask_lru_lock = threading.Lock()
+        self._masks = ContentLRU(16)  # slot masks by content
         # captured scans by (q, k, nprobe, kernel 7's wrapper); None: the capture failed, the shape runs eager
         self._graphs: "OrderedDict[tuple, Optional[_ScanGraph]]" = OrderedDict()
         self._graph_lock = threading.Lock()  # the cache, a capture, and append's replacement of what graphs read
@@ -406,12 +400,12 @@ class IVFIndex:
             return self._corpus_i8, min(max(2 * k, 20), INT8_MAX_K, self.capacity)
         return self._corpus, k
 
-    def _prepare_scan(self, k: int) -> Tuple[torch.Tensor, int]:
+    def _prepare_scan(self, k: int) -> None:
         """Build what a top-``k`` scan reads besides the layout (the int8
-        shadow, the l2 norms); returns :meth:`_kernel_layout`."""
+        shadow, the l2 norms)."""
         if self.metric == "l2":
             self._corpus_norms()
-        return self._kernel_layout(k)
+        self._kernel_layout(k)
 
     # -- construction ---------------------------------------------------
     @classmethod
@@ -602,17 +596,8 @@ class IVFIndex:
         slot_bits = np.zeros(self.perm.shape[0], np.int8)
         slot_bits[live] = bits[np.clip(self.perm[live], 0, bits.shape[0] - 1)]
         ratio = float(slot_bits.sum(dtype=np.int64)) / max(int(live.sum()), 1)
-        key = (hashlib.blake2b(slot_bits.tobytes(), digest_size=16).digest(), slot_bits.shape[0])
-        with self._mask_lru_lock:
-            cached = self._mask_lru.get(key)
-            if cached is not None:
-                self._mask_lru.move_to_end(key)
-                return cached, ratio
-        dev = torch.from_numpy(slot_bits).to(self.device)
-        with self._mask_lru_lock:
-            self._mask_lru[key] = dev
-            while len(self._mask_lru) > self._MASK_LRU_SIZE:
-                self._mask_lru.popitem(last=False)
+        dev = self._masks.get(ContentLRU.key(slot_bits, slot_bits.shape[0]),
+                              lambda: torch.from_numpy(slot_bits).to(self.device))
         return dev, ratio
 
     @staticmethod
@@ -737,7 +722,7 @@ class IVFIndex:
         with self._graph_lock:
             if key in self._graphs:
                 return
-            layout, k_kern = self._prepare_scan(k)
+            self._prepare_scan(k)
             current = torch.cuda.current_stream(self.device)
             stream = torch.cuda.Stream(self.device)
             stream.wait_stream(current)
@@ -753,10 +738,7 @@ class IVFIndex:
                     finally:
                         graph.capture_end()
                 current.wait_stream(stream)
-                scan = ivf_scan.ivf_block_topk
-                counter = scan if hasattr(scan, "launches_by_loop") else None
-                entry = _ScanGraph(graph, dev_in, dev_out, k, (self._cnorms, self._corpus_i8, self._cscales),
-                                   counter, ivf_scan.ivf_scoring_loop(layout, k_kern))
+                entry = _ScanGraph(graph, dev_in, dev_out, k, (self._cnorms, self._corpus_i8, self._cscales))
             except RuntimeError as exc:  # a capture CUDA refused: the shape keeps the eager scan
                 print(f"[WARN] IVF scan of {q} queries, k={k}, nprobe={nprobe} not captured as a CUDA graph: {exc}")
                 entry = None

@@ -27,7 +27,7 @@ predicate row.  Inner product only, as in the JAX package.
 Both score bfloat16 rows with D % 8 == 0 on the tensor cores and float32
 rows with D % 4 == 0 with IEEE fmaf on the same TMA ring
 (``csrc/block_score_tc.cuh``, 16-byte-aligned bases), every other corpus on
-the FMA loop (``topk.scoring_loop``), counted in ``launches_by_loop``.
+the FMA loop (``topk.scoring_loop``).
 
 ``impl`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
 ``"pallas_fused"`` run kernel 5 (the JAX function has no fused grouped
@@ -53,7 +53,6 @@ from photo_search_engine_tpu_torch.ops.topk import (
     DEFAULT_BLOCK_N,
     FAST_MAX_BN,
     MAX_KERNEL_K,
-    SCORING_LOOPS,
     _empty,
     _finalize,
     check_impl,
@@ -217,15 +216,8 @@ def grouped_block_topk(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
         )
     loop = scoring_loop(corpus)
-    out = _launch_grouped_scan("grouped_block_topk", False, corpus, queries, mask_table, mask_ids, k,
-                               count, block_n, loop)
-    grouped_block_topk.launches += 1
-    grouped_block_topk.launches_by_loop[loop] += 1
-    return out
-
-
-grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-grouped_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
+    return _launch_grouped_scan("grouped_block_topk", False, corpus, queries, mask_table, mask_ids, k,
+                                count, block_n, loop)
 
 
 def fast_grouped_block_topk(
@@ -248,15 +240,8 @@ def fast_grouped_block_topk(
             corpus, queries, mask_table, mask_ids, k, count=count, block_n=block_n
         )
     loop = scoring_loop(corpus)
-    out = _launch_grouped_scan("fast_grouped_block_topk", True, corpus, queries, mask_table, mask_ids,
-                               k, count, block_n, loop)
-    fast_grouped_block_topk.launches += 1
-    fast_grouped_block_topk.launches_by_loop[loop] += 1
-    return out
-
-
-fast_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fast_grouped_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
+    return _launch_grouped_scan("fast_grouped_block_topk", True, corpus, queries, mask_table, mask_ids,
+                                k, count, block_n, loop)
 
 
 def predicate_inputs(mask_table: torch.Tensor, mask_ids: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -374,11 +374,4 @@ def ivf_block_topk(
         _cuda.stream(dev),
     )
     _cuda.check(err, "ivf_block_topk")
-    if not torch.cuda.is_current_stream_capturing():  # a captured launch counts at each replay (models/ivf.py)
-        ivf_block_topk.launches += 1
-        ivf_block_topk.launches_by_loop[loop] += 1
     return out_v, out_i
-
-
-ivf_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-ivf_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop

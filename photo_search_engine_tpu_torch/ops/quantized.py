@@ -209,13 +209,7 @@ def int8_block_topk(
         _cuda.stream(corpus_i8.device),
     )
     _cuda.check(err, "int8_block_topk")
-    int8_block_topk.launches += 1
-    int8_block_topk.launches_by_loop[loop] += 1
     return out_v, out_i
-
-
-int8_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-int8_block_topk.launches_by_loop = {"tensor_core": 0, "dp4a": 0}  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +277,7 @@ def int8_grouped_block_topk(
         _cuda.stream(dev),
     )
     _cuda.check(err, "int8_grouped_block_topk")
-    int8_grouped_block_topk.launches += 1
-    int8_grouped_block_topk.launches_by_loop[loop] += 1
     return out_v, out_i
-
-
-int8_grouped_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-int8_grouped_block_topk.launches_by_loop = {"tensor_core": 0, "dp4a": 0}  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,7 @@ Any other ``impl`` raises.
 Kernels 1, 3 and 4 score bfloat16 rows with D % 8 == 0 on the tensor cores
 and float32 rows with D % 4 == 0 with IEEE fmaf on the same TMA ring
 (``csrc/block_score_tc.cuh``, 16-byte-aligned bases), every other corpus
-on the FMA loop (:func:`scoring_loop`); each wrapper counts its launches by
-loop in ``launches_by_loop``.
+on the FMA loop (:func:`scoring_loop`).
 
 Contract (FAISS flat conventions, as in the JAX package): ``ip``/
 ``cosine`` distances are inner products sorted descending; ``l2``
@@ -83,15 +82,6 @@ def resolve_store_dtype(store_dtype, device) -> str:
     if resolved != "auto":
         return resolved
     return "bfloat16" if torch.device(device).type == "cuda" else "float32"
-
-
-def bucket_queries(qn: int) -> int:
-    """Next power of two ≥ max(8, qn): the padded query counts the JAX
-    package compiles its kernels for (bounded shape set)."""
-    bucket = 8
-    while bucket < qn:
-        bucket *= 2
-    return bucket
 
 
 def _empty(q: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -402,14 +392,7 @@ def block_topk(
             cnorms=cnorms, block_n=block_n,
         )
     loop = scoring_loop(corpus)
-    out = _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n, loop)
-    block_topk.launches += 1
-    block_topk.launches_by_loop[loop] += 1
-    return out
-
-
-block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
+    return _launch_block_scan("block_topk", False, corpus, queries, k, count, metric, mask, cnorms, block_n, loop)
 
 
 def fast_block_topk(
@@ -434,15 +417,8 @@ def fast_block_topk(
             cnorms=cnorms, block_n=block_n,
         )
     loop = scoring_loop(corpus)
-    out = _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n,
-                             loop)
-    fast_block_topk.launches += 1
-    fast_block_topk.launches_by_loop[loop] += 1
-    return out
-
-
-fast_block_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fast_block_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
+    return _launch_block_scan("fast_block_topk", True, corpus, queries, k, count, metric, mask, cnorms, block_n,
+                              loop)
 
 
 def merge_partials(part_v, part_i, k):
@@ -634,13 +610,7 @@ def fused_topk(
     else:
         err = lib.pse_fused_topk_f32(*args, int(loop == "fma_ring"), _cuda.stream(dev))
     _cuda.check(err, "fused_topk")
-    fused_topk.launches += 1
-    fused_topk.launches_by_loop[loop] += 1
     return out_v, out_i, part_v, part_i
-
-
-fused_topk.launches = 0  # kernel launches (read by chip_smoke.py)
-fused_topk.launches_by_loop = dict.fromkeys(SCORING_LOOPS, 0)  # the same launches, by scoring loop
 
 
 # ---------------------------------------------------------------------------

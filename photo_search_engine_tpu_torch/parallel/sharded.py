@@ -62,19 +62,24 @@ _ORBAX = "Orbax checkpoints are not ported to the PyTorch port; save with format
 
 
 class DistContext(NamedTuple):
-    """A joined ``torch.distributed`` job: this rank's device, and the two
-    groups the port uses (``host_group`` for host data, ``device_group``
-    for the partials and the k-means sums)."""
+    """A joined ``torch.distributed`` job: this rank's device and the
+    backend of its device collectives.  It holds no process group: host
+    data goes over the default group, the partials and the k-means sums
+    over ``_DEVICE_GROUP``."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
-    device_group: object
-    host_group: object
 
 
 _CONTEXT: Optional[DistContext] = None  # the process's job, like torch.distributed's default group
+# The NCCL group of the device collectives when every rank has a card of its
+# own, else None (the default gloo group).  Only here and in torch.distributed's
+# registry: a group that outlives shutdown_distributed is freed while the
+# interpreter finalizes, and its worker threads can then abort the process
+# ("terminate called without an active exception").
+_DEVICE_GROUP = None
 
 
 def distributed() -> Optional[DistContext]:
@@ -95,7 +100,7 @@ def init_distributed(init_method: str, world_size: int, rank: int, platform: Opt
       stages CUDA tensors through host memory.
 
     The choice is printed.  Returns the job's :class:`DistContext`."""
-    global _CONTEXT
+    global _CONTEXT, _DEVICE_GROUP
     if _CONTEXT is not None:
         raise RuntimeError("torch.distributed is already initialised in this process")
     device = resolve_device(platform)
@@ -106,19 +111,22 @@ def init_distributed(init_method: str, world_size: int, rank: int, platform: Opt
     cards = [None] * world_size
     dist.all_gather_object(cards, (socket.gethostname(), device.index) if device.type == "cuda" else None)
     own_card = device.type == "cuda" and len(set(cards)) == world_size
-    device_group = dist.new_group(backend="nccl") if own_card else dist.group.WORLD
+    _DEVICE_GROUP = dist.new_group(backend="nccl") if own_card else None
     backend = "nccl" if own_card else "gloo"
     why = "a card per rank" if own_card else ("ranks on the host" if device.type == "cpu" else "ranks share a card")
     print(f"[INFO] torch.distributed: rank {rank}/{world_size} via {init_method} on {device}; "
           f"device collectives on {backend} ({why})", flush=True)
-    _CONTEXT = DistContext(rank, world_size, device, backend, device_group, dist.group.WORLD)
+    _CONTEXT = DistContext(rank, world_size, device, backend)
     return _CONTEXT
 
 
 def shutdown_distributed() -> None:
-    """Leave the job :func:`init_distributed` joined (no-op without one)."""
-    global _CONTEXT
+    """Leave the job :func:`init_distributed` joined (no-op without one).
+    With the last references gone, the groups are freed here, before the
+    interpreter exits."""
+    global _CONTEXT, _DEVICE_GROUP
     if _CONTEXT is not None:
+        _DEVICE_GROUP = None
         dist.destroy_process_group()
         _CONTEXT = None
 
@@ -260,7 +268,7 @@ def gather_shards(mesh: Mesh, local: List[torch.Tensor]) -> torch.Tensor:
         return stacked
     staged = _host_staged(mesh, stacked).contiguous()
     out = [torch.empty_like(staged) for _ in range(mesh.world)]
-    dist.all_gather(out, staged, group=mesh.context.device_group)
+    dist.all_gather(out, staged, group=_DEVICE_GROUP)
     return torch.cat(out).to(mesh.device)
 
 
@@ -274,7 +282,7 @@ def psum(mesh: Mesh, local: List[torch.Tensor]) -> torch.Tensor:
     if mesh.world == 1:
         return total
     staged = _host_staged(mesh, total).contiguous()
-    dist.all_reduce(staged, group=mesh.context.device_group)
+    dist.all_reduce(staged, group=_DEVICE_GROUP)
     return staged.to(mesh.device)
 
 

@@ -23,14 +23,12 @@ widen ``nprobe`` by about 1/selectivity, as in ``models/ivf.py``.
 
 from __future__ import annotations
 
-import hashlib
-import threading
-from collections import OrderedDict
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from photo_search_engine_tpu_torch.core.content_lru import ContentLRU
 from photo_search_engine_tpu_torch.models.ivf import IVFIndex, _lay_out, _round_up, assign_clusters, balanced_layout
 from photo_search_engine_tpu_torch.ops import ivf_scan
 from photo_search_engine_tpu_torch.ops.topk import merge_partials, row_sq_norms, total_order_topk
@@ -44,7 +42,6 @@ class ShardedIVFIndex:
     ``search`` returns ``(distances, stable ids)`` in the store's id
     convention (``shard · 2^40 + local``)."""
 
-    _MASK_LRU_SIZE = 16
 
     def __init__(
         self,
@@ -72,8 +69,7 @@ class ShardedIVFIndex:
                            for s, dev in zip(mesh.local_shards, mesh.devices)]
         self.built_counts = np.asarray(built_counts, np.int64)
         self._cnorms: Optional[List[torch.Tensor]] = None  # l2: squared layout-row norms, per local shard
-        self._mask_lru: "OrderedDict" = OrderedDict()
-        self._mask_lru_lock = threading.Lock()  # the micro-batcher's pipeline threads share the LRU
+        self._masks = ContentLRU(16)  # staged shard masks by content
 
     @property
     def span(self) -> int:
@@ -216,19 +212,13 @@ class ShardedIVFIndex:
         """``[n_shards · span]`` slot bits → this process's int8 shard
         masks on their devices, LRU-cached by content digest."""
         bits = np.ascontiguousarray(slot_mask, np.int8)
-        key = (hashlib.blake2b(bits.tobytes(), digest_size=16).digest(), bits.shape[0])
-        with self._mask_lru_lock:
-            cached = self._mask_lru.get(key)
-            if cached is not None:
-                self._mask_lru.move_to_end(key)
-                return cached
-        per_shard = bits.reshape(self.n_shards, self.span)
-        dev = [torch.from_numpy(per_shard[s].copy()).to(d) for s, d in zip(self.mesh.local_shards, self.mesh.devices)]
-        with self._mask_lru_lock:
-            self._mask_lru[key] = dev
-            while len(self._mask_lru) > self._MASK_LRU_SIZE:
-                self._mask_lru.popitem(last=False)
-        return dev
+
+        def stage() -> List[torch.Tensor]:
+            per_shard = bits.reshape(self.n_shards, self.span)
+            return [torch.from_numpy(per_shard[s].copy()).to(d)
+                    for s, d in zip(self.mesh.local_shards, self.mesh.devices)]
+
+        return self._masks.get(ContentLRU.key(bits, bits.shape[0]), stage)
 
     def probe(self, queries: torch.Tensor, nprobe: int) -> torch.Tensor:
         """Stage 1: each query's ``nprobe`` nearest centroids by ``2s −

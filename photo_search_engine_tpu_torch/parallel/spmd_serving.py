@@ -16,8 +16,8 @@ k-means ``psum``) must be entered by all ranks in the same order.
 
 Rank 0 therefore runs the whole single-process serving stack unchanged
 (searcher, micro-batcher, WSGI app, HTTP listener).  The broadcasts are
-host data and always go over the job's gloo group (``DistContext.
-host_group``), whatever backend the device collectives use.
+host data and always go over the job's default group (gloo), whatever
+backend the device collectives use.
 
 Protocol: header ``int64[8]`` (op, then op-specific sizes), then the
 payload arrays, whose shapes and dtypes the header determines.  Ops: 0
@@ -50,11 +50,12 @@ _OP_RELOAD = 4
 _OP_CLEAR = 5
 
 
-def _broadcast(value: np.ndarray, group) -> np.ndarray:
-    """Rank 0 → every rank broadcast of one host array (every rank passes
-    the same shape and dtype; other ranks' values are ignored)."""
+def _broadcast(value: np.ndarray) -> np.ndarray:
+    """Rank 0 → every rank broadcast of one host array over the default
+    group (every rank passes the same shape and dtype; other ranks' values
+    are ignored)."""
     tensor = torch.from_numpy(np.ascontiguousarray(value).copy())
-    dist.broadcast(tensor, src=0, group=group)
+    dist.broadcast(tensor, src=0)
     return tensor.numpy()
 
 
@@ -71,7 +72,6 @@ class SPMDVectorIndex(VectorIndex):
         context = distributed()
         self._spmd_rank = context.rank if context else 0
         self._spmd_world = context.world if context else 1
-        self._spmd_group = context.host_group if context else None
         # rank 0 serves from many threads (HTTP, the micro-batcher); the
         # broadcast order must be the device-entry order, so each op holds
         # this lock across its broadcast and its run
@@ -96,11 +96,11 @@ class SPMDVectorIndex(VectorIndex):
             return
         if os.environ.get("SPMD_DEBUG"):
             print(f"[spmd-debug] announce {header}", file=sys.stderr, flush=True)
-        _broadcast(np.asarray((header + [0] * 8)[:8], np.int64), self._spmd_group)
+        _broadcast(np.asarray((header + [0] * 8)[:8], np.int64))
 
     def _send(self, arr: np.ndarray) -> None:
         if self._fans_out():
-            _broadcast(arr, self._spmd_group)
+            _broadcast(arr)
 
     def _route_search(self, queries: np.ndarray, k: int, mask):
         with self._spmd_lock:
@@ -164,27 +164,26 @@ class SPMDVectorIndex(VectorIndex):
         """Replay rank 0's ops until shutdown; returns how many were replayed."""
         if self._spmd_rank == 0:
             raise RuntimeError("follow() is for the ranks other than 0")
-        group = self._spmd_group
         while True:
-            header = _broadcast(np.zeros(8, np.int64), group)
+            header = _broadcast(np.zeros(8, np.int64))
             op = int(header[0])
             if op == _OP_SHUTDOWN:
                 return self.spmd_ops_replayed
             if op == _OP_SEARCH:
                 q_n, dim, k, mask_len = (int(x) for x in header[1:5])
-                queries = _broadcast(np.zeros((q_n, dim), np.float32), group)
-                mask = _broadcast(np.zeros(mask_len, np.uint8), group).astype(bool) if mask_len else None
+                queries = _broadcast(np.zeros((q_n, dim), np.float32))
+                mask = _broadcast(np.zeros(mask_len, np.uint8)).astype(bool) if mask_len else None
                 super()._route_search(queries, k, mask)
             elif op == _OP_GROUPED:
                 q_n, dim, k, n_masks, n_rows = (int(x) for x in header[1:6])
-                queries = _broadcast(np.zeros((q_n, dim), np.float32), group)
-                table = _broadcast(np.zeros((n_masks, n_rows), np.uint8), group)
-                ids = _broadcast(np.zeros(q_n, np.int64), group)
+                queries = _broadcast(np.zeros((q_n, dim), np.float32))
+                table = _broadcast(np.zeros((n_masks, n_rows), np.uint8))
+                ids = _broadcast(np.zeros(q_n, np.int64))
                 super().raw_grouped_search_batch(queries, k, table.astype(bool), ids)
             elif op == _OP_ADD:
                 b_n, dim, blob_len = (int(x) for x in header[1:4])
-                emb = _broadcast(np.zeros((b_n, dim), np.float32), group)
-                blob = _broadcast(np.zeros(blob_len, np.uint8), group)
+                emb = _broadcast(np.zeros((b_n, dim), np.float32))
+                blob = _broadcast(np.zeros(blob_len, np.uint8))
                 super().add_batch(emb, json.loads(blob.tobytes().decode("utf-8")))
             elif op == _OP_RELOAD:
                 super().load()

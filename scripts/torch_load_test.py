@@ -18,12 +18,10 @@ dtype, and installed with ``VectorIndex.load_device_rows``;
 ``--host-corpus`` keeps the numpy ``default_rng(0)`` rows and
 ``add_batch``, so both packages build the same rows.
 
-The JSON line has the JAX script's keys plus ``launches``: each kernel
-wrapper's launches over the measured window (zeroed after the warm-up).
-At 1M rows ``/search_photos`` over-fetches ``candidate_k = 500``, above
-the kernels' k of 64, so the flat store answers it with the plain exact
-scan and ``launches`` stays 0 there; the IVF store runs kernel 7 on its
-FMA loop for k > 64.
+The JSON line has the JAX script's keys.  At 1M rows ``/search_photos``
+over-fetches ``candidate_k = 500``, above the kernels' k of 64, so the
+flat store answers it with the plain exact scan; the IVF store runs
+kernel 7 on its FMA loop for k > 64.
 
 Not carried over from the JAX script (TPU-only workarounds): the XLA
 compile cache, forcing the JAX CPU platform for ``--fake-device-ms``, and
@@ -292,8 +290,6 @@ def warmup_requests(threads: int, total_requests: int) -> int:
 
 
 def run_load(port: int, threads: int, total_requests: int):
-    from photo_search_engine_tpu_torch.ops import read_launches, reset_launches
-
     queries = query_pool()
     latencies: list = []
     errors: list = []
@@ -358,10 +354,8 @@ def run_load(port: int, threads: int, total_requests: int):
     print(f"warmup: {warm} requests in {warm_wall:.1f}s", flush=True)
     latencies.clear()
     errors.clear()
-    reset_launches()
 
     wall = run_phase(total_requests, warm, timeout_s=300)
-    launches = read_launches()
     lat = np.sort(np.asarray(latencies, np.float64))
     if not len(lat):
         lat = np.asarray([float("nan")])
@@ -373,7 +367,6 @@ def run_load(port: int, threads: int, total_requests: int):
         "p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 1),
         "p90_ms": round(float(np.percentile(lat, 90)) * 1e3, 1),
         "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 1),
-        "launches": launches,
     }, errors[:3]
 
 

@@ -1,5 +1,7 @@
-"""The port's EmbeddingStore and capacity model against the JAX package's."""
+"""The port's EmbeddingStore and capacity model against the JAX package's,
+and the content-keyed cache of its filtered scans."""
 
+import sys
 import threading
 
 import numpy as np
@@ -9,6 +11,7 @@ import torch
 from photo_search_engine_tpu.core import capacity as jcap
 from photo_search_engine_tpu.core.embedding_store import EmbeddingStore as JaxStore
 from photo_search_engine_tpu_torch.core import capacity as tcap
+from photo_search_engine_tpu_torch.core.content_lru import ContentLRU
 from photo_search_engine_tpu_torch.core.convert import store_state_from_jax
 from photo_search_engine_tpu_torch.core.embedding_store import EmbeddingStore
 from tests.torch_parity import assert_topk_match, unit_rows
@@ -120,7 +123,7 @@ def test_mask_lru_is_bounded_and_thread_safe():
         t.start()
     for t in threads:
         t.join()
-    assert not errors and len(store._mask_lru) <= store._MASK_LRU_SIZE
+    assert not errors and len(store._masks) <= store._masks.size == 32
 
 
 @pytest.mark.parametrize(
@@ -167,3 +170,56 @@ def test_search_contract_edges():
     assert i.shape == (1, 3) and (i >= 0).all()  # one predicate that keeps every row
     store.clear()
     assert store.count == 0 and store.capacity == 0 and store.snapshot().shape == (0, D)
+
+
+def test_content_lru_keys_bound_and_eviction_order():
+    """The one cache of the four filtered paths: keyed on the bytes and
+    what else the value depends on, bounded, least recently used out
+    first, a hit made most recent."""
+    lru = ContentLRU(3)
+    built = []
+
+    def get(bits, *extra):
+        return lru.get(ContentLRU.key(np.asarray(bits, np.int8), *extra), lambda: built.append(bits) or len(built))
+
+    a = get([1, 0, 1])
+    assert get(np.array([1, 0, 1])) == a and len(built) == 1  # a copy with the same content hits
+    assert get([1, 0, 1], 4) == 2  # another capacity is another entry
+    b = get([0, 1, 1])
+    assert get([1, 0, 1]) == a and len(built) == 3  # a hit: now the most recent
+    c = get([1, 1, 0])  # evicts ([1, 0, 1], 4), the least recently used
+    assert len(lru) == 3 and get([1, 0, 1], 4) == 5  # built again; evicts [0, 1, 1]
+    assert (get([1, 0, 1]), get([1, 1, 0])) == (a, c) and len(built) == 5
+    assert get([0, 1, 1]) == 6 != b and len(lru) == 3
+    lru.clear()
+    assert len(lru) == 0 and get([0, 1, 1]) == 7
+
+
+def test_content_lru_shared_by_threads():
+    """Threads looking up and building at once: every answer is the value
+    of its own key, and the cache stays within its bound."""
+    lru = ContentLRU(4)
+    keys = [np.array([i, i >> 1, i >> 2], np.int8) for i in range(8)]
+    errors = []
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            for i in rng.integers(0, len(keys), 400):
+                got = lru.get(ContentLRU.key(keys[i]), lambda i=i: ("value", int(i)))
+                if got != ("value", int(i)):
+                    errors.append((i, got))
+        except Exception as exc:  # noqa: BLE001 — collected for the assert
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(s,)) for s in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads) and len(lru) <= 4

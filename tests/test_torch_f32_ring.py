@@ -2,7 +2,7 @@
 corpus takes (``topk.scoring_loop``, ``ivf_scan.ivf_scoring_loop``), the
 tests' ``fma_loop`` hook, the ring's stages, shared memory and CTAs an SM
 as ``csrc/block_score_tc.cuh`` compiles them (mirrored in Python for
-``fused_ranges`` and ``ivf_geometry``), the ``launches_by_loop`` keys and
+``fused_ranges`` and ``ivf_geometry``) and
 the ctypes signatures of the entry points that take the loop.  The kernels
 themselves run on the card (``tests/test_torch_kernels_cuda.py``, marked
 ``cuda``)."""
@@ -31,8 +31,10 @@ _SM_SHARED_LIMIT = 232448  # bytes one CTA may use on the H100
 ])
 def test_scoring_loop_rule(dtype, d, loop):
     """float32 rows TMA can stride (D % 4 == 0: a 16-byte row stride) take
-    the f32 ring; bf16 keeps its rule (the tensor cores at D % 8 == 0)."""
+    the f32 ring; bf16 keeps its rule (the tensor cores at D % 8 == 0).
+    The three loops are those ``fused_ranges`` and ``ivf_geometry`` take."""
     assert ttopk.scoring_loop(torch.zeros((2, d), dtype=dtype)) == loop
+    assert set(ttopk.SCORING_LOOPS) == {"tensor_core", "fma_ring", "fma"}
 
 
 @pytest.mark.parametrize("dtype,d,k,loop", [
@@ -130,14 +132,6 @@ def test_ivf_geometry_on_the_f32_ring():
     assert ivf_scan.ivf_geometry(256, 64, 1024, 1536, "fma") == (ivf_scan.IVF_FMA_BLOCK_N, 32)
     with pytest.raises(ValueError, match="loop"):
         ivf_scan.ivf_geometry(1, 8, 24, 384, "f32")
-
-
-def test_launches_by_loop_keys():
-    keys = {"tensor_core", "fma_ring", "fma"}
-    assert set(ttopk.SCORING_LOOPS) == keys
-    for wrapper in (ttopk.block_topk, ttopk.fast_block_topk, ttopk.fused_topk, tgm.grouped_block_topk,
-                    tgm.fast_grouped_block_topk, ivf_scan.ivf_block_topk):
-        assert wrapper.launches_by_loop.keys() == keys, wrapper.__name__
 
 
 def test_entry_points_that_take_the_loop():

@@ -431,5 +431,3 @@ def test_scoring_loop_and_alignment_rules():
     _cuda.require_aligned("rows", rows[:256].view(4, 64))
     with pytest.raises(ValueError, match="16-byte"):
         _cuda.require_aligned("rows", rows[4:260].view(4, 64))
-    assert ttopk.block_topk.launches_by_loop.keys() == tg.grouped_block_topk.launches_by_loop.keys() == {
-        "tensor_core", "fma_ring", "fma"}

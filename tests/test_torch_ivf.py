@@ -463,7 +463,6 @@ def test_group_size_and_tile_rule_read_no_probe_ids():
     assert ivf_scan.ivf_scoring_loop(f32, 64) == "fma_ring" and ivf_scan.ivf_scoring_loop(f32, 65) == "fma"
     assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1000)), 10) == "fma_ring"
     assert ivf_scan.ivf_scoring_loop(torch.zeros((4, 1002)), 10) == "fma"
-    assert ivf_scan.ivf_block_topk.launches_by_loop.keys() == {"tensor_core", "fma_ring", "fma"}
 
 
 def test_probe_ids_outside_the_layout_match_no_slot(monkeypatch):

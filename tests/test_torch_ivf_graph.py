@@ -6,8 +6,8 @@ answers as the eager scan does, that ``append`` empties the graph cache, and
 the ``ivf_graph_pct`` reader.  Marked ``cuda`` (skipped without a card):
 the replay against the eager scan bit for bit, the calls that stay eager,
 recapture after ``append``, concurrent callers, a capture beside another
-thread's copies, and the launch count.  This file imports no jax; on a
-machine with a card and without jax:
+thread's copies, and that a replay calls no kernel wrapper.  This file
+imports no jax; on a machine with a card and without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_ivf_graph.py
 """
@@ -23,7 +23,7 @@ from photo_search_engine_tpu_torch import tracing
 from photo_search_engine_tpu_torch.models import ivf
 from photo_search_engine_tpu_torch.ops import ivf_scan
 from portbench import manifest
-from tests.torch_parity import unit_rows
+from tests.torch_parity import spy_launches, unit_rows
 
 D = 64
 NLIST = 16
@@ -272,13 +272,18 @@ def test_a_capture_beside_another_threads_copies(card):
 
 
 @pytest.mark.cuda
-def test_a_replay_counts_one_launch(card):
+def test_a_replay_calls_no_kernel_wrapper(card):
+    """The graph replays kernel 7 without its wrapper: the first search of
+    a shape calls it three times and launches it twice (the eager scan and
+    the capture stream's warm-up; the capture only records), a replay calls
+    it never."""
     index, corpus = _cuda_index("ip", card)
     queries = _queries(corpus, 1)
-    index.search(queries, 10, nprobe=CUDA_NPROBE)  # eager + the capture stream's warm-up: two launches
-    wrapper = ivf_scan.ivf_block_topk
-    before, loops = wrapper.launches, dict(wrapper.launches_by_loop)
-    index.search(queries, 10, nprobe=CUDA_NPROBE)
-    assert wrapper.launches == before + 1
-    assert wrapper.launches_by_loop["tensor_core"] == loops["tensor_core"] + 1
-    assert sum(wrapper.launches_by_loop.values()) == sum(loops.values()) + 1
+    assert ivf_scan.ivf_scoring_loop(*index._kernel_layout(10)) == "tensor_core"
+    with spy_launches() as seen:
+        index.search(queries, 10, nprobe=CUDA_NPROBE)
+        assert index._graph(1, 10, CUDA_NPROBE) is not None, "the capture failed"
+        assert seen.calls()["ivf_block_topk"] == 3 and seen.launches()["ivf_block_topk"] == 2
+        seen.reset()
+        index.search(queries, 10, nprobe=CUDA_NPROBE)
+    assert sum(seen.calls().values()) == 0, seen.calls()

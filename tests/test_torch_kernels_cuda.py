@@ -32,7 +32,7 @@ from photo_search_engine_tpu_torch.ops import grouped_mask as go
 from photo_search_engine_tpu_torch.ops import ivf_scan as io
 from photo_search_engine_tpu_torch.ops import quantized as qo
 from photo_search_engine_tpu_torch.ops import topk as to
-from tests.torch_parity import (assert_same_bits, assert_topk_match, assert_window_match, fma_loop, launch_on_loop,
+from tests.torch_parity import (assert_same_bits, assert_topk_match, assert_window_match, fma_loop, launch_once,
                                 plain_scan)
 
 pytestmark = pytest.mark.cuda
@@ -57,10 +57,7 @@ def test_block_topk_matches_plain(gen, dtype, metric, k, q):
     corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
     mask = (torch.rand(3000, generator=gen, device="cuda") < 0.5).to(torch.int8)
     kw = dict(count=2900, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-    before = to.block_topk.launches
-    got_v, got_i = to.block_topk(corpus, queries, k, **kw)
-    torch.cuda.synchronize()
-    assert to.block_topk.launches == before + 1
+    got_v, got_i = launch_once(to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw))
     ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
 
@@ -129,10 +126,8 @@ def test_grouped_block_topk_matches_plain(gen, dtype, k, m, q):
     corpus, queries = _unit(3000, 256, gen, dtype), _unit(q, 256, gen, dtype)
     table, ids = _predicates(gen, m, 3000, q)
     kw = dict(count=2900, block_n=1024)
-    before = go.grouped_block_topk.launches
-    got_v, got_i = go.grouped_block_topk(corpus, queries, table, ids, k, **kw)
-    torch.cuda.synchronize()
-    assert go.grouped_block_topk.launches == before + 1
+    got_v, got_i = launch_once(go.grouped_block_topk, lambda: go.grouped_block_topk(corpus, queries, table, ids, k,
+                                                                                  **kw))
     ref_v, ref_i = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
 
@@ -144,10 +139,8 @@ def test_int8_grouped_block_topk_identical_to_plain(gen, k, m, q):
     q8, qs = qo.quantize_rows(_unit(q, 256, gen))
     table, ids = _predicates(gen, m, 5000, q)
     kw = dict(count=4800, block_n=2048)
-    before = qo.int8_grouped_block_topk.launches
-    got = qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k, **kw)
-    torch.cuda.synchronize()
-    assert qo.int8_grouped_block_topk.launches == before + 1
+    got = launch_once(qo.int8_grouped_block_topk, lambda: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k,
+                                                                                     **kw))
     ref = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, k, **kw)
     assert_topk_match(*got, *ref, tol=0.0, exact=True)
 
@@ -222,10 +215,8 @@ def test_ivf_block_topk_matches_plain(gen, dtype, metric, k, q, nprobe):
     corpus, queries, probes, row_valid = _ivf_inputs(gen, 24, lrows, 256, q, nprobe, dtype)
     cnorms = to.row_sq_norms(corpus)
     kw = dict(lrows=lrows, metric=metric, cnorms=cnorms)
-    before = io.ivf_block_topk.launches
-    got_v, got_i = io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw)
-    torch.cuda.synchronize()
-    assert io.ivf_block_topk.launches == before + 1
+    got_v, got_i = launch_once(io.ivf_block_topk, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k,
+                                                                            **kw))
     tile = io.ivf_launch(corpus, probes, lrows, k)[1]  # the kernel's tile, for the plain version's partials
     ref_v, ref_i = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k, block_n=tile, **kw)
     assert_topk_match(got_v, got_i, ref_v, ref_i, tol=1e-5)
@@ -266,8 +257,7 @@ def test_ivf_block_topk_masked_out_probes_and_ties(gen, dtype):
         corpus, queries = corpus.to(dtype), queries.to(dtype)
     loop = "fma_ring" if dtype == torch.float32 else "tensor_core"
     assert io.ivf_scoring_loop(corpus, 40) == loop
-    part = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid,
-                                                                             40, **kw))
+    part = launch_once(io.ivf_block_topk, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, 40, **kw))
     vals, slots = to.merge_partials(*part, 40)
     assert slots[0].tolist()[:36] == [7] + list(range(lrows + 5, lrows + 40))
     assert torch.isneginf(vals[1]).all() and (slots[1] == torch.iinfo(torch.int32).max).all()
@@ -316,8 +306,8 @@ def _ivf_pair(gen, tier, metric, k, q, nprobe, *, lrows=1100, nlist=24, d=256, m
         corpus, cs = qo.quantize_rows(corpus)
         queries, qs = io.quantize_ivf_queries(queries.float())
         kw.update(qscales=qs, cscales=cs)
-    got = launch_on_loop(io.ivf_block_topk, "tensor_core",
-                         lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
+    assert io.ivf_scoring_loop(corpus, k) == "tensor_core"
+    got = launch_once(io.ivf_block_topk, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
     kw["block_n"] = io.ivf_launch(corpus, probes, lrows, k, kw.get("block_n"), kw.pop("bq", None))[1]
     return got, io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k, **kw)
 
@@ -364,7 +354,7 @@ def test_ivf_launches_by_loop(gen, case):
         kw.update(qscales=qs, cscales=cs)
     loop = {"bf16": "tensor_core", "int8": "tensor_core", "f32": "fma_ring"}.get(case, "fma")
     assert io.ivf_scoring_loop(corpus, k) == loop
-    got = launch_on_loop(io.ivf_block_topk, loop, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
+    got = launch_once(io.ivf_block_topk, lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw))
     ref = io.ivf_block_topk_plain(corpus, queries, probes, row_valid, k,
                                   block_n=io.ivf_launch(corpus, probes, 384, k)[1], **kw)
     assert_topk_match(*got, *ref, tol=1e-5, exact=case.startswith("int8"))
@@ -420,10 +410,7 @@ def test_ivf_tensor_core_kernels_run_wgmma_and_tma():
 def _search_pair(module, name, search, sign=1.0):
     """``search()`` through the kernel ``module.name`` and through its plain
     version, in kernel space (higher is better)."""
-    before = getattr(module, name).launches
-    got = search()
-    torch.cuda.synchronize()
-    assert getattr(module, name).launches == before + 1
+    got = launch_once(getattr(module, name), search)
     with plain_scan(module, name):
         ref = search()
     return (sign * got[0], got[1]), (sign * ref[0], ref[1])
@@ -489,14 +476,15 @@ def test_bf16_fast_partials_are_the_plain_quantized_partials(gen, metric, q):
     queries = queries.to(torch.bfloat16)
     mask = (torch.rand(n, generator=gen, device="cuda") < 0.8).to(torch.int8)
     kw = dict(count=n - 10, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-    got = launch_on_loop(to.fast_block_topk, "tensor_core", lambda: to.fast_block_topk(corpus, queries, k, **kw))
+    assert to.scoring_loop(corpus) == go.scoring_loop(corpus) == "tensor_core"
+    got = launch_once(to.fast_block_topk, lambda: to.fast_block_topk(corpus, queries, k, **kw))
     assert_same_bits("", got, to.fast_block_topk_plain(corpus, queries, k, **kw))
     assert (got[1][:, 2, 40:] == 2048 + torch.arange(40, 64, device="cuda", dtype=torch.int32)).all()
     assert torch.isneginf(got[0][:, 2, 40:]).all()
     table, ids = _predicates(gen, 3, n, q)
     kw = dict(count=n - 10, block_n=1024)
-    got = launch_on_loop(go.fast_grouped_block_topk, "tensor_core",
-                       lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k, **kw))
+    got = launch_once(go.fast_grouped_block_topk, lambda: go.fast_grouped_block_topk(corpus, queries, table, ids, k,
+                                                                                     **kw))
     assert_same_bits("", got, go.fast_grouped_block_topk_plain(corpus, queries, table, ids, k, **kw))
 
 
@@ -509,10 +497,8 @@ def test_fused_topk_matches_plain_and_kernel1(gen, dtype, variant, k, q, per):
     frac = {"masked": 0.5, "empty": 0.0}.get(variant, 1.0)
     mask = (torch.rand(5000, generator=gen, device="cuda") < frac).to(torch.int8)
     kw = dict(count=4900, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-    before = to.fused_topk.launches
-    vals, idx, part_v, part_i = to.fused_topk(corpus, queries, k, blocks_per_range=per, **kw)
-    torch.cuda.synchronize()
-    assert to.fused_topk.launches == before + 1
+    vals, idx, part_v, part_i = launch_once(to.fused_topk, lambda: to.fused_topk(
+        corpus, queries, k, blocks_per_range=per, **kw))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per = per or to.fused_ranges(q, 5, sms, loop=to.scoring_loop(corpus))[1]
     ref = to.fused_topk_plain(corpus, queries, k + 1, blocks_per_range=per, **kw)
@@ -568,7 +554,7 @@ def test_bf16_block_topk_across_tiles_and_widths(gen, q, d, k):
               block_n=1024)
     loop = "tensor_core" if d % 8 == 0 else "fma"
     assert to.scoring_loop(corpus) == loop
-    got_v, got_i = launch_on_loop(to.block_topk, loop, lambda: to.block_topk(corpus, queries, k, **kw))
+    got_v, got_i = launch_once(to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw))
     ref_v, ref_i = to.exact_block_topk_plain(corpus, queries, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
 
@@ -582,9 +568,9 @@ def test_bf16_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
     corpus, queries = _unit(n, d, gen, torch.bfloat16), _unit(q, d, gen, torch.bfloat16)
     table, ids = _predicates(gen, 3, n, q)
     kw = dict(count=count, block_n=1024)
-    loop = "tensor_core" if d % 8 == 0 else "fma"
-    got_v, got_i = launch_on_loop(go.grouped_block_topk, loop,
-                                lambda: go.grouped_block_topk(corpus, queries, table, ids, k, **kw))
+    assert go.scoring_loop(corpus) == ("tensor_core" if d % 8 == 0 else "fma")
+    got_v, got_i = launch_once(go.grouped_block_topk, lambda: go.grouped_block_topk(corpus, queries, table, ids, k,
+                                                                                  **kw))
     ref_v, ref_i = go.grouped_block_topk_plain(corpus, queries, table, ids, k + 1, **kw)
     assert_topk_match(got_v, got_i, ref_v[..., :k], ref_i[..., :k], tol=1e-5, cut=ref_v[..., k])
 
@@ -667,20 +653,21 @@ def test_bf16_fast_and_fused_across_tiles_and_widths(gen, q, d, k):
     metric = "l2" if variant == "l2" else "ip"
     mask = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(torch.int8) if variant == "masked" else None
     loop = "tensor_core" if d % 8 == 0 else "fma"
+    assert to.scoring_loop(corpus) == go.scoring_loop(corpus) == loop
     sign = -1.0 if metric == "l2" else 1.0
     kw = dict(count=count, metric=metric, mask=mask, impl="pallas_fast", block_n=1024)
-    got = launch_on_loop(to.fast_block_topk, loop, lambda: to.exact_search(corpus, queries, k, **kw))
+    got = launch_once(to.fast_block_topk, lambda: to.exact_search(corpus, queries, k, **kw))
     with plain_scan(to, "fast_block_topk"):
         ref = to.exact_search(corpus, queries, k, **kw)
     assert_window_match(sign * got[0], got[1], sign * ref[0], ref[1], tol=1e-5)
     table, ids = _predicates(gen, 3, n, q)
     search = lambda: go.grouped_mask_search(corpus, queries, table, ids, k, count=count, impl="pallas_fast")  # noqa: E731
-    got = launch_on_loop(go.fast_grouped_block_topk, loop, search)
+    got = launch_once(go.fast_grouped_block_topk, search)
     with plain_scan(go, "fast_grouped_block_topk"):
         ref = search()
     assert_window_match(*got, *ref, tol=1e-5)
     scan = dict(count=count, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
-    vals, idx, part_v, part_i = launch_on_loop(to.fused_topk, loop, lambda: to.fused_topk(corpus, queries, k, **scan))
+    vals, idx, part_v, part_i = launch_once(to.fused_topk, lambda: to.fused_topk(corpus, queries, k, **scan))
     k1 = to.block_topk(corpus, queries, k, **scan)
     per = to.fused_ranges(q, 3, torch.cuda.get_device_properties(0).multi_processor_count, loop=loop)[1]
     assert_same_bits("", (part_v, part_i), to.range_partials(*k1, per, k))
@@ -714,7 +701,7 @@ def test_int8_block_topk_across_tiles_and_widths(gen, q, d, k):
               cnorms=to.row_sq_norms(ref_rows), block_n=2048)
     loop = qo.int8_scoring_loop(d)
     assert loop == ("tensor_core" if d % 16 == 0 else "dp4a")
-    got = launch_on_loop(qo.int8_block_topk, loop, lambda: qo.int8_block_topk(c8, cs, q8, qs, k, **kw))
+    got = launch_once(qo.int8_block_topk, lambda: qo.int8_block_topk(c8, cs, q8, qs, k, **kw))
     assert_topk_match(*got, *qo.int8_block_topk_plain(c8, cs, q8, qs, k, **kw), tol=0.0, exact=True)
 
 
@@ -727,8 +714,8 @@ def test_int8_grouped_block_topk_across_tiles_and_widths(gen, q, d, k):
     _, c8, cs, q8, qs = _int8_inputs(gen, n, d, q)
     table, ids = _predicates(gen, 3, n, q)
     kw = dict(count=count, block_n=2048)
-    got = launch_on_loop(qo.int8_grouped_block_topk, qo.int8_scoring_loop(d),
-                       lambda: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k, **kw))
+    got = launch_once(qo.int8_grouped_block_topk, lambda: qo.int8_grouped_block_topk(c8, cs, q8, qs, table, ids, k,
+                                                                                     **kw))
     ref = qo.int8_grouped_block_topk_plain(c8, cs, q8, qs, table, ids, k, **kw)
     assert_topk_match(*got, *ref, tol=0.0, exact=True)
 
@@ -831,7 +818,9 @@ def test_f32_ring_is_the_fma_loop_bit_for_bit(gen, q, d, k):
     corpus, queries = _unit(2500, d, gen), _unit(q, d, gen)
     mask = (torch.rand(2500, generator=gen, device="cuda") < 0.6).to(torch.int8)
     table, ids = _predicates(gen, 3, 2500, q)
-    assert to.scoring_loop(corpus) == "fma_ring"
+    assert to.scoring_loop(corpus) == go.scoring_loop(corpus) == "fma_ring"
+    with fma_loop():
+        assert to.scoring_loop(corpus) == go.scoring_loop(corpus) == "fma"
     for metric in ("ip", "l2"):
         kw = dict(count=2400, metric=metric, mask=mask, cnorms=to.row_sq_norms(corpus), block_n=1024)
         calls = ((to.block_topk, lambda: to.block_topk(corpus, queries, k, **kw)),
@@ -839,9 +828,9 @@ def test_f32_ring_is_the_fma_loop_bit_for_bit(gen, q, d, k):
                  (to.fused_topk, lambda: to.fused_topk(corpus, queries, k, blocks_per_range=2, **kw)),
                  (go.grouped_block_topk, lambda: go.grouped_block_topk(corpus, queries, table, ids, k,
                                                                        count=2400, block_n=1024)))
-        ring = [launch_on_loop(wrapper, "fma_ring", call) for wrapper, call in calls]
+        ring = [launch_once(wrapper, call) for wrapper, call in calls]
         with fma_loop():
-            fma = [launch_on_loop(wrapper, "fma", call) for wrapper, call in calls]
+            fma = [launch_once(wrapper, call) for wrapper, call in calls]
         for got, want in zip(ring, fma):
             _same(got[:2], want[:2])
         _same(ring[2][2:], fma[2][2:])  # kernel 4's range partials
@@ -857,9 +846,11 @@ def test_f32_ring_ivf_is_the_fma_loop_bit_for_bit(gen, block_n, bq, metric):
     kw = dict(lrows=1100, metric=metric, cnorms=to.row_sq_norms(corpus), block_n=block_n, bq=bq)
     for k in (1, 64):
         call = lambda: io.ivf_block_topk(corpus, queries, probes, row_valid, k, **kw)  # noqa: E731
-        ring = launch_on_loop(io.ivf_block_topk, "fma_ring", call)
+        assert io.ivf_scoring_loop(corpus, k) == "fma_ring"
+        ring = launch_once(io.ivf_block_topk, call)
         with fma_loop():
-            _same(ring, launch_on_loop(io.ivf_block_topk, "fma", call))
+            assert io.ivf_scoring_loop(corpus, k) == "fma"
+            _same(ring, launch_once(io.ivf_block_topk, call))
 
 
 def test_f32_ring_refuses_what_it_cannot_stride(gen):
@@ -869,9 +860,10 @@ def test_f32_ring_refuses_what_it_cannot_stride(gen):
     f32, bf16 = _unit(100, 64, gen), _unit(100, 64, gen, torch.bfloat16)
     with fma_loop():
         assert to.scoring_loop(f32) == "fma" and to.scoring_loop(bf16) == "tensor_core"
-        launch_on_loop(to.block_topk, "tensor_core", lambda: to.block_topk(bf16, bf16[:2].contiguous(), 5,
-                                                                             count=100))
-    launch_on_loop(to.block_topk, "fma", lambda: to.block_topk(_unit(100, 66, gen), _unit(2, 66, gen), 5, count=100))
+        launch_once(to.block_topk, lambda: to.block_topk(bf16, bf16[:2].contiguous(), 5, count=100))
+    wide = _unit(100, 66, gen)
+    assert to.scoring_loop(wide) == "fma"
+    launch_once(to.block_topk, lambda: to.block_topk(wide, _unit(2, 66, gen), 5, count=100))
     with pytest.raises(ValueError, match="16-byte"):
         to.block_topk(_unit(101, 64, gen).reshape(-1)[1:6401].view(100, 64), f32[:2].contiguous(), 5, count=100)
 

@@ -112,7 +112,7 @@ def test_layout_masks_are_cached_by_content():
     _, p, _, rng = _stores()
     mask = (rng.random(100) < 0.5).astype(np.int32)
     first = p._layout_mask(mask)
-    assert p._layout_mask(mask.copy()) is first and len(p._mask_lru) == 1
+    assert p._layout_mask(mask.copy()) is first and len(p._masks) == 1
 
 
 def _paths(tmp_path, name):

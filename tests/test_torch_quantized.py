@@ -286,11 +286,6 @@ def test_int8_scoring_loop_rule(dim, loop):
     assert "if (d % 16 != 0)\n    return run<8, kGrouped>(" in source
 
 
-def test_int8_launches_by_loop_keys():
-    assert tq.int8_block_topk.launches_by_loop.keys() == {"tensor_core", "dp4a"}
-    assert tq.int8_grouped_block_topk.launches_by_loop.keys() == {"tensor_core", "dp4a"}
-
-
 @pytest.mark.parametrize("bq_name", ["kSmallBQ", "kLargeBQ"])
 def test_int8_tensor_core_tiles_fit_two_ctas_an_sm(bq_name):
     """The int8 instantiations of ``block_score_tc.cuh`` (the S8 operand),

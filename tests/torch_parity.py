@@ -1,14 +1,17 @@
 """Shared helpers of the ``test_torch_*`` parity tests and of
 ``chip_smoke.py``: seeded inputs made with numpy and handed to both
-packages, the top-k comparisons, the kernel-launch checks, the route
+packages, the top-k comparisons, the spy on the kernel wrappers, the route
 flows both apps run, and a local stand-in for an OpenAI-compatible
 server (embeddings, /rerank, chat completions) with the rules it answers
 by.  Imports no jax (a test runs it with jax absent)."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import hashlib
+import importlib
 import io
 import json
 import os
@@ -115,17 +118,102 @@ def assert_same_bits(what, got, ref):
     assert got[0].shape == ref[0].shape and bad == 0, f"{what}: {bad} slots differ from the reference's bits"
 
 
-def launch_on_loop(wrapper, loop, call):
-    """``call()``, which must launch ``wrapper`` once, on the scoring loop
-    ``loop`` (``wrapper.launches_by_loop``); returns what it returns."""
+# The port's kernel wrappers, by the ``ops`` module that holds each.
+KERNEL_WRAPPERS = {
+    "block_topk": "topk", "fast_block_topk": "topk", "fused_topk": "topk",
+    "grouped_block_topk": "grouped_mask", "fast_grouped_block_topk": "grouped_mask",
+    "int8_block_topk": "quantized", "int8_grouped_block_topk": "quantized",
+    "ivf_block_topk": "ivf_scan",
+}
+
+
+class Launches:
+    """What :func:`spy_launches` saw, by wrapper: every call, and of those
+    the launches.  A call launches its kernel when it runs on card tensors
+    outside a CUDA graph's capture: on CPU tensors the wrapper runs its
+    plain version, and under capture the work is recorded into the graph,
+    whose replays call no wrapper.  Calls may come from several threads at
+    once (the micro-batcher's executors and an inline caller), so each
+    record takes a lock."""
+
+    def __init__(self, names) -> None:
+        self.names = tuple(names)
+        self._lock = threading.Lock()
+        self._calls = collections.Counter()
+        self._launches = collections.Counter()
+
+    def record(self, name: str, launched: bool) -> None:
+        with self._lock:
+            self._calls[name] += 1
+            self._launches[name] += launched
+
+    def reset(self) -> None:
+        with self._lock:
+            self._calls.clear()
+            self._launches.clear()
+
+    def calls(self) -> dict:
+        with self._lock:
+            return {name: self._calls[name] for name in self.names}
+
+    def launches(self) -> dict:
+        with self._lock:
+            return {name: self._launches[name] for name in self.names}
+
+
+def _launched(args, kwargs) -> bool:
     import torch
 
-    before = dict(wrapper.launches_by_loop)
-    out = call()
+    on_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kwargs.values()))
+    return on_card and not torch.cuda.is_current_stream_capturing()
+
+
+def _spy_on(module, name, seen):
+    wrapper = getattr(module, name)
+
+    @functools.wraps(wrapper)
+    def spy(*args, **kwargs):
+        out = wrapper(*args, **kwargs)  # a call that raises launched nothing
+        seen.record(name, _launched(args, kwargs))
+        return out
+
+    return wrapper, spy
+
+
+@contextlib.contextmanager
+def spy_launches(names=tuple(KERNEL_WRAPPERS)):
+    """Inside, each kernel wrapper named in ``names`` (default: all of
+    :data:`KERNEL_WRAPPERS`) is replaced in its module by a spy that calls
+    it and records the call; yields the :class:`Launches`.  Only calls that
+    look the wrapper up in its module are seen, as every caller in the port
+    does.  The scoring loop a launch ran is the loop rule's answer for its
+    inputs (``topk.scoring_loop``, ``quantized.int8_scoring_loop``,
+    ``ivf_scan.ivf_scoring_loop``), which the caller checks.  The wrappers
+    are restored on leaving; spies nest."""
+    seen = Launches(names)
+    swapped = []
+    try:
+        for name in names:
+            module = importlib.import_module(f"photo_search_engine_tpu_torch.ops.{KERNEL_WRAPPERS[name]}")
+            wrapper, spy = _spy_on(module, name, seen)
+            setattr(module, name, spy)
+            swapped.append((module, name, wrapper))
+        yield seen
+    finally:
+        for module, name, wrapper in reversed(swapped):
+            setattr(module, name, wrapper)
+
+
+def launch_once(wrapper, call):
+    """``call()``, which must launch ``wrapper``'s kernel once
+    (:func:`spy_launches`); returns what it returns."""
+    import torch
+
+    name = wrapper.__name__
+    with spy_launches((name,)) as seen:
+        out = call()
     torch.cuda.synchronize()
-    after = wrapper.launches_by_loop
-    assert after[loop] == before[loop] + 1 and sum(after.values()) == sum(before.values()) + 1, (
-        f"{wrapper.__name__}: expected one launch on {loop}, {before} -> {after}")
+    assert seen.launches()[name] == 1, f"{name}: expected one launch, saw {seen.launches()[name]}"
     return out
 
 
@@ -135,8 +223,8 @@ def fma_loop():
     (the f32 C entries' ``ring = 0``) in kernels 1, 3, 4, 5 and 7: the loop
     rules ``topk.scoring_loop`` (also as ``grouped_mask`` imported it) and
     ``ivf_scan.ivf_scoring_loop`` answer ``"fma"`` for float32, so the
-    wrappers launch it and count it there.  The reference of the f32 ring's
-    bit-for-bit checks."""
+    wrappers launch it.  The reference of the f32 ring's bit-for-bit
+    checks."""
     import torch
 
     from photo_search_engine_tpu_torch.ops import grouped_mask, ivf_scan, topk
